@@ -1,0 +1,113 @@
+"""Weights bridge: a Flax VSSM variable tree -> the port's state dict.
+
+The JAX package's variables are ``{"params": ..., "batch_stats": ...}``,
+nested dicts whose leaves are arrays (numpy, or anything ``np.asarray``
+takes). The port's modules keep the Flax child names, except for Flax's
+auto-named children, so each leaf maps by its path:
+
+- ``ConvBranch_0`` -> ``conv_branch``, ``BatchNorm_k`` -> ``bn{k}``,
+  ``Conv_k`` -> ``conv{k}``;
+- Dense ``kernel`` (in, out) -> ``weight`` (out, in);
+- Conv ``kernel`` HWIO -> ``weight`` OIHW (depthwise (3, 3, 1, C) ->
+  (C, 1, 3, 3));
+- LayerNorm/BatchNorm ``scale`` -> ``weight``, ``bias`` -> ``bias``;
+- BatchNorm ``mean``/``var`` (batch_stats) -> ``running_mean``/``running_var``;
+- the raw SS2D parameters (``x_proj_weight``, ``dt_projs_weight``,
+  ``dt_projs_bias``, ``A_logs``, ``Ds``) as they are.
+
+Every leaf must land on a parameter or buffer of the module and every
+parameter or buffer must be covered (BatchNorm's ``num_batches_tracked``
+counter aside, which Flax does not keep), or the bridge raises.
+"""
+
+from __future__ import annotations
+
+import re
+from collections.abc import Mapping
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_RAW_SS2D = {"x_proj_weight", "dt_projs_weight", "dt_projs_bias", "A_logs", "Ds"}
+_RENAMES = (
+    (re.compile(r"^ConvBranch_0$"), "conv_branch"),
+    (re.compile(r"^BatchNorm_(\d+)$"), r"bn\1"),
+    (re.compile(r"^Conv_(\d+)$"), r"conv\1"),
+)
+_COLLECTIONS = ("params", "batch_stats")
+
+
+def _walk(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _walk(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def _module_name(name: str) -> str:
+    for pat, repl in _RENAMES:
+        if pat.match(name):
+            return pat.sub(repl, name)
+    return name
+
+
+def _convert_leaf(collection: str, path, arr: np.ndarray):
+    leaf = path[-1]
+    where = "/".join((collection,) + tuple(path))
+    if collection == "batch_stats":
+        names = {"mean": "running_mean", "var": "running_var"}
+        if leaf not in names:
+            raise KeyError(f"unmapped batch_stats leaf {where}")
+        return names[leaf], arr
+    if leaf == "kernel":
+        if arr.ndim == 2:
+            return "weight", arr.T
+        if arr.ndim == 4:
+            return "weight", arr.transpose(3, 2, 0, 1)
+        raise ValueError(f"{where}: kernel of rank {arr.ndim}")
+    if leaf == "scale":
+        return "weight", arr
+    if leaf == "bias" or leaf in _RAW_SS2D:
+        return leaf, arr
+    raise KeyError(f"unmapped params leaf {where}")
+
+
+def vssm_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """Map a Flax VSSM / classifier variable tree to state-dict entries."""
+    extra = sorted(set(variables) - set(_COLLECTIONS))
+    if extra:
+        raise KeyError(f"unmapped variable collections {extra}")
+    out: Dict[str, torch.Tensor] = {}
+    for collection in _COLLECTIONS:
+        for path, arr in _walk(variables.get(collection, {})):
+            name, value = _convert_leaf(collection, path, arr)
+            key = ".".join([_module_name(m) for m in path[:-1]] + [name])
+            if key in out:
+                raise KeyError(f"two leaves map to {key}")
+            out[key] = torch.from_numpy(np.array(value, np.float32, order="C"))
+    return out
+
+
+def load_jax_variables(module: nn.Module, variables) -> nn.Module:
+    """Copy a Flax variable tree into ``module`` in place (onto its device);
+    raises on any leaf left over in either direction or any shape
+    mismatch."""
+    sd = vssm_state_dict_from_jax(variables)
+    want = {k: v for k, v in module.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+    missing = sorted(set(want) - set(sd))
+    unexpected = sorted(set(sd) - set(want))
+    if missing or unexpected:
+        raise KeyError(
+            f"JAX variables do not match the module: missing {missing}, "
+            f"unexpected {unexpected}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(want[k].shape):
+            raise ValueError(
+                f"{k}: JAX leaf has shape {tuple(v.shape)}, module expects "
+                f"{tuple(want[k].shape)}")
+    module.load_state_dict(sd, strict=False)
+    return module
