@@ -9,8 +9,8 @@ on failure:
 
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: compiles both CUDA kernels from ``csrc/``, one nvcc each, started
-   together, and prints ptxas' registers and spills;
+2. build: compiles the three CUDA kernels from ``csrc/``, one nvcc each,
+   started together, and prints ptxas' registers and spills;
 3. kernel against plain: ``selective_scan_fwd`` against the plain loop on
    the card at the medmamba stage shapes (batch 2), a ragged shape, fp32
    and bf16, softplus on and off; gate: max|y_k - y_p| / max|y_p| <= 5e-4,
@@ -39,7 +39,28 @@ on failure:
    from the same state (loss and grad norm within one bf16 ulp, 2^-8,
    relative). Prints ms per step, train img/s, peak device memory and the
    scan kernels' ms per step;
-7. prints the kernels line, then the device line last.
+7. flash kernel against plain: ``flash_attn_fwd`` against the plain
+   (einsum) interior at h = 12, hd = 64, batch 2: T = 197 unmasked; T = 256
+   with a prefix, a non-prefix, a one-key and an all-masked key row; the
+   trimmed text context 224; a ragged 77; and hd 32 and 128; fp32 and bf16;
+   gate max|o_k - o_p| / max|o_p| <= 5e-4 (fp32) and 2e-2 (bf16), and the
+   all-masked row must be the mean of v. Then, at batch 64 in bf16, the
+   kernel, the plain interior and ``F.scaled_dot_product_attention`` (the
+   library yardstick, never on the path) are timed at the ViT shape
+   (T 197) and the BERT shape (T 256, masks of tokenized report-like text)
+   beside the bound;
+8. CLIP serving: full-width BiomedCLIP (ViT-B/16 + the 12-layer BERT, bf16
+   compute, ``attn_impl="flash"``, random weights from seed 0) answers 16
+   concurrent ``image_embed`` and 16 concurrent ``text_embed`` requests
+   through two ``MicroBatcher``s; the embeddings must be finite unit
+   vectors, the counters must show 12 flash launches per dispatched batch
+   and no scan launch, and the ``attn_impl="einsum"`` model on the same
+   weights must agree within 2e-2; the 24 interiors of one image and one
+   text forward are each held against the plain interior at the bf16
+   gate; the VSSM-towered CLIP's ``image_embed`` must make 14 scan
+   launches and no flash launch, its ``text_embed`` 12 flash launches;
+   then image/s and texts/s at batch 64, flash and einsum;
+9. prints the kernels line, then the device line last.
 """
 
 from __future__ import annotations
@@ -58,14 +79,26 @@ SRC = ROOT / "src"
 GATE_REL = 5e-4          # the gate bench.py put on the Pallas kernel
 PROBS_ATOL = 2e-2        # kernel vs plain scan, end to end, bf16 activations
 TRAIN_REL = 2.0**-8      # kernel vs plain scan, train step loss and grad norm: one bf16 ulp
-KERNELS = ("selective_scan_fwd", "selective_scan_bwd")
+# flash kernel vs plain interior: fp32 as GATE_REL; bf16 also covers the plain
+# interior rounding the scores and the normalized probabilities to bf16
+ATTN_GATE = {"fp32": GATE_REL, "bf16": 2e-2}
+KERNELS = ("selective_scan_fwd", "selective_scan_bwd", "flash_attn_fwd")
 GRAD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TC_FLOPS = 989.4e12  # dense bf16 tensor-core peak
 SFU_OPS_PER_CLK_SM = 16  # exp2 throughput per SM per clock, compute capability 9.0
 STAGES = [(3136, 64), (784, 128), (196, 256), (49, 512)]  # (L, DG) per medmamba stage
 BLOCKS_PER_STAGE = [2, 2, 8, 2]
+REPORTS = [
+    "Dermoscopy of a pigmented lesion on the upper back of a 45 year old male.",
+    "Lesion: left forearm, diameter 6.2 mm; border irregular, two colours, asymmetric. "
+    "History of melanoma in the family; atypical network, blue-white veil, regression "
+    "structures and dotted vessels; no ulceration; follow-up in 3 months advised.",
+    "Benign-appearing nevus.",
+    "Female, 71. Scalp. Ulcerated nodule, 11 mm, rapid growth over 3 months. ",
+]
 
 
 def fail(msg: str) -> None:
@@ -165,6 +198,22 @@ def scan_bound(Bsz, L, DG, itemsize, sfu_rate, G=4, N=16):
     }, sfu_rate)
 
 
+def attn_bound(Bsz, T, h, hd, itemsize, masked, sfu_rate):
+    """Least time for one attention interior: q, k, v read and o written
+    once (and the mask byte per key) over the HBM rate; 4*B*h*T^2*hd FLOPs
+    (q.k^T and p.v) over the bf16 tensor-core peak; B*h*T^2 exps over the
+    exp rate. The bound is the largest of the three."""
+    terms = {"bytes": 4 * Bsz * T * h * hd * itemsize + (Bsz * T if masked else 0),
+             "flops": 4 * Bsz * h * T * T * hd, "exps": Bsz * h * T * T}
+    times = {"bytes": terms["bytes"] / HBM_BYTES_PER_S,
+             "flops": terms["flops"] / BF16_TC_FLOPS, "exps": terms["exps"] / sfu_rate}
+    worst = max(times, key=times.get)
+    terms.update({f"{k}_ms": 1e3 * t for k, t in times.items()},
+                 bound_ms=1e3 * times[worst],
+                 bound_by="bytes" if worst == "bytes" else "operations")
+    return terms
+
+
 def rel_errs(got, want):
     """max|g - w| / max|w| and max|g - w| of each pair."""
     out = []
@@ -185,7 +234,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test runs on the card only")
     sys.path.insert(0, str(SRC))
+    import torch.nn.functional as F
+
+    from mamba_clip_tpu_torch.data.tokenizer import HashTokenizer
+    from mamba_clip_tpu_torch.models import vit as vit_mod
     from mamba_clip_tpu_torch.ops import cuda_build
+    from mamba_clip_tpu_torch.ops.flash_attn import (
+        attention_plain, flash_attention_interior, flash_attn_fwd)
+    from mamba_clip_tpu_torch.profile_embed import report_tokens
     from mamba_clip_tpu_torch.ops.selective_scan import (
         _scan_tm_plain, _scan_tm_plain_bwd, selective_scan_bwd, selective_scan_fwd,
         selective_scan_tm)
@@ -563,14 +619,261 @@ def main() -> None:
         f"{peak / 2**30:.2f} GiB allocated; scan forward {fwd_hck_step:.3f} ms and backward "
         f"{bwd_k_step:.3f} ms per step, on {card}")
 
-    # 7. kernels line, then the device line
+    # 7. flash kernel against plain
+    def attn_inputs(Bsz, T, h, hd, dtype, valid=None, seed=0):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q, k, v = (torch.randn(Bsz, T, h, hd, generator=g, device="cuda").to(dtype)
+                   for _ in range(3))
+        mask = None if valid is None else torch.as_tensor(valid, device="cuda")[:, None, None, :]
+        return q, k, v, mask
+
+    def rows(T, *kinds, seed=0):
+        """A [len(kinds), T] key mask: ``prefix:n`` keeps the first n keys,
+        ``holes`` drops about 40% of the keys at random (the first kept),
+        ``one`` keeps key 0 only, ``none`` masks every key."""
+        rs = np.random.RandomState(seed)
+        out = np.ones((len(kinds), T), bool)
+        for i, kind in enumerate(kinds):
+            if kind.startswith("prefix:"):
+                out[i, int(kind[7:]):] = False
+            elif kind == "holes":
+                out[i] = rs.rand(T) < 0.6
+                out[i, 0] = True
+            elif kind == "one":
+                out[i, 1:] = False
+            elif kind == "none":
+                out[i] = False
+        return out
+
+    attn_worst = {"fp32": 0.0, "bf16": 0.0}
+    attn_abs = 0.0
+    cases = [
+        (197, 12, 64, None, "ViT, no mask"),
+        (256, 12, 64, rows(256, "prefix:180", "holes", seed=1), "prefix + non-prefix"),
+        (256, 12, 64, rows(256, "one", "none"), "one valid key + all masked"),
+        (224, 12, 64, HashTokenizer(context_length=224)(REPORTS[:2]) != HashTokenizer.PAD,
+         "trimmed text context"),
+        (77, 12, 64, rows(77, "prefix:50", "holes", seed=2), "ragged"),
+        (77, 4, 32, rows(77, "holes", "none", seed=3), "hd 32"),
+        (77, 2, 128, rows(77, "prefix:9", "none"), "hd 128"),
+    ]
+    for T, h, hd, valid, label in cases:
+        for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            q, k, v, mask = attn_inputs(2, T, h, hd, dtype, valid, seed=T + hd)
+            with torch.inference_mode():
+                o_k = flash_attention_interior(q, k, v, mask, sm_scale=hd**-0.5, impl="cuda")
+                o_p = attention_plain(q, k, v, mask, sm_scale=hd**-0.5)
+            torch.cuda.synchronize()
+            (rel, abs_err), = rel_errs([o_k], [o_p])
+            ok = bool(torch.isfinite(o_k).all()) and rel <= ATTN_GATE[name]
+            if valid is not None and not valid[1].any():  # the all-masked row: the mean of v
+                (rel_m, _), = rel_errs([o_k[1]], [v[1].float().mean(0).reshape(1, -1)])
+                ok = ok and rel_m <= ATTN_GATE[name]
+            say(f"flash B=2 T={T} h={h} hd={hd} {name} ({label}): rel_err {rel:.3e} "
+                f"abs_err {abs_err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"flash_attn_fwd disagrees with the plain interior at T={T} hd={hd} {name}")
+            attn_worst[name] = max(attn_worst[name], rel)
+            attn_abs = max(attn_abs, abs_err)
+
+    # at the serving batch (64) and type (bf16): the ViT and BERT shapes
+    attn_shapes = {}
+    for tower, T, valid in (("vit", 197, None),
+                            ("bert", 256, report_tokens(64) != HashTokenizer.PAD)):
+        q, k, v, mask = attn_inputs(64, T, 12, 64, torch.bfloat16, valid, seed=5)
+        sm = 64**-0.5
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        with torch.inference_mode():
+            o_k = flash_attention_interior(q, k, v, mask, sm_scale=sm, impl="cuda")
+            o_p = attention_plain(q, k, v, mask, sm_scale=sm)
+            (rel, abs_err), = rel_errs([o_k], [o_p])
+            ms_k = cuda_ms(lambda: flash_attention_interior(q, k, v, mask, sm_scale=sm,
+                                                            impl="cuda"), 20)
+            ms_p = cuda_ms(lambda: attention_plain(q, k, v, mask, sm_scale=sm), 20)
+            ms_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=sm), 20)
+        if rel > ATTN_GATE["bf16"]:
+            fail(f"flash_attn_fwd disagrees with the plain interior at the {tower} shape")
+        attn_worst["bf16"] = max(attn_worst["bf16"], rel)
+        attn_abs = max(attn_abs, abs_err)
+        bound = attn_bound(64, T, 12, 64, 2, valid is not None, sfu_rate)
+        attn_shapes[tower] = {"B": 64, "T": T, "h": 12, "hd": 64, "dtype": "bf16",
+                              "masked": valid is not None, "launches_per_forward": 12,
+                              "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l, **bound,
+                              "max_rel_err": rel}
+        say(f"flash B=64 T={T} bf16 ({tower}): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+            f"scaled_dot_product_attention {ms_l:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}), rel_err {rel:.3e}")
+        del q, k, v, qt, kt, vt, o_k, o_p
+    say(json.dumps({"flash_attn_fwd_shapes": attn_shapes, "card": card}))
+
+    # 8. CLIP serving at full width
+    clip, cfns, cmeta = make_serving_fns(
+        "biomedclip", is_clip=True, attn_impl="flash", precision="amp", device="cuda",
+        generator=torch.Generator().manual_seed(0))
+    clip_e, efns, _ = make_serving_fns(
+        "biomedclip", is_clip=True, attn_impl="einsum", precision="amp", device="cuda",
+        generator=torch.Generator().manual_seed(1))
+    clip_e.load_state_dict(clip.state_dict())
+    n_params = sum(p.numel() for p in clip.parameters())
+    say(f"clip serving: biomedclip {n_params / 1e6:.2f} M parameters, image "
+        f"{cmeta['image_size']}, staging {cmeta['staging_size']}, context "
+        f"{cmeta['context_length']}, precision {cmeta['precision']}, attn_impl flash")
+    S = cmeta["staging_size"]
+    c_req = {"image_embed": [rs.randint(0, 256, (1, S, S, 3), dtype=np.uint8)
+                             for _ in range(16)],
+             "text_embed": list(HashTokenizer(context_length=cmeta["context_length"])(
+                 [REPORTS[i % len(REPORTS)] * (1 + i % 5) for i in range(16)])[:, None])}
+    for name, reqs in c_req.items():  # first calls: cuBLAS set-up, not counted
+        cfns[name](clip, reqs[0])
+        efns[name](clip_e, reqs[0])
+    torch.cuda.synchronize()
+    c_ans = {name: [None] * 16 for name in c_req}
+    errors = []
+    barrier = threading.Barrier(32)
+
+    def clip_client(name, i):
+        try:
+            barrier.wait(timeout=60)
+            c_ans[name][i] = batchers[name](c_req[name][i])
+        except Exception as e:  # reported below; the phase fails
+            errors.append(f"{name} request {i}: {e!r}")
+
+    selective_scan_fwd.launches = selective_scan_bwd.launches = flash_attn_fwd.launches = 0
+    batchers = {name: MicroBatcher(lambda x, f=cfns[name]: f(clip, x), max_batch=16,
+                                   max_delay_ms=100.0) for name in c_req}
+    t0 = time.time()
+    threads = [threading.Thread(target=clip_client, args=(name, i))
+               for name in c_req for i in range(16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    for mb in batchers.values():
+        mb.close()
+    wall = time.time() - t0
+    clip_flash = flash_attn_fwd.launches
+    clip_scans = selective_scan_fwd.launches + selective_scan_bwd.launches
+    if errors or any(t.is_alive() for t in threads):
+        fail(f"clip serving: {errors or 'a request did not finish'}")
+    n_batches = sum(mb.batches for mb in batchers.values())
+    say(f"clip serving: {sum(mb.requests for mb in batchers.values())} requests in "
+        f"{n_batches} batches (image rows {batchers['image_embed'].batch_rows}, text rows "
+        f"{batchers['text_embed'].batch_rows}) in {wall:.3f} s; flash_attn_fwd launches "
+        f"{clip_flash}, scan launches {clip_scans}")
+    if any(mb.requests != 16 for mb in batchers.values()):
+        fail("MicroBatcher did not answer every CLIP request")
+    if clip_flash != 12 * n_batches or clip_scans != 0:
+        fail(f"{clip_flash} flash and {clip_scans} scan launches for {n_batches} batches, "
+             "expected 12 flash launches each and no scan")
+    clip_diff = 0.0
+    for name, reqs in c_req.items():
+        got = np.concatenate(c_ans[name])
+        norms = np.linalg.norm(got, axis=-1)
+        if got.shape != (16, 512) or not np.isfinite(got).all() or \
+                np.abs(norms - 1.0).max() > 1e-3:
+            fail(f"{name}: shape {got.shape}, norms {norms.min():.5f}..{norms.max():.5f}")
+        want = efns[name](clip_e, np.concatenate(reqs)).cpu().numpy()
+        diff = float(np.abs(got - want).max())
+        clip_diff = max(clip_diff, diff)
+        say(f"clip serving: {name} norms {norms.min():.6f}..{norms.max():.6f}; max "
+            f"|flash - einsum| = {diff:.3e} (bound {PROBS_ATOL:g})")
+        if diff > PROBS_ATOL:
+            fail(f"{name} with the flash kernel differs from einsum by {diff:.3e}")
+
+    # Hold each of the 24 attention interiors of one image and one text
+    # forward, on its own inputs, against the plain interior.
+    calls = []
+    interior = vit_mod.flash_attention_interior
+
+    def recording_interior(q, k, v, pad_mask=None, *, sm_scale, impl=None):
+        o = interior(q, k, v, pad_mask, sm_scale=sm_scale, impl=impl)
+        calls.append((q, k, v, pad_mask, sm_scale, o))
+        return o
+
+    vit_mod.flash_attention_interior = recording_interior
+    try:
+        for name, reqs in c_req.items():
+            cfns[name](clip, np.concatenate(reqs))
+    finally:
+        vit_mod.flash_attention_interior = interior
+    if len(calls) != 24:
+        fail(f"one image and one text forward made {len(calls)} attention calls, expected 24")
+    rec_attn = 0.0
+    for q, k, v, pad_mask, sm_scale, o_k in calls:
+        with torch.inference_mode():
+            o_p = attention_plain(q, k, v, pad_mask, sm_scale=sm_scale)
+        (rel, abs_err), = rel_errs([o_k], [o_p])
+        rec_attn = max(rec_attn, rel)
+        attn_abs = max(attn_abs, abs_err)
+        if not rel <= ATTN_GATE["bf16"]:
+            fail(f"flash_attn_fwd disagrees with the plain interior on a served batch's "
+                 f"inputs (T={q.shape[1]}): rel err {rel:.3e}")
+    say(f"clip serving: the 24 recorded interiors (12 T={calls[0][0].shape[1]}, 12 "
+        f"T={calls[-1][0].shape[1]}) agree with the plain interior: worst rel_err "
+        f"{rec_attn:.3e} (gate {ATTN_GATE['bf16']:g})")
+    attn_worst["bf16"] = max(attn_worst["bf16"], rec_attn)
+    del calls
+
+    # the VSSM-towered CLIP: its image tower runs the scan, its text tower flash
+    mm_clip, mm_fns, _ = make_serving_fns(
+        "medmamba", is_clip=True, attn_impl="flash", precision="amp", device="cuda",
+        generator=torch.Generator().manual_seed(2))
+    mm_launches = {}
+    for name, reqs in c_req.items():
+        selective_scan_fwd.launches = flash_attn_fwd.launches = 0
+        out = mm_fns[name](mm_clip, np.concatenate(reqs))
+        torch.cuda.synchronize()
+        mm_launches[name] = {"scan": selective_scan_fwd.launches, "flash": flash_attn_fwd.launches}
+        if out.shape != (16, 512) or not torch.isfinite(out).all():
+            fail(f"medmamba CLIP {name} gave a bad result")
+    say(f"clip serving: medmamba CLIP launches {mm_launches}")
+    if mm_launches != {"image_embed": {"scan": 14, "flash": 0},
+                       "text_embed": {"scan": 0, "flash": 12}}:
+        fail("the VSSM-towered CLIP: expected 14 scan launches for image_embed and 12 "
+             "flash launches for text_embed")
+    del mm_clip
+
+    # rows/s at batch 64 on device-resident input, flash and einsum
+    x64 = {"image_embed": torch.from_numpy(
+        rs.randint(0, 256, (64, S, S, 3), dtype=np.uint8)).cuda(),
+        "text_embed": torch.from_numpy(report_tokens(64, cmeta["context_length"])).cuda()}
+    clip_rates = {}
+    for impl, fns_, model_ in (("flash", cfns, clip), ("einsum", efns, clip_e)):
+        for name, x in x64.items():
+            fns_[name](model_, x)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                out = fns_[name](model_, x)
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / 10
+            if out.shape != (64, 512) or not torch.isfinite(out).all():
+                fail(f"{name} ({impl}) at batch 64 gave a bad result")
+            clip_rates[f"{name}_{impl}_ms"] = dt * 1e3
+            clip_rates[f"{name}_{impl}_rows_per_s"] = 64 / dt
+            say(f"clip serving: {name} bs 64 attn_impl={impl}: {dt * 1e3:.2f} ms/batch, "
+                f"{64 / dt:.1f} {'img' if name == 'image_embed' else 'texts'}/s on {card}")
+    say(json.dumps({"clip_serving": {"card": card, "parameters": n_params, **clip_rates,
+                                     "flash_launches": clip_flash, "batches": n_batches,
+                                     "max_abs_flash_vs_einsum": clip_diff,
+                                     "recorded_interiors_max_rel_err": rec_attn,
+                                     "medmamba_clip_launches": mm_launches}}))
+
+    # 9. kernels line, then the device line
+    per_fwd = {key: sum(12 * attn_shapes[t][key] for t in attn_shapes)
+               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    attn_by = {"bytes": 0.0, "operations": 0.0}
+    for shape in attn_shapes.values():
+        attn_by[shape["bound_by"]] += shape["bound_ms"]
     say(json.dumps({"kernels": [{
         "name": "selective_scan_fwd",
         "route": "cuda",
         "source": "src/mamba_clip_tpu_torch/csrc/selective_scan_fwd.cu",
         "replaces": "src/mamba_clip_tpu/ops/selective_scan.py:194",
         "launches": launches + train_fwd,
-        "launches_by_path": {"serve": launches, "train": train_fwd},
+        "launches_by_path": {"serve": launches, "train": train_fwd, "clip_serve": clip_scans,
+                             "medmamba_clip_image_embed": mm_launches["image_embed"]["scan"]},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": fwd_k,
@@ -592,6 +895,22 @@ def main() -> None:
         "bound_ms": bwd_bound_step,
         "bound_by": max(bwd_terms, key=bwd_terms.get),
         "library_ms": None,
+    }, {
+        "name": "flash_attn_fwd",
+        "route": "cuda",
+        "source": "src/mamba_clip_tpu_torch/csrc/flash_attn_fwd.cu",
+        "replaces": "src/mamba_clip_tpu/ops/flash_attn.py:75",
+        "launches": clip_flash,
+        "launches_by_path": {"clip_serve": clip_flash,
+                             "medmamba_clip_text_embed": mm_launches["text_embed"]["flash"]},
+        "max_abs_err": attn_abs,
+        "max_rel_err": attn_worst,
+        # per image_embed + text_embed pair at batch 64: 12 ViT + 12 BERT launches
+        "ms": per_fwd["ms"],
+        "plain_ms": per_fwd["plain_ms"],
+        "bound_ms": per_fwd["bound_ms"],
+        "bound_by": max(attn_by, key=attn_by.get),
+        "library_ms": per_fwd["library_ms"],
     }]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

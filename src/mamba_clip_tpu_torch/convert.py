@@ -1,4 +1,5 @@
-"""Weights bridge: a Flax VSSM variable tree -> the port's state dict.
+"""Weights bridge: a Flax variable tree (VSSM classifier, ViT, BERT or
+CLIP) -> the port's state dict.
 
 The JAX package's variables are ``{"params": ..., "batch_stats": ...}``,
 nested dicts whose leaves are arrays (numpy, or anything ``np.asarray``
@@ -10,10 +11,13 @@ auto-named children, so each leaf maps by its path:
 - Dense ``kernel`` (in, out) -> ``weight`` (out, in);
 - Conv ``kernel`` HWIO -> ``weight`` OIHW (depthwise (3, 3, 1, C) ->
   (C, 1, 3, 3));
+- Embed ``embedding`` (vocab, width) -> ``weight`` as it is;
 - LayerNorm/BatchNorm ``scale`` -> ``weight``, ``bias`` -> ``bias``;
 - BatchNorm ``mean``/``var`` (batch_stats) -> ``running_mean``/``running_var``;
 - the raw SS2D parameters (``x_proj_weight``, ``dt_projs_weight``,
-  ``dt_projs_bias``, ``A_logs``, ``Ds``) as they are.
+  ``dt_projs_bias``, ``A_logs``, ``Ds``) and the raw parameters of the
+  towers and the CLIP wrapper (``cls_token``, ``pos_embed``, ``pos_emb``,
+  ``type_emb``, ``logit_scale``, ``logit_bias``) as they are.
 
 Every leaf must land on a parameter or buffer of the module and every
 parameter or buffer must be covered (BatchNorm's ``num_batches_tracked``
@@ -30,7 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
-_RAW_SS2D = {"x_proj_weight", "dt_projs_weight", "dt_projs_bias", "A_logs", "Ds"}
+_RAW = {"x_proj_weight", "dt_projs_weight", "dt_projs_bias", "A_logs", "Ds",
+        "cls_token", "pos_embed", "pos_emb", "type_emb", "logit_scale", "logit_bias"}
 _RENAMES = (
     (re.compile(r"^ConvBranch_0$"), "conv_branch"),
     (re.compile(r"^BatchNorm_(\d+)$"), r"bn\1"),
@@ -68,15 +73,15 @@ def _convert_leaf(collection: str, path, arr: np.ndarray):
         if arr.ndim == 4:
             return "weight", arr.transpose(3, 2, 0, 1)
         raise ValueError(f"{where}: kernel of rank {arr.ndim}")
-    if leaf == "scale":
+    if leaf in ("scale", "embedding"):
         return "weight", arr
-    if leaf == "bias" or leaf in _RAW_SS2D:
+    if leaf == "bias" or leaf in _RAW:
         return leaf, arr
     raise KeyError(f"unmapped params leaf {where}")
 
 
-def vssm_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """Map a Flax VSSM / classifier variable tree to state-dict entries."""
+def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """Map a Flax variable tree to state-dict entries."""
     extra = sorted(set(variables) - set(_COLLECTIONS))
     if extra:
         raise KeyError(f"unmapped variable collections {extra}")
@@ -95,7 +100,7 @@ def load_jax_variables(module: nn.Module, variables) -> nn.Module:
     """Copy a Flax variable tree into ``module`` in place (onto its device);
     raises on any leaf left over in either direction or any shape
     mismatch."""
-    sd = vssm_state_dict_from_jax(variables)
+    sd = state_dict_from_jax(variables)
     want = {k: v for k, v in module.state_dict().items()
             if not k.endswith("num_batches_tracked")}
     missing = sorted(set(want) - set(sd))

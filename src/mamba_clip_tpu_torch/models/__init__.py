@@ -1,7 +1,7 @@
 """Model zoo + factory, in PyTorch.
 
-Counterpart of ``mamba_clip_tpu/models/__init__.py``; only the classifier
-zoo over the VSSM family is ported so far.
+Counterpart of ``mamba_clip_tpu/models/__init__.py``: the classifier zoo
+over the VSSM family, and the CLIP model with its towers (eval path).
 """
 
 from __future__ import annotations
@@ -10,7 +10,17 @@ from typing import Optional
 
 import torch
 
+from .clip import (
+    LOGIT_SCALE_MAX,
+    ClipModel,
+    VssmTower,
+    build_clip,
+    l2_normalize,
+    resolve_gelu_approx,
+)
 from .heads import MambaVisionClassifier
+from .text_bert import BertBlock, TextBert
+from .vit import EncoderBlock, FusedAttention, MlpBlock, VisionTransformer
 from .vssm import (
     SS2D,
     VSSM,
@@ -23,6 +33,9 @@ from .vssm import (
 )
 
 __all__ = [
+    "ClipModel", "VssmTower", "build_clip", "l2_normalize", "resolve_gelu_approx",
+    "LOGIT_SCALE_MAX", "VisionTransformer", "EncoderBlock", "FusedAttention",
+    "MlpBlock", "TextBert", "BertBlock",
     "MambaVisionClassifier", "VSSM", "SS2D", "SSConvSSM", "ConvBranch",
     "VSSLayer", "PatchEmbed2D", "PatchMerging2D", "medmamba",
     "build_classifier",

@@ -44,14 +44,17 @@ from ..ops.selective_scan import selective_scan_tm
 
 # std of a standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
+_ERF_2 = math.erf(2.0 / math.sqrt(2.0))
 
 
 def _trunc_normal_(t: torch.Tensor, std: float, generator) -> torch.Tensor:
     """flax ``truncated_normal(stddev)``: a standard normal cut to [-2, 2],
-    times ``std``."""
+    times ``std``, drawn as ``jax.random.truncated_normal`` draws it: the
+    inverse error function of a uniform on [-erf(2/sqrt(2)), erf(2/sqrt(2))],
+    times sqrt(2)."""
     with torch.no_grad():
-        nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
-        return t.mul_(std)
+        t.uniform_(-_ERF_2, _ERF_2, generator=generator).erfinv_()
+        return t.mul_(math.sqrt(2.0) * std)
 
 
 def _conv_kaiming_(w: torch.Tensor, generator) -> torch.Tensor:

@@ -1,12 +1,14 @@
 """Serving entry points, in PyTorch.
 
-Counterpart of ``mamba_clip_tpu/serving.py::make_serving_fns`` for the
-classifier zoo: ``classify`` takes raw ``uint8 [B, staging, staging, 3]``
-images (the host JPEG-decode wire format), runs the eval preprocess and the
-model on the model's device, and returns fp32 class probabilities. The CLIP
-towers (``image_embed``/``text_embed``) and the exported-artifact path
-(``export_serving``, ``load_serving``, ``compress_params``) are not ported
-yet (ROADMAP.md).
+Counterpart of ``mamba_clip_tpu/serving.py::make_serving_fns``. The
+classifier zoo gets ``classify``: raw ``uint8 [B, staging, staging, 3]``
+images (the host JPEG-decode wire format) -> eval preprocess -> model ->
+fp32 class probabilities. The CLIP models (``is_clip``, or a non-mamba
+name) get ``image_embed`` (uint8 images -> L2-normalized fp32
+``[B, embed_dim]``) and ``text_embed`` (int32 ``[B, context]`` tokens ->
+the same). Everything runs on the model's device. The exported-artifact
+path (``export_serving``, ``load_serving``, ``compress_params``) is not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Optional
 import torch
 
 from .data.preprocess_cfg import get_transform_config
-from .models import build_classifier
+from .models import build_classifier, build_clip
+from .ops.flash_attn import resolve_attn_flash
 from .ops.preprocess import eval_preprocess
 from .utils.precision import get_policy
 
@@ -35,13 +38,17 @@ def make_serving_fns(
     vocab_size: int = 30522,
     generator: Optional[torch.Generator] = None,
     device: str | torch.device = "cuda",
+    attn_impl: Optional[str] = "einsum",
 ):
     """Build ``(model, {entry_point: fn(model, x)}, meta)`` for serving.
 
     The model is initialized on the CPU from ``generator`` (seed 0 when
     None), then moved to ``device`` in eval mode; load trained weights with
     ``convert.load_jax_variables`` or ``load_state_dict``. ``device`` is the
-    card unless the caller asks for the CPU.
+    card unless the caller asks for the CPU. ``attn_impl`` (``--attn-impl``,
+    the CLIP models only): ``einsum`` runs the plain attention interior,
+    ``flash`` the flash interior, whose CUDA kernel every attention of both
+    towers launches on the card.
     """
     if quant in ("int8_delayed", "int8_delayed_attn"):
         raise ValueError(
@@ -50,33 +57,53 @@ def make_serving_fns(
             "--quant int8_serve (per-channel weight scales) instead -- "
             "checkpoints trained under int8_delayed load fine either way"
         )
-    if is_clip or not (
-        model_name in (None, "vssm", "medmamba") or "mamba" in str(model_name)
-    ):
-        raise NotImplementedError(
-            "image_embed/text_embed need the CLIP towers, which are not "
-            "ported yet (ROADMAP.md, Queue 1, 'Towers and the CLIP wrapper')")
     policy = get_policy(precision)
     tcfg = get_transform_config(None, image_size, is_train=False)
     dev = torch.device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
 
-    model = build_classifier(
-        model_name, num_classes=num_classes, dtype=policy.compute_dtype,
-        quant=quant, scan_impl=scan_impl, generator=generator,
-    )
-    model = model.to(dev).eval()
+    def prep(image_u8):
+        return eval_preprocess(
+            torch.as_tensor(image_u8, device=dev), out_size=tcfg.image_size,
+            mean=tcfg.mean, std=tcfg.std, out_dtype=policy.compute_dtype,
+            interpolation=tcfg.interpolation or "bilinear",
+        )
 
-    def classify(model, image_u8):
-        with torch.inference_mode():
-            x = eval_preprocess(
-                torch.as_tensor(image_u8, device=dev), out_size=tcfg.image_size,
-                mean=tcfg.mean, std=tcfg.std, out_dtype=policy.compute_dtype,
-                interpolation=tcfg.interpolation or "bilinear",
-            )
-            logits = model(x)
-            return torch.softmax(logits.float(), dim=-1)
+    # Mamba-family names default to the classifier zoo; is_clip=True builds
+    # the VSSM-towered CLIP instead, as the JAX package does.
+    if not is_clip and (
+        model_name in (None, "vssm", "medmamba") or "mamba" in str(model_name)
+    ):
+        model = build_classifier(
+            model_name, num_classes=num_classes, dtype=policy.compute_dtype,
+            quant=quant, scan_impl=scan_impl, generator=generator,
+        )
+
+        def classify(model, image_u8):
+            with torch.inference_mode():
+                return torch.softmax(model(prep(image_u8)).float(), dim=-1)
+
+        fns = {"classify": classify}
+    else:
+        model = build_clip(
+            model_name=model_name, image_size=image_size,
+            context_length=context_length, vocab_size=vocab_size,
+            dtype=policy.compute_dtype, quant=quant, scan_impl=scan_impl,
+            attn_flash=resolve_attn_flash(attn_impl), generator=generator,
+        )
+
+        def image_embed(model, image_u8):
+            with torch.inference_mode():
+                return model.encode_image(prep(image_u8), normalize=True).float()
+
+        def text_embed(model, tokens):
+            with torch.inference_mode():
+                return model.encode_text(
+                    torch.as_tensor(tokens, device=dev), normalize=True).float()
+
+        fns = {"image_embed": image_embed, "text_embed": text_embed}
+    model = model.to(dev).eval()
 
     meta = {
         "model": model_name,
@@ -90,4 +117,4 @@ def make_serving_fns(
         "mean": list(tcfg.mean),
         "std": list(tcfg.std),
     }
-    return model, {"classify": classify}, meta
+    return model, fns, meta

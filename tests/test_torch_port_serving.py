@@ -135,10 +135,10 @@ def test_bridge_refuses_missing_and_extra_leaves(slice_pair):
 
 
 def test_entry_points_refuse_unported_modes():
-    with pytest.raises(NotImplementedError, match="CLIP towers"):
-        make_serving_fns("medmamba", is_clip=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="CLIP towers"):
-        make_serving_fns("biomedclip", device="cpu")
+    with pytest.raises(NotImplementedError, match="Quantized modes"):
+        make_serving_fns("biomedclip", quant="int8_serve", device="cpu")
+    with pytest.raises(ValueError, match="einsum|flash"):
+        make_serving_fns("biomedclip", attn_impl="bogus", device="cpu")
     with pytest.raises(ValueError, match="TRAINING mode"):
         make_serving_fns("medmamba", quant="int8_delayed", device="cpu")
     with pytest.raises(NotImplementedError, match="Quantized modes"):
@@ -203,4 +203,4 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 19
+    assert int(out.stdout.strip()) >= 25

@@ -41,7 +41,7 @@ from mamba_clip_tpu.optim import build_optimizer as jax_build_optimizer
 from mamba_clip_tpu.schedules import create_schedule as jax_create_schedule
 from mamba_clip_tpu.utils.precision import get_policy as jax_get_policy
 from mamba_clip_tpu_torch import train as ttrain
-from mamba_clip_tpu_torch.convert import load_jax_variables, vssm_state_dict_from_jax
+from mamba_clip_tpu_torch.convert import load_jax_variables, state_dict_from_jax
 from mamba_clip_tpu_torch.data.preprocess_cfg import get_transform_config
 from mamba_clip_tpu_torch.models.vssm import VSSM
 from mamba_clip_tpu_torch.ops.selective_scan import selective_scan_bwd, selective_scan_fwd
@@ -129,7 +129,7 @@ def test_five_fp32_steps_match_jax():
             deterministic=False, mutable=["batch_stats"])
         return jax_ce(logits, jnp.asarray(batches[0]["target"]))
 
-    jgrads = vssm_state_dict_from_jax(
+    jgrads = state_dict_from_jax(
         {"params": jax.tree_util.tree_map(np.asarray, jax.grad(loss_fn)(
             pair.variables["params"]))})
 
@@ -150,7 +150,7 @@ def test_five_fp32_steps_match_jax():
                 scale = float(np.abs(w).max()) + 1e-12
                 np.testing.assert_allclose(g / scale, w / scale, atol=1e-4, err_msg=name)
     assert pair.tstate.step == int(pair.jstate.step) == 5
-    want_stats = vssm_state_dict_from_jax({"batch_stats": jax.tree_util.tree_map(
+    want_stats = state_dict_from_jax({"batch_stats": jax.tree_util.tree_map(
         np.asarray, pair.jstate.batch_stats)})
     buffers = dict(pair.tstate.model.named_buffers())
     assert want_stats

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from mamba_clip_tpu.models import vssm as jv
-from mamba_clip_tpu_torch.convert import load_jax_variables, vssm_state_dict_from_jax
+from mamba_clip_tpu_torch.convert import load_jax_variables, state_dict_from_jax
 from mamba_clip_tpu_torch.models import vssm as tv
 
 ATOL = 1e-4
@@ -108,7 +108,7 @@ def test_bridge_maps_every_layout():
     shapes = jax.eval_shape(jv.SSConvSSM(hidden_dim=32, scan_impl="xla").init,
                             jax.random.PRNGKey(0), jnp.zeros((1, 4, 4, 32)))
     v = _fill(shapes, 0)
-    sd = vssm_state_dict_from_jax(v)
+    sd = state_dict_from_jax(v)
     p, bs = v["params"], v["batch_stats"]
     np.testing.assert_array_equal(sd["self_attention.in_proj.weight"].numpy(),
                                   p["self_attention"]["in_proj"]["kernel"].T)
@@ -129,7 +129,7 @@ def test_init_mirrors_jax_distributions():
     jvars = jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.zeros((1, 4, 4, 32)))["params"]
     tm = tv.SS2D(d_model=32, generator=torch.Generator().manual_seed(0))
     sd = tm.state_dict()
-    ref = vssm_state_dict_from_jax({"params": jax.tree_util.tree_map(np.asarray, jvars)})
+    ref = state_dict_from_jax({"params": jax.tree_util.tree_map(np.asarray, jvars)})
     assert {k: tuple(v.shape) for k, v in sd.items()} == {
         k: tuple(v.shape) for k, v in ref.items()}
     for k in ("A_logs", "Ds"):
