@@ -9,8 +9,8 @@ on failure:
 
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: compiles the three CUDA kernels from ``csrc/``, one nvcc each,
-   started together, and prints ptxas' registers and spills;
+2. build: compiles the four CUDA sources (five kernels) from ``csrc/``, one
+   nvcc each, started together, and prints ptxas' registers and spills;
 3. kernel against plain: ``selective_scan_fwd`` against the plain loop on
    the card at the medmamba stage shapes (batch 2), a ragged shape, fp32
    and bf16, softplus on and off; gate: max|y_k - y_p| / max|y_p| <= 5e-4,
@@ -60,11 +60,55 @@ on failure:
    gate; the VSSM-towered CLIP's ``image_embed`` must make 14 scan
    launches and no flash launch, its ``text_embed`` 12 flash launches;
    then image/s and texts/s at batch 64, flash and einsum;
-9. prints the kernels line, then the device line last.
+9. flash backward kernels against plain: ``flash_attn_bwd_dq`` and
+   ``flash_attn_bwd_dkv`` against ``attention_plain_bwd`` at the shapes of
+   phase 7 (the one-key and the all-masked row beside a non-prefix row,
+   since their own dq and dk vanish), each gradient at
+   max|g_k - g_p| / max|g_p| <= 5e-4 (fp32) and 2e-2 (bf16: the plain
+   backward rounds p, dp and ds to bf16, the kernels keep fp32 and round
+   dq, dk, dv once; in bf16 each case is held against the bf16 plain
+   backward, a row with one valid key left out because its dq and dk vanish
+   and the bf16 plain backward leaves rounding noise there, and against the
+   fp32 plain backward on the same inputs, every row); the forward's
+   residuals m and l against the plain ones at 5e-4; dk and dv of a masked key exactly 0 from every row that has a valid
+   key, dq and dk exactly 0 for a row with none; two runs bit-identical.
+   Then, at batch 64 in bf16 at the ViT and BERT shapes, the forward with
+   residuals and both backward kernels are timed beside their bounds, the
+   plain backward and the backward of ``F.scaled_dot_product_attention``;
+10. CLIP training: the stage-1 contrastive step of full-width BiomedCLIP
+   (``amp``, ``attn_impl="flash"``, batch 64, device-resident uint8 images
+   at staging 256, HashTokenizer tokens of report-like text, AdamW with
+   clipping at 1.0): 2 warm-up and 5 timed steps with finite loss and grad
+   norm, the first loss within [3, 6] (ln 64 = 4.16 at random init),
+   ``logit_scale`` within [1, 100], exactly 24 forward, 24 dk/dv and 24 dq
+   launches a step and no scan launch; the 24 interiors of one more step
+   recorded with their ``do``, each backward held against the fp32 plain
+   backward on its own bf16 inputs and kept result at the bf16 gate (the
+   bf16 plain backward, which recomputes the result, is printed beside it:
+   where a row's keys are nearly alike, dq is a small remainder of terms
+   that cancel and one bf16 rounding of rowsum(o * do) is of its size);
+   the same step with ``attn_impl="einsum"`` for its time and peak memory.
+   At batch 8: 2 steps
+   with the kernels against 2 steps with the plain interiors from the same
+   state (loss and grad norm within 2^-7 relative, two bf16 ulps: the plain
+   backward rounds p, dp and ds to bf16 where the kernels keep fp32, and an
+   optimizer step carries the difference on); one step with
+   ``accum_freq=2`` and ``grad_checkpointing``
+   (144 forward launches: 2 micro-batches x 24 in the no-grad bank pass, and
+   x 24 x 2 in the graded pass, whose checkpoints run each forward again;
+   48 dk/dv and 48 dq); one step of the ``medmamba`` CLIP (14 + 14 scan
+   launches, 12 + 12 + 12 flash launches). Prints ms per step, pairs/s,
+   peak memory with flash and with einsum, and the flash kernels' ms per
+   step;
+11. prints the kernels line, then the device line last.
+
+Phases 1-8 run at the depth and iteration counts they had before phases
+9-10 were added.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -82,7 +126,9 @@ TRAIN_REL = 2.0**-8      # kernel vs plain scan, train step loss and grad norm: 
 # flash kernel vs plain interior: fp32 as GATE_REL; bf16 also covers the plain
 # interior rounding the scores and the normalized probabilities to bf16
 ATTN_GATE = {"fp32": GATE_REL, "bf16": 2e-2}
-KERNELS = ("selective_scan_fwd", "selective_scan_bwd", "flash_attn_fwd")
+# the sources under csrc/; flash_attn_bwd holds the dk/dv and the dq kernel
+KERNELS = ("selective_scan_fwd", "selective_scan_bwd", "flash_attn_fwd", "flash_attn_bwd")
+CLIP_TRAIN_REL = 2.0**-7  # kernel vs plain interiors, CLIP train step loss and grad norm
 GRAD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -198,13 +244,18 @@ def scan_bound(Bsz, L, DG, itemsize, sfu_rate, G=4, N=16):
     }, sfu_rate)
 
 
-def attn_bound(Bsz, T, h, hd, itemsize, masked, sfu_rate):
-    """Least time for one attention interior: q, k, v read and o written
-    once (and the mask byte per key) over the HBM rate; 4*B*h*T^2*hd FLOPs
-    (q.k^T and p.v) over the bf16 tensor-core peak; B*h*T^2 exps over the
-    exp rate. The bound is the largest of the three."""
-    terms = {"bytes": 4 * Bsz * T * h * hd * itemsize + (Bsz * T if masked else 0),
-             "flops": 4 * Bsz * h * T * T * hd, "exps": Bsz * h * T * T}
+def attn_bound(Bsz, T, h, hd, itemsize, masked, sfu_rate, tensors=4, stats=0, products=2):
+    """Least time for one attention kernel: ``tensors`` arrays of
+    B*T*h*hd elements and ``stats`` fp32 arrays of B*h*T moved once (and the
+    mask byte per key) over the HBM rate; ``products`` T x T x hd matrix
+    products per (batch, head), 2*B*h*T^2*hd FLOPs each, over the bf16
+    tensor-core peak; B*h*T^2 exps over the exp rate. The bound is the
+    largest of the three. The forward (the defaults) reads q, k, v, writes o
+    and takes q.k^T and p.v; dk/dv reads q, k, v, do, m, l, di, writes dk, dv
+    and takes 4 products; dq reads the same, writes dq and takes 3."""
+    terms = {"bytes": (tensors * Bsz * T * h * hd * itemsize + stats * Bsz * h * T * 4
+                       + (Bsz * T if masked else 0)),
+             "flops": products * 2 * Bsz * h * T * T * hd, "exps": Bsz * h * T * T}
     times = {"bytes": terms["bytes"] / HBM_BYTES_PER_S,
              "flops": terms["flops"] / BF16_TC_FLOPS, "exps": terms["exps"] / sfu_rate}
     worst = max(times, key=times.get)
@@ -239,8 +290,10 @@ def main() -> None:
     from mamba_clip_tpu_torch.data.tokenizer import HashTokenizer
     from mamba_clip_tpu_torch.models import vit as vit_mod
     from mamba_clip_tpu_torch.ops import cuda_build
+    from mamba_clip_tpu_torch.models import build_clip
     from mamba_clip_tpu_torch.ops.flash_attn import (
-        attention_plain, flash_attention_interior, flash_attn_fwd)
+        attention_plain, attention_plain_bwd, flash_attention_interior, flash_attn_bwd_dkv,
+        flash_attn_bwd_dq, flash_attn_fwd)
     from mamba_clip_tpu_torch.profile_embed import report_tokens
     from mamba_clip_tpu_torch.ops.selective_scan import (
         _scan_tm_plain, _scan_tm_plain_bwd, selective_scan_bwd, selective_scan_fwd,
@@ -248,7 +301,7 @@ def main() -> None:
     from mamba_clip_tpu_torch.serve import MicroBatcher
     from mamba_clip_tpu_torch.serving import make_serving_fns
     from mamba_clip_tpu_torch.models import build_classifier, vssm
-    from mamba_clip_tpu_torch.profile_train import medmamba_train_setup
+    from mamba_clip_tpu_torch.profile_train import clip_train_setup, medmamba_train_setup
 
     # 1. device
     card = nvidia_smi("name,power.limit")
@@ -859,8 +912,324 @@ def main() -> None:
                                      "max_abs_flash_vs_einsum": clip_diff,
                                      "recorded_interiors_max_rel_err": rec_attn,
                                      "medmamba_clip_launches": mm_launches}}))
+    del clip, clip_e, cfns, efns, batchers
 
-    # 9. kernels line, then the device line
+    # 9. flash backward kernels against the plain backward
+    def plain_residuals(q, k, mask, sm):
+        sc = torch.matmul(q.transpose(1, 2).float(), k.permute(0, 2, 3, 1).float()) * sm
+        if mask is not None:
+            sc = sc.masked_fill(~mask, -1e9)
+        m_p = sc.max(-1).values
+        return m_p, torch.exp(sc - m_p[..., None]).sum(-1)
+
+    def flash_bwd_inputs(Bsz, T, h, hd, dtype, valid, seed):
+        q, k, v, mask = attn_inputs(Bsz, T, h, hd, dtype, valid, seed=seed)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        do = torch.randn(Bsz, T, h * hd, generator=g, device="cuda").to(dtype)
+        key_mask = None if mask is None else mask.reshape(Bsz, T).contiguous()
+        return q, k, v, mask, key_mask, do
+
+    def flash_bwd(q, k, v, key_mask, do, sm):
+        """(dq, dk, dv) by the kernels, as ``FlashAttnFn`` calls them, the
+        kernels' other inputs (mask, do, the forward's residuals, di) and the
+        forward's result."""
+        B_, T_, h_, hd_ = q.shape
+        out, m, l = flash_attn_fwd(q, k, v, key_mask, sm_scale=sm, with_residuals=True)
+        di = (out.float() * do.float()).view(B_, T_, h_, hd_).sum(-1).transpose(1, 2).contiguous()
+        res = (key_mask, do.view(B_, T_, h_, hd_), m, l, di)
+        dk, dv = flash_attn_bwd_dkv(q, k, v, *res, sm_scale=sm)
+        return (flash_attn_bwd_dq(q, k, v, *res, sm_scale=sm), dk, dv), res, out
+
+    bwd_attn_worst = {"dq": {"fp32": 0.0, "bf16": 0.0}, "dkv": {"fp32": 0.0, "bf16": 0.0}}
+    bwd_attn_abs = {"dq": 0.0, "dkv": 0.0}
+
+    def note_bwd(errs, name):
+        (r_q, a_q), (r_k, a_k), (r_v, a_v) = errs
+        bwd_attn_worst["dq"][name] = max(bwd_attn_worst["dq"][name], r_q)
+        bwd_attn_worst["dkv"][name] = max(bwd_attn_worst["dkv"][name], r_k, r_v)
+        bwd_attn_abs["dq"] = max(bwd_attn_abs["dq"], a_q)
+        bwd_attn_abs["dkv"] = max(bwd_attn_abs["dkv"], a_k, a_v)
+
+    bwd_cases = [c if c[4] != "one valid key + all masked" else
+                 (256, 12, 64, rows(256, "one", "none", "holes", seed=4),
+                  "one valid key + all masked + non-prefix") for c in cases]
+    for T, h, hd, valid, label in bwd_cases:
+        Bsz = 2 if valid is None else len(valid)
+        for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+            q, k, v, mask, key_mask, do = flash_bwd_inputs(Bsz, T, h, hd, dtype, valid, T + hd)
+            sm = hd**-0.5
+            g_k, res, _ = flash_bwd(q, k, v, key_mask, do, sm)
+            g_k2, _, _ = flash_bwd(q, k, v, key_mask, do, sm)
+            g_p = attention_plain_bwd(q, k, v, mask, do, sm)
+            m_p, l_p = plain_residuals(q, k, mask, sm)
+            torch.cuda.synchronize()
+            errs = rel_errs(g_k, g_p)
+            if name == "bf16":
+                # A row with one valid key has ds = 0: its dq and dk vanish.
+                # The bf16 plain backward rounds do.v to bf16 before it takes
+                # di off, which leaves rounding noise there, so such rows are
+                # left out against it; every row is also held against the fp32
+                # plain backward on the same inputs, whose arithmetic is the
+                # kernels'.
+                if valid is not None:
+                    keep = torch.as_tensor(valid.sum(1) != 1, device="cuda")
+                    errs = rel_errs([g[keep] for g in g_k], [g[keep] for g in g_p])
+                errs32 = rel_errs(g_k, attention_plain_bwd(q.float(), k.float(), v.float(), mask,
+                                                           do.float(), sm))
+                errs = [max(a, b) for a, b in zip(errs, errs32)]
+            res_err = max(float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+                          for a, b in ((res[2], m_p), (res[3], l_p)))
+            same_bits = all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
+            zeros_ok = True
+            if valid is not None:
+                va = torch.as_tensor(valid, device="cuda")
+                dead = ~va & va.any(1, keepdim=True)   # masked keys of rows with a valid key
+                empty = ~va.any(1)                      # rows with no valid key
+                zeros_ok = all(float(g[dead].abs().sum()) == 0.0 for g in g_k[1:]) and \
+                    all(float(g[empty].abs().sum()) == 0.0 for g in g_k[:2])
+            ok = (all(bool(torch.isfinite(g).all()) for g in g_k)
+                  and all(r <= ATTN_GATE[name] for r, _ in errs)
+                  and res_err <= GATE_REL and same_bits and zeros_ok)
+            say(f"flash bwd B={Bsz} T={T} h={h} hd={hd} {name} ({label}): "
+                + " ".join(f"{n} {r:.2e}" for n, (r, _) in zip(("dq", "dk", "dv"), errs))
+                + f" residuals {res_err:.2e} same_bits {same_bits} exact_zeros {zeros_ok}"
+                + (" ok" if ok else " FAIL"))
+            if not ok:
+                fail(f"the flash backward kernels disagree with the plain backward at T={T} "
+                     f"hd={hd} {name}")
+            note_bwd(errs, name)
+
+    # at the training batch (64) and type (bf16): the ViT and BERT shapes
+    bwd_shapes_attn = {}
+    for tower, T, valid in (("vit", 197, None),
+                            ("bert", 256, report_tokens(64) != HashTokenizer.PAD)):
+        q, k, v, mask, key_mask, do = flash_bwd_inputs(64, T, 12, 64, torch.bfloat16, valid, 5)
+        sm = 64**-0.5
+        g_k, res, _ = flash_bwd(q, k, v, key_mask, do, sm)
+        errs = rel_errs(g_k, attention_plain_bwd(q, k, v, mask, do, sm))
+        if any(r > ATTN_GATE["bf16"] for r, _ in errs):
+            fail(f"the flash backward kernels disagree with the plain backward at the {tower} "
+                 "shape")
+        note_bwd(errs, "bf16")
+        ms_f = cuda_ms(lambda: flash_attn_fwd(q, k, v, key_mask, sm_scale=sm,
+                                              with_residuals=True), 20)
+        ms_kv = cuda_ms(lambda: flash_attn_bwd_dkv(q, k, v, *res, sm_scale=sm), 20)
+        ms_q = cuda_ms(lambda: flash_attn_bwd_dq(q, k, v, *res, sm_scale=sm), 20)
+        ms_p = cuda_ms(lambda: attention_plain_bwd(q, k, v, mask, do, sm), 10)
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        o_l = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sm)
+        do_l = do.view(64, T, 12, 64).transpose(1, 2)
+        ms_l = cuda_ms(lambda: torch.autograd.grad(o_l, (qt, kt, vt), do_l, retain_graph=True),
+                       20)
+        masked = valid is not None
+        b_kv = attn_bound(64, T, 12, 64, 2, masked, sfu_rate, tensors=6, stats=3, products=4)
+        b_q = attn_bound(64, T, 12, 64, 2, masked, sfu_rate, tensors=5, stats=3, products=3)
+        bwd_shapes_attn[tower] = {
+            "B": 64, "T": T, "h": 12, "hd": 64, "dtype": "bf16", "masked": masked,
+            "launches_per_step": 12, "fwd_with_residuals_ms": ms_f,
+            "dkv": {"ms": ms_kv, **b_kv}, "dq": {"ms": ms_q, **b_q},
+            "plain_bwd_ms": ms_p, "library_bwd_ms": ms_l,
+            "max_rel_err": max(r for r, _ in errs)}
+        say(f"flash bwd B=64 T={T} bf16 ({tower}): dk/dv {ms_kv:.4f} ms (bound "
+            f"{b_kv['bound_ms']:.4f}, {b_kv['bound_by']}), dq {ms_q:.4f} ms (bound "
+            f"{b_q['bound_ms']:.4f}, {b_q['bound_by']}), forward with residuals {ms_f:.4f} ms, "
+            f"plain backward {ms_p:.4f} ms, scaled_dot_product_attention backward "
+            f"{ms_l:.4f} ms")
+        del q, k, v, do, g_k, res, qt, kt, vt, o_l, do_l
+    say(json.dumps({"flash_attn_bwd_shapes": bwd_shapes_attn, "card": card}))
+    flash_ms_per_step = {
+        "fwd": sum(12 * sh["fwd_with_residuals_ms"] for sh in bwd_shapes_attn.values()),
+        "dkv": sum(12 * sh["dkv"]["ms"] for sh in bwd_shapes_attn.values()),
+        "dq": sum(12 * sh["dq"]["ms"] for sh in bwd_shapes_attn.values())}
+
+    # 10. CLIP training: the stage-1 contrastive step of full-width BiomedCLIP
+    wrappers = {"fwd": flash_attn_fwd, "dkv": flash_attn_bwd_dkv, "dq": flash_attn_bwd_dq,
+                "scan_fwd": selective_scan_fwd, "scan_bwd": selective_scan_bwd}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {key: w.launches for key, w in wrappers.items()}
+
+    def timed_clip_steps(state, step_fn, batches, what, warm=WARM, timed=TIMED):
+        """``warm`` + ``timed`` steps; returns the state, ms per timed step,
+        the peak memory of the timed steps and every step's metrics."""
+        metrics = []
+        for i in range(warm):
+            state, m = step_fn(state, batches[i % 2], 0)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(timed):
+            state, m = step_fn(state, batches[i % 2], 0)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / timed * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        for i, m in enumerate(metrics):
+            loss, gnorm = check_metrics(m, f"{what} step {i}")
+            ls_ = float(m["logit_scale"])
+            say(f"clip training ({what}): step {i}: loss {loss:.5f} grad_norm {gnorm:.5f} "
+                f"logit_scale {ls_:.4f} lr {m['lr']:.3e}")
+            if not 1.0 <= ls_ <= 100.0:
+                fail(f"{what}: logit_scale {ls_} outside [1, 100]")
+        return state, ms, peak, metrics
+
+    torch.cuda.empty_cache()
+    base_mem = torch.cuda.memory_allocated()
+    state, step_fn, batches = clip_train_setup(TB)
+    n_clip = sum(p.numel() for p in state.model.parameters())
+    say(f"clip training: biomedclip {n_clip / 1e6:.2f} M parameters, batch {TB}, image 224, "
+        f"staging 256, context 256, precision amp, attn_impl flash, AdamW, clipping 1.0; "
+        f"{base_mem / 2**20:.0f} MiB allocated before it")
+    reset_counts()
+    state, clip_ms, clip_peak, metrics = timed_clip_steps(state, step_fn, batches, "flash")
+    clip_train = read_counts()
+    say(f"clip training: launches in {steps} steps: {clip_train}")
+    want = {"fwd": 24 * steps, "dkv": 24 * steps, "dq": 24 * steps, "scan_fwd": 0, "scan_bwd": 0}
+    if clip_train != want:
+        fail(f"clip training: launches {clip_train}, expected {want}")
+    first_loss = float(metrics[0]["loss"])
+    if not 3.0 <= first_loss <= 6.0:
+        fail(f"clip training: first loss {first_loss} outside [3, 6] (ln 64 = 4.16)")
+
+    # Hold each of the 24 interiors of one more step, with the do its
+    # backward was given, against the plain backward on its own inputs.
+    calls = []
+
+    def recording_train_interior(q, k, v, pad_mask=None, *, sm_scale, impl=None):
+        o = interior(q, k, v, pad_mask, sm_scale=sm_scale, impl=impl)
+        rec = {"q": q.detach(), "k": k.detach(), "v": v.detach(), "mask": pad_mask,
+               "sm": sm_scale}
+        o.register_hook(lambda g: rec.update(do=g.detach()))
+        calls.append(rec)
+        return o
+
+    vit_mod.flash_attention_interior = recording_train_interior
+    try:
+        state, m = step_fn(state, batches[0], 0)
+    finally:
+        vit_mod.flash_attention_interior = interior
+    check_metrics(m, "recorded clip step")
+    if len(calls) != 24 or any("do" not in c for c in calls):
+        fail(f"one clip step made {len(calls)} attention calls with "
+             f"{sum('do' in c for c in calls)} gradients, expected 24")
+    # Against the fp32 plain backward on the same bf16 inputs and the same kept
+    # result o, whose arithmetic is the kernels'. Beside it, not gated, the
+    # bf16 plain backward, which recomputes o: at these inputs the keys of a
+    # row are nearly alike, so dq = sum_j ds_j k_j is a small remainder of
+    # terms that cancel, and a difference of one bf16 rounding in
+    # rowsum(o * do) is of dq's own size.
+    rec_bwd = rec_bwd_bf16 = 0.0
+    for c in calls:
+        q, k, v = (c[n].contiguous() for n in "qkv")
+        B_, T_ = q.shape[:2]
+        key_mask = None if c["mask"] is None else c["mask"].reshape(B_, T_).contiguous()
+        do = c["do"].contiguous()
+        g_k, _, out = flash_bwd(q, k, v, key_mask, do, c["sm"])
+        errs = rel_errs(g_k, attention_plain_bwd(q.float(), k.float(), v.float(), c["mask"],
+                                                 do.float(), c["sm"], o=out.float()))
+        errs_bf16 = rel_errs(g_k, attention_plain_bwd(q, k, v, c["mask"], do, c["sm"]))
+        errs_o32 = rel_errs(g_k, attention_plain_bwd(q.float(), k.float(), v.float(), c["mask"],
+                                                     do.float(), c["sm"]))
+        worst = max(r for r, _ in errs)
+        say(f"clip training interior T={T_}: against the fp32 plain backward "
+            + " ".join(f"{n} {r:.2e}" for n, (r, _) in zip(("dq", "dk", "dv"), errs))
+            + "; with the result recomputed in fp32 "
+            + " ".join(f"{n} {r:.2e}" for n, (r, _) in zip(("dq", "dk", "dv"), errs_o32))
+            + "; against the bf16 plain backward "
+            + " ".join(f"{n} {r:.2e}" for n, (r, _) in zip(("dq", "dk", "dv"), errs_bf16)))
+        if not worst <= ATTN_GATE["bf16"]:
+            fail("the flash backward kernels disagree with the plain backward on a train "
+                 f"step's own inputs (T={T_}): rel err {worst:.3e}")
+        rec_bwd = max(rec_bwd, worst)
+        rec_bwd_bf16 = max(rec_bwd_bf16, max(r for r, _ in errs_bf16))
+        note_bwd(errs, "bf16")
+    say(f"clip training: the 24 recorded interiors (12 T={calls[0]['q'].shape[1]}, 12 "
+        f"T={calls[-1]['q'].shape[1]}) agree with the fp32 plain backward on their own inputs: "
+        f"worst rel_err {rec_bwd:.3e} (gate {ATTN_GATE['bf16']:g}); against the bf16 plain "
+        f"backward {rec_bwd_bf16:.3e}")
+    del calls, state, step_fn, c, q, k, v, do, g_k
+    torch.cuda.empty_cache()
+
+    # the same step with the einsum interior: its time and its peak memory
+    state, step_fn, _ = clip_train_setup(TB, attn_impl="einsum")
+    _, einsum_ms, einsum_peak, _ = timed_clip_steps(state, step_fn, batches, "einsum", 1, 2)
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+    # kernels against plain interiors end to end: 2 steps at batch 8 from one state
+    init = {k: v.clone() for k, v in build_clip(
+        "biomedclip", dtype=torch.bfloat16, attn_flash=True,
+        generator=torch.Generator().manual_seed(1)).state_dict().items()}
+    runs = {}
+    for impl in ("cuda", "plain"):
+        st, fn, bs = clip_train_setup(8, seed=1, model_state=init)
+        vit_mod.flash_attention_interior = functools.partial(interior, impl=impl)
+        try:
+            runs[impl] = []
+            for i in range(2):
+                st, m = fn(st, bs[i], 0)
+                runs[impl].append(check_metrics(m, f"batch-8 clip step, {impl} interiors"))
+        finally:
+            vit_mod.flash_attention_interior = interior
+        del st, fn
+    clip_e2e = 0.0
+    for i, ((lk, gk), (lp, gp)) in enumerate(zip(runs["cuda"], runs["plain"])):
+        rl, rg = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+        clip_e2e = max(clip_e2e, rl, rg)
+        say(f"clip training bs 8 step {i}: loss kernel {lk:.6f} plain {lp:.6f} (rel {rl:.2e}); "
+            f"grad_norm kernel {gk:.6f} plain {gp:.6f} (rel {rg:.2e})")
+    if clip_e2e > CLIP_TRAIN_REL:
+        fail(f"the clip train step with the kernels differs from the plain interiors by "
+             f"{clip_e2e:.3e} relative (bound {CLIP_TRAIN_REL:g})")
+
+    # accum_freq=2 with grad_checkpointing: the bank pass and the recomputes launch too
+    st, fn, _ = clip_train_setup(8, seed=1, model_state=init, grad_checkpointing=True,
+                                 accum_freq=2)
+    reset_counts()
+    st, m = fn(st, bs[0], 0)
+    accum_counts = read_counts()
+    check_metrics(m, "accum_freq=2 checkpointed clip step")
+    say(f"clip training bs 8 accum_freq=2 grad_checkpointing: launches {accum_counts}")
+    if accum_counts != {"fwd": 144, "dkv": 48, "dq": 48, "scan_fwd": 0, "scan_bwd": 0}:
+        fail("accum_freq=2 with grad_checkpointing: expected 144 forward (48 in the bank "
+             "pass, 96 in the graded pass and its recomputes), 48 dk/dv and 48 dq launches")
+    del st, fn, init
+
+    # the VSSM-towered CLIP: scans in the image tower, flash in the text tower
+    st, fn, _ = clip_train_setup(8, model_name="medmamba", seed=2)
+    reset_counts()
+    st, m = fn(st, bs[0], 0)
+    mm_train = read_counts()
+    check_metrics(m, "medmamba clip step")
+    say(f"clip training bs 8 medmamba CLIP: launches {mm_train}")
+    if mm_train != {"fwd": 12, "dkv": 12, "dq": 12, "scan_fwd": 14, "scan_bwd": 14}:
+        fail("the VSSM-towered CLIP's train step: expected 14 + 14 scan and 12 + 12 + 12 "
+             "flash launches")
+    del st, fn, bs
+    say(json.dumps({"clip_training": {
+        "card": card, "parameters": n_clip, "batch": TB, "steps_timed": TIMED,
+        "ms_per_step": clip_ms, "pairs_per_s": TB / (clip_ms / 1e3),
+        "max_memory_allocated_bytes": clip_peak, "allocated_before_bytes": base_mem,
+        "einsum_ms_per_step": einsum_ms, "einsum_pairs_per_s": TB / (einsum_ms / 1e3),
+        "einsum_max_memory_allocated_bytes": einsum_peak,
+        "flash_kernel_ms_per_step": flash_ms_per_step,
+        "launches_per_step": {k: n / steps for k, n in clip_train.items()},
+        "first_loss": first_loss, "recorded_interiors_max_rel_err": rec_bwd,
+        "recorded_interiors_vs_bf16_plain_max_rel_err": rec_bwd_bf16,
+        "bs8_kernel_vs_plain_max_rel": clip_e2e, "accum2_checkpointed_launches": accum_counts,
+        "medmamba_clip_launches": mm_train}}))
+    say(f"clip training: {clip_ms:.2f} ms/step, {TB / (clip_ms / 1e3):.1f} pairs/s, peak "
+        f"{clip_peak / 2**30:.2f} GiB allocated with flash; einsum {einsum_ms:.2f} ms/step, "
+        f"peak {einsum_peak / 2**30:.2f} GiB; flash kernels forward "
+        f"{flash_ms_per_step['fwd']:.3f}, dk/dv {flash_ms_per_step['dkv']:.3f}, dq "
+        f"{flash_ms_per_step['dq']:.3f} ms per step, on {card}")
+
+    # 11. kernels line, then the device line
     per_fwd = {key: sum(12 * attn_shapes[t][key] for t in attn_shapes)
                for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     attn_by = {"bytes": 0.0, "operations": 0.0}
@@ -900,9 +1269,12 @@ def main() -> None:
         "route": "cuda",
         "source": "src/mamba_clip_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "src/mamba_clip_tpu/ops/flash_attn.py:75",
-        "launches": clip_flash,
+        "launches": clip_flash + clip_train["fwd"],
         "launches_by_path": {"clip_serve": clip_flash,
-                             "medmamba_clip_text_embed": mm_launches["text_embed"]["flash"]},
+                             "medmamba_clip_text_embed": mm_launches["text_embed"]["flash"],
+                             "clip_train": clip_train["fwd"],
+                             "clip_train_accum2_checkpointed": accum_counts["fwd"],
+                             "medmamba_clip_train": mm_train["fwd"]},
         "max_abs_err": attn_abs,
         "max_rel_err": attn_worst,
         # per image_embed + text_embed pair at batch 64: 12 ViT + 12 BERT launches
@@ -911,7 +1283,29 @@ def main() -> None:
         "bound_ms": per_fwd["bound_ms"],
         "bound_by": max(attn_by, key=attn_by.get),
         "library_ms": per_fwd["library_ms"],
-    }]}))
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "src/mamba_clip_tpu_torch/csrc/flash_attn_bwd.cu",
+        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line} (reached from "
+                    "src/mamba_clip_tpu/ops/flash_attn.py:122)",
+        "launches": clip_train[key],
+        "launches_by_path": {"clip_serve": 0, "clip_train": clip_train[key],
+                             "clip_train_accum2_checkpointed": accum_counts[key],
+                             "medmamba_clip_train": mm_train[key]},
+        "max_abs_err": bwd_attn_abs[key],
+        "max_rel_err": bwd_attn_worst[key],
+        # per train step at batch 64: 12 ViT + 12 BERT launches; the plain
+        # backward and the library's compute dq, dk and dv in one call
+        "ms": sum(12 * bwd_shapes_attn[t][key]["ms"] for t in bwd_shapes_attn),
+        "plain_ms": sum(12 * bwd_shapes_attn[t]["plain_bwd_ms"] for t in bwd_shapes_attn),
+        "bound_ms": sum(12 * bwd_shapes_attn[t][key]["bound_ms"] for t in bwd_shapes_attn),
+        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
+            sh[key]["bound_ms"] for sh in bwd_shapes_attn.values()
+            if sh[key]["bound_by"] == by)),
+        "library_ms": sum(12 * bwd_shapes_attn[t]["library_bwd_ms"] for t in bwd_shapes_attn),
+    } for name, key, line in (("flash_attn_bwd_dkv", "dkv", 796),
+                              ("flash_attn_bwd_dq", "dq", 1146))]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -19,6 +19,9 @@ auto-named children, so each leaf maps by its path:
   towers and the CLIP wrapper (``cls_token``, ``pos_embed``, ``pos_emb``,
   ``type_emb``, ``logit_scale``, ``logit_bias``) as they are.
 
+:func:`mask_from_jax` maps a boolean pytree over the ``params`` (a JAX
+``lock_mask``) to the port's parameter names by the same rules.
+
 Every leaf must land on a parameter or buffer of the module and every
 parameter or buffer must be covered (BatchNorm's ``num_batches_tracked``
 counter aside, which Flax does not keep), or the bridge raises.
@@ -59,25 +62,35 @@ def _module_name(name: str) -> str:
     return name
 
 
-def _convert_leaf(collection: str, path, arr: np.ndarray):
+def _leaf_name(collection: str, path) -> str:
+    """The port's name of the leaf at ``path`` of a Flax collection."""
     leaf = path[-1]
     where = "/".join((collection,) + tuple(path))
     if collection == "batch_stats":
         names = {"mean": "running_mean", "var": "running_var"}
         if leaf not in names:
             raise KeyError(f"unmapped batch_stats leaf {where}")
-        return names[leaf], arr
-    if leaf == "kernel":
-        if arr.ndim == 2:
-            return "weight", arr.T
-        if arr.ndim == 4:
-            return "weight", arr.transpose(3, 2, 0, 1)
-        raise ValueError(f"{where}: kernel of rank {arr.ndim}")
-    if leaf in ("scale", "embedding"):
-        return "weight", arr
+        return names[leaf]
+    if leaf in ("kernel", "scale", "embedding"):
+        return "weight"
     if leaf == "bias" or leaf in _RAW:
-        return leaf, arr
+        return leaf
     raise KeyError(f"unmapped params leaf {where}")
+
+
+def _key(collection: str, path) -> str:
+    return ".".join([_module_name(m) for m in path[:-1]] + [_leaf_name(collection, path)])
+
+
+def _convert_value(path, arr: np.ndarray) -> np.ndarray:
+    """Dense kernels transposed, convolution kernels HWIO -> OIHW."""
+    if path[-1] != "kernel":
+        return arr
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)
+    raise ValueError(f"params/{'/'.join(path)}: kernel of rank {arr.ndim}")
 
 
 def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
@@ -88,12 +101,20 @@ def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for collection in _COLLECTIONS:
         for path, arr in _walk(variables.get(collection, {})):
-            name, value = _convert_leaf(collection, path, arr)
-            key = ".".join([_module_name(m) for m in path[:-1]] + [name])
+            key = _key(collection, path)
             if key in out:
                 raise KeyError(f"two leaves map to {key}")
-            out[key] = torch.from_numpy(np.array(value, np.float32, order="C"))
+            out[key] = torch.from_numpy(
+                np.array(_convert_value(path, arr), np.float32, order="C"))
     return out
+
+
+def mask_from_jax(mask) -> Dict[str, bool]:
+    """Map a boolean pytree over a Flax ``params`` tree (with or without
+    the ``params`` level), such as the JAX package's ``lock_mask`` result,
+    to ``{the port's parameter name: bool}``."""
+    tree = mask["params"] if "params" in mask else mask
+    return {_key("params", path): bool(value) for path, value in _walk(tree)}
 
 
 def load_jax_variables(module: nn.Module, variables) -> nn.Module:

@@ -14,6 +14,13 @@
 // attend); o is written once, in q's type, straight into (B, T, H*HD). A
 // row whose keys are all masked gets the softmax of T equal scores, the
 // mean of v over the T keys, as the plain interior gives it, and not NaN.
+// For training the kernel also writes the softmax residuals of every row,
+// its running max m and its sum l = sum_j exp(s_j - m), as two (B, H, T)
+// fp32 arrays (the TPU kernel's save_residuals); the backward kernels of
+// flash_attn_bwd.cu recompute p_j = exp(s_j - m) / l from them. They are
+// kept apart: for a row with no valid key m = -1e9 and l = T, and
+// m + log(l) would round back to -1e9 in fp32. Serving passes null pointers
+// and writes nothing but o.
 //
 // Design. One block per (tile of 64 query rows, head, batch). A query row
 // belongs to HD/32 neighbouring lanes, each holding 32 of its dims of q and
@@ -37,68 +44,18 @@
 // wgmma on bf16 tiles, TMA staging and a pipelined ring of K/V tiles are
 // later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_attn_common.cuh"
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRows = 64;  // query rows a block
-constexpr int kDimsPerLane = 32;
-constexpr float kMasked = -1e9f;  // the plain interior's score of a masked key
-
-template <int HD>
-struct Cfg {
-  static constexpr int kLanesPerRow = HD / kDimsPerLane;  // 1, 2 or 4
-  static constexpr int kThreads = kRows * kLanesPerRow;
-  static constexpr int kKeys = HD <= 64 ? 64 : 32;        // keys a staged tile
-  static constexpr int kChunks = kDimsPerLane / 4;        // float4 chunks a lane
-  static constexpr int kRowChunks = HD / 4;               // float4 chunks a key
-};
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned*>(&a);
-  raw.y = *reinterpret_cast<const unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float4 axpy4(float p, float4 v, float4 acc) {
-  return make_float4(fmaf(p, v.x, acc.x), fmaf(p, v.y, acc.y), fmaf(p, v.z, acc.z),
-                     fmaf(p, v.w, acc.w));
-}
+using namespace fa;
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(Cfg<HD>::kThreads)
 flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                      T* __restrict__ o, int T_len, int H, float sm_scale) {
+                      T* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
+                      int T_len, int H, float sm_scale) {
   using C = Cfg<HD>;
   __shared__ float4 k_tile[C::kKeys][C::kRowChunks];
   __shared__ float4 v_tile[C::kKeys][C::kRowChunks];
@@ -147,9 +104,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < C::kChunks; ++i)
           part = dot4(qv[i], k_tile[j][lane_in_row + C::kLanesPerRow * i], part);
-#pragma unroll
-        for (int w = C::kLanesPerRow / 2; w > 0; w /= 2)
-          part += __shfl_xor_sync(kFull, part, w);
+        part = reduce_row<C::kLanesPerRow>(part);
         s[j] = m_tile[j] ? part * sm_scale : kMasked;
         m_new = fmaxf(m_new, s[j]);
       }
@@ -181,29 +136,39 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       store4(o + head0 + t * row_stride + 4 * c,
              make_float4(acc[i].x * inv, acc[i].y * inv, acc[i].z * inv, acc[i].w * inv));
     }
+    if (m_out != nullptr && lane_in_row == 0) {
+      const int64_t r = ((int64_t)b * H + h) * T_len + t;
+      m_out[r] = m_run;
+      l_out[r] = l_run;
+    }
   }
 }
 
 template <typename T, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* mask, void* o,
-                      int batch, int T_len, int H, float sm_scale, cudaStream_t stream) {
+                      float* m_out, float* l_out, int batch, int T_len, int H, float sm_scale,
+                      cudaStream_t stream) {
   const dim3 grid((unsigned)((T_len + kRows - 1) / kRows), (unsigned)H, (unsigned)batch);
   flash_attn_fwd_kernel<T, HD><<<grid, Cfg<HD>::kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(o), T_len, H, sm_scale);
+      static_cast<const uint8_t*>(mask), static_cast<T*>(o), m_out, l_out, T_len, H,
+      sm_scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* mask, void* o,
-                   int batch, int T_len, int H, int HD, float sm_scale, cudaStream_t stream) {
+                   void* m_out, void* l_out, int batch, int T_len, int H, int HD,
+                   float sm_scale, cudaStream_t stream) {
+  float* m = static_cast<float*>(m_out);
+  float* l = static_cast<float*>(l_out);
   switch (HD) {
     case 32:
-      return launch_hd<T, 32>(q, k, v, mask, o, batch, T_len, H, sm_scale, stream);
+      return launch_hd<T, 32>(q, k, v, mask, o, m, l, batch, T_len, H, sm_scale, stream);
     case 64:
-      return launch_hd<T, 64>(q, k, v, mask, o, batch, T_len, H, sm_scale, stream);
+      return launch_hd<T, 64>(q, k, v, mask, o, m, l, batch, T_len, H, sm_scale, stream);
     case 128:
-      return launch_hd<T, 128>(q, k, v, mask, o, batch, T_len, H, sm_scale, stream);
+      return launch_hd<T, 128>(q, k, v, mask, o, m, l, batch, T_len, H, sm_scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -211,16 +176,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* mask
 
 }  // namespace
 
+// m_out and l_out: (B, H, T) fp32 each, or both null.
 extern "C" int flash_attn_fwd_f32(const void* q, const void* k, const void* v, const void* mask,
-                                  void* o, int batch, int T_len, int H, int HD, float sm_scale,
-                                  void* stream) {
-  return (int)launch<float>(q, k, v, mask, o, batch, T_len, H, HD, sm_scale,
+                                  void* o, void* m_out, void* l_out, int batch, int T_len,
+                                  int H, int HD, float sm_scale, void* stream) {
+  return (int)launch<float>(q, k, v, mask, o, m_out, l_out, batch, T_len, H, HD, sm_scale,
                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
-                                   const void* mask, void* o, int batch, int T_len, int H,
-                                   int HD, float sm_scale, void* stream) {
-  return (int)launch<__nv_bfloat16>(q, k, v, mask, o, batch, T_len, H, HD, sm_scale,
-                                    static_cast<cudaStream_t>(stream));
+                                   const void* mask, void* o, void* m_out, void* l_out,
+                                   int batch, int T_len, int H, int HD, float sm_scale,
+                                   void* stream) {
+  return (int)launch<__nv_bfloat16>(q, k, v, mask, o, m_out, l_out, batch, T_len, H, HD,
+                                    sm_scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,8 @@
 """Model zoo + factory, in PyTorch.
 
 Counterpart of ``mamba_clip_tpu/models/__init__.py``: the classifier zoo
-over the VSSM family, and the CLIP model with its towers (eval path).
+over the VSSM family, and the CLIP model with its towers and training
+helpers.
 """
 
 from __future__ import annotations
@@ -15,7 +16,9 @@ from .clip import (
     ClipModel,
     VssmTower,
     build_clip,
+    clamp_logit_scale,
     l2_normalize,
+    lock_mask,
     resolve_gelu_approx,
 )
 from .heads import MambaVisionClassifier
@@ -34,7 +37,8 @@ from .vssm import (
 
 __all__ = [
     "ClipModel", "VssmTower", "build_clip", "l2_normalize", "resolve_gelu_approx",
-    "LOGIT_SCALE_MAX", "VisionTransformer", "EncoderBlock", "FusedAttention",
+    "LOGIT_SCALE_MAX", "clamp_logit_scale", "lock_mask",
+    "VisionTransformer", "EncoderBlock", "FusedAttention",
     "MlpBlock", "TextBert", "BertBlock",
     "MambaVisionClassifier", "VSSM", "SS2D", "SSConvSSM", "ConvBranch",
     "VSSLayer", "PatchEmbed2D", "PatchMerging2D", "medmamba",

@@ -1,4 +1,4 @@
-"""BERT-style text tower (PubMedBERT shape), in PyTorch; the eval path.
+"""BERT-style text tower (PubMedBERT shape), in PyTorch.
 
 Counterpart of ``mamba_clip_tpu/models/text_bert.py``: ``BertBlock``
 (post-LN, eps 1e-12) and ``TextBert`` (token, position and type
@@ -6,7 +6,9 @@ embeddings, ``ln_emb``, the blocks, CLS pooling, then the ``mlp``,
 ``linear`` or ``none`` projection), with the Flax child names and
 parameter shapes. The key mask is ``input_ids != pad_id``. The projection
 MLP's GELU is always the exact (erf) form; the blocks' follows
-``gelu_approx``.
+``gelu_approx``. The tower has no dropout, so training mode differs from
+eval only by ``grad_checkpointing`` (each block recomputed in the
+backward) and ``attn_remat`` (the einsum interior recomputed).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .vit import FusedAttention, _dense, _normal_param, gelu, not_ported
+from .vit import FusedAttention, _dense, _normal_param, gelu, not_ported, remat
 from .vssm import _layer_norm_f32, _linear
 
 
@@ -26,12 +28,13 @@ class BertBlock(nn.Module):
 
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32, gelu_approx: bool = False,
-                 attn_flash: bool = False, generator: Optional[torch.Generator] = None):
+                 attn_flash: bool = False, attn_remat: bool = False,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
         self.gelu_approx = gelu_approx
         self.attn = FusedAttention(width, num_heads, dtype=dtype, flash_interior=attn_flash,
-                                   generator=generator)
+                                   remat_probs=attn_remat, generator=generator)
         self.ln_attn = nn.LayerNorm(width, eps=1e-12)
         self.fc1 = _dense(width, int(width * mlp_ratio), generator)
         self.fc2 = _dense(int(width * mlp_ratio), width, generator)
@@ -68,11 +71,8 @@ class TextBert(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        for flag, what in ((grad_checkpointing, "grad_checkpointing"),
-                           (attn_remat, "attn_remat"),
-                           (attn_int8 or attn_int8_delayed, "the int8 attention interior")):
-            if flag:
-                raise not_ported(what)
+        if attn_int8 or attn_int8_delayed:
+            raise not_ported("the int8 attention interior")
         if proj_type not in ("mlp", "linear", "none"):
             raise ValueError(f"proj_type must be mlp|linear|none, got {proj_type!r}")
         g = generator
@@ -81,6 +81,7 @@ class TextBert(nn.Module):
         self.embed_dim = embed_dim
         self.proj_type = proj_type
         self.pad_id = pad_id
+        self.grad_checkpointing = grad_checkpointing
         self.dtype = dtype
         self.tok_emb = nn.Embedding(vocab_size, width, device="meta").to_empty(device="cpu")
         with torch.no_grad():
@@ -91,7 +92,7 @@ class TextBert(nn.Module):
         for i in range(depth):
             self.add_module(f"block{i}", BertBlock(
                 width, num_heads, mlp_ratio, dtype=dtype, gelu_approx=gelu_approx,
-                attn_flash=attn_flash, generator=g))
+                attn_flash=attn_flash, attn_remat=attn_remat, generator=g))
         if proj_type == "linear":
             self.proj = _dense(width, embed_dim, g, bias=False)
         elif proj_type == "mlp":
@@ -106,7 +107,11 @@ class TextBert(nn.Module):
         x = _layer_norm_f32(x, self.ln_emb).to(cdt)
         pad_mask = (input_ids != self.pad_id)[:, None, None, :]  # (B, 1, 1, L)
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x, pad_mask)
+            block = getattr(self, f"block{i}")
+            if self.grad_checkpointing and torch.is_grad_enabled():
+                x = remat(block, x, pad_mask)
+            else:
+                x = block(x, pad_mask)
         cls = x[:, 0].float()
         if self.proj_type == "linear":
             cls = F.linear(cls, self.proj.weight)

@@ -1,4 +1,4 @@
-"""Vision Transformer tower (ViT-B/16), in PyTorch; the eval path.
+"""Vision Transformer tower (ViT-B/16), in PyTorch.
 
 Counterpart of ``mamba_clip_tpu/models/vit.py``: ``FusedAttention``,
 ``MlpBlock``, ``EncoderBlock`` and ``VisionTransformer``, with the Flax
@@ -13,9 +13,15 @@ variable tree onto them leaf by leaf.
   eps 1e-6, the final norm and the projection).
 - The attention interior is ``ops/flash_attn.py``: the plain (einsum)
   interior, or with ``flash_interior`` the flash interior, which launches
-  the CUDA kernel for tensors on the card.
-- Training and quantized modes (patch dropout, gradient checkpointing,
-  ``attn_remat``, the int8 interiors) are not ported: asked for, they
+  the CUDA kernels for tensors on the card, forward and backward.
+- Training mode: ``patch_dropout`` zeroes patch tokens (never CLS) and
+  divides the kept ones by the keep rate, with a mask drawn from the
+  explicit generator passed to ``forward`` (drawn outside any checkpointed
+  region). ``grad_checkpointing`` recomputes each block in the backward
+  (``torch.utils.checkpoint``, the counterpart of ``nn.remat``);
+  ``attn_remat`` recomputes the einsum interior only, and changes nothing
+  under the flash interior, which keeps no probabilities to recompute.
+- The quantized modes (the int8 interiors) are not ported: asked for, they
   raise.
 """
 
@@ -26,16 +32,23 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attn import attention_plain, flash_attention_interior
-from .vssm import _layer_norm_f32, _lecun_normal_, _linear
+from .vssm import _apply_keep, _layer_norm_f32, _lecun_normal_, _linear, keep_mask
 
-_NOT_PORTED = ("is a training or quantized mode, not ported yet (ROADMAP.md, "
-               "Queue 1, 'Towers and the CLIP wrapper')")
+_NOT_PORTED = "is a quantized mode, not ported yet (ROADMAP.md, Queue 1, 'Quantized modes')"
 
 
 def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} {_NOT_PORTED}")
+
+
+def remat(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, recomputed in the backward instead of keeping
+    its activations. Nothing inside draws from a global generator, so there
+    is no RNG state to stash and restore."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
 def _dense(d_in: int, d_out: int, generator, bias: bool = True) -> nn.Linear:
@@ -61,15 +74,18 @@ def gelu(x, approximate: bool):
 class FusedAttention(nn.Module):
     """Multi-head attention with a fused (d, 3d) ``qkv`` projection, split
     into contiguous thirds, and an ``out`` projection. ``pad_mask``
-    ``[B, 1, 1, T]`` masks keys only."""
+    ``[B, 1, 1, T]`` masks keys only. ``remat_probs`` recomputes the einsum
+    interior in the backward, keeping q, k and v instead of the
+    ``[B, h, T, T]`` probabilities."""
 
     def __init__(self, width: int, num_heads: int, dtype: torch.dtype = torch.float32,
-                 flash_interior: bool = False,
+                 flash_interior: bool = False, remat_probs: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.flash_interior = flash_interior
+        self.remat_probs = remat_probs
         self.qkv = _dense(width, 3 * width, generator)
         self.out = _dense(width, width, generator)
 
@@ -79,8 +95,13 @@ class FusedAttention(nn.Module):
         hd = d // h
         q, k, v = (t.reshape(B, T, h, hd)
                    for t in _linear(x, self.qkv, self.dtype).split(d, dim=-1))
-        interior = flash_attention_interior if self.flash_interior else attention_plain
-        return _linear(interior(q, k, v, pad_mask, sm_scale=hd ** -0.5), self.out, self.dtype)
+        if self.flash_interior:
+            o = flash_attention_interior(q, k, v, pad_mask, sm_scale=hd ** -0.5)
+        elif self.remat_probs and torch.is_grad_enabled():
+            o = remat(attention_plain, q, k, v, pad_mask, sm_scale=hd ** -0.5)
+        else:
+            o = attention_plain(q, k, v, pad_mask, sm_scale=hd ** -0.5)
+        return _linear(o, self.out, self.dtype)
 
 
 class MlpBlock(nn.Module):
@@ -112,12 +133,12 @@ class EncoderBlock(nn.Module):
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32, quick_gelu: bool = False,
                  gelu_approx: bool = False, attn_flash: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 attn_remat: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(width, eps=1e-6)
         self.attn = FusedAttention(width, num_heads, dtype=dtype, flash_interior=attn_flash,
-                                   generator=generator)
+                                   remat_probs=attn_remat, generator=generator)
         self.norm2 = nn.LayerNorm(width, eps=1e-6)
         self.mlp = MlpBlock(width, int(width * mlp_ratio), width, dtype=dtype,
                             quick_gelu=quick_gelu, gelu_approx=gelu_approx,
@@ -154,14 +175,12 @@ class VisionTransformer(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        for flag, what in ((patch_dropout > 0.0, "patch_dropout"),
-                           (grad_checkpointing, "grad_checkpointing"),
-                           (attn_remat, "attn_remat"),
-                           (attn_int8 or attn_int8_delayed, "the int8 attention interior")):
-            if flag:
-                raise not_ported(what)
+        if attn_int8 or attn_int8_delayed:
+            raise not_ported("the int8 attention interior")
         g = generator
         self.patch_size = patch_size
+        self.patch_dropout = patch_dropout
+        self.grad_checkpointing = grad_checkpointing
         self.width = width
         self.depth = depth
         self.embed_dim = embed_dim
@@ -173,11 +192,14 @@ class VisionTransformer(nn.Module):
         for i in range(depth):
             self.add_module(f"block{i}", EncoderBlock(
                 width, num_heads, mlp_ratio, dtype=dtype, quick_gelu=quick_gelu,
-                gelu_approx=gelu_approx, attn_flash=attn_flash, generator=g))
+                gelu_approx=gelu_approx, attn_flash=attn_flash, attn_remat=attn_remat,
+                generator=g))
         self.norm = nn.LayerNorm(width, eps=1e-6)
         self.proj = _dense(width, embed_dim, g, bias=False) if embed_dim is not None else None
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        """``generator``: the explicit generator, on ``x``'s device, that
+        training mode draws the patch-dropout mask from."""
         B, H, W, C = x.shape
         p = self.patch_size
         gh, gw = H // p, W // p
@@ -186,8 +208,15 @@ class VisionTransformer(nn.Module):
         x = _linear(patches, self.patch_embed, self.dtype)
         cls = self.cls_token.to(self.dtype).expand(B, 1, self.width)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
+        if self.patch_dropout > 0.0 and self.training:
+            mask = keep_mask((B, x.shape[1] - 1, 1), self.patch_dropout, generator, x.device)
+            x = torch.cat([x[:, :1], _apply_keep(x[:, 1:], mask, self.patch_dropout)], dim=1)
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x)
+            block = getattr(self, f"block{i}")
+            if self.grad_checkpointing and torch.is_grad_enabled():
+                x = remat(block, x)
+            else:
+                x = block(x)
         x = _layer_norm_f32(x[:, 0], self.norm)
         if self.proj is not None:
             x = F.linear(x, self.proj.weight)

@@ -2,8 +2,8 @@
 
 Each source under ``csrc/`` exposes a plain C interface. At first use it
 is compiled with ``nvcc`` for ``sm_90a`` into a shared library under the
-repository's ``build/kernels/``, named by a hash of the source and the
-flags, and loaded with ``ctypes``; a later process finds the library and
+repository's ``build/kernels/``, named by a hash of the source, the headers
+(``csrc/*.cuh``) and the flags, and loaded with ``ctypes``; a later process finds the library and
 skips the compile. A missing ``nvcc`` or a failed compile raises: there is
 no fallback.
 """
@@ -47,7 +47,8 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    key = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
 

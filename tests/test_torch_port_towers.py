@@ -245,15 +245,15 @@ def test_build_clip_refuses_flash_with_int8_attention(quant):
         tclip.build_clip("biomedclip", quant=quant, **small)
 
 
-@pytest.mark.parametrize("kw", [dict(patch_dropout=0.1), dict(grad_checkpointing=True),
-                                dict(attn_remat=True), dict(attn_int8=True),
-                                dict(attn_int8_delayed=True)])
+@pytest.mark.parametrize("kw", [dict(attn_int8=True), dict(attn_int8_delayed=True)])
 def test_training_and_quant_modes_raise(kw):
+    """The int8 interiors raise; the training modes (patch dropout, gradient
+    checkpointing, ``attn_remat``) are ported and tested in
+    test_torch_port_clip_train_modules.py."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tvit.VisionTransformer(**VIT, **kw)
-    if "patch_dropout" not in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbert.TextBert(**BERT, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbert.TextBert(**BERT, **kw)
 
 
 def test_bridge_refuses_left_over_and_missing_leaves():
