@@ -10,7 +10,8 @@ on failure:
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and convolutions;
 2. build: compiles the five CUDA sources (six kernels) from ``csrc/``, one
-   nvcc each, started together, and prints ptxas' registers and spills;
+   nvcc each, started together (always anew: an earlier run's libraries
+   are removed first), and prints ptxas' registers and spills;
 3. kernel against plain: ``selective_scan_fwd`` against the plain loop on
    the card at the medmamba stage shapes (batch 2), a ragged shape, fp32
    and bf16, softplus on and off; gate: max|y_k - y_p| / max|y_p| <= 5e-4,
@@ -39,22 +40,32 @@ on failure:
    from the same state (loss and grad norm within one bf16 ulp, 2^-8,
    relative). Prints ms per step, train img/s, peak device memory and the
    scan kernels' ms per step;
-7. flash kernel against plain: ``flash_attn_fwd`` against the plain
+7. flash kernel against plain: first each instance of the forward that
+   phase 2 built (at hd 32, 64, 128: the tensor-core body, which bf16 runs
+   without residuals, and the CUDA-core body, which fp32 and bf16 with
+   residuals run), with ptxas' registers and spills, its shared memory a
+   block and the ``HMMA`` instructions in its SASS (``cuobjdump -sass``);
+   every tensor-core instance must hold some, or the phase fails. Then
+   ``flash_attn_fwd`` against the plain
    (einsum) interior at h = 12, hd = 64, batch 2: T = 197 unmasked; T = 256
    with a prefix, a non-prefix, a one-key and an all-masked key row; the
    trimmed text context 224; a ragged 77; and hd 32 and 128; fp32 and bf16;
-   gate max|o_k - o_p| / max|o_p| <= 5e-4 (fp32) and 2e-2 (bf16), and the
+   each case as serving calls it (no residuals: bf16 on the tensor cores)
+   and as training calls it (with residuals: the CUDA-core body); gate
+   max|o_k - o_p| / max|o_p| <= 5e-4 (fp32) and 2e-2 (bf16), and the
    all-masked row must be the mean of v. Then, at batch 64 in bf16, the
    kernel, the plain interior and ``F.scaled_dot_product_attention`` (the
    library yardstick, never on the path) are timed at the ViT shape
    (T 197) and the BERT shape (T 256, masks of tokenized report-like text)
-   beside the bound;
+   beside the bound, and the training forward's o is held against the
+   plain interior there too;
 8. CLIP serving: full-width BiomedCLIP (ViT-B/16 + the 12-layer BERT, bf16
    compute, ``attn_impl="flash"``, random weights from seed 0) answers 16
    concurrent ``image_embed`` and 16 concurrent ``text_embed`` requests
    through two ``MicroBatcher``s; the embeddings must be finite unit
    vectors, the counters must show 12 flash launches per dispatched batch
-   and no scan launch, and the ``attn_impl="einsum"`` model on the same
+   and no scan launch, every one on the tensor cores (the wrapper counts
+   each body's launches apart), and the ``attn_impl="einsum"`` model on the same
    weights must agree within 2e-2; the 24 interiors of one image and one
    text forward are each held against the plain interior at the bf16
    gate; the VSSM-towered CLIP's ``image_embed`` must make 14 scan
@@ -74,15 +85,18 @@ on failure:
    key, dq and dk exactly 0 for a row with none; two runs bit-identical.
    Then, at batch 64 in bf16 at the ViT and BERT shapes, the forward with
    residuals and both backward kernels are timed beside their bounds, the
-   plain backward and the backward of ``F.scaled_dot_product_attention``;
+   plain forward and backward, and the forward (with its residuals, as
+   training calls it) and backward of ``F.scaled_dot_product_attention``;
 10. CLIP training: the stage-1 contrastive step of full-width BiomedCLIP
    (``amp``, ``attn_impl="flash"``, batch 64, device-resident uint8 images
    at staging 256, HashTokenizer tokens of report-like text, AdamW with
    clipping at 1.0): 2 warm-up and 5 timed steps with finite loss and grad
    norm, the first loss within [3, 6] (ln 64 = 4.16 at random init),
    ``logit_scale`` within [1, 100], exactly 24 forward, 24 dk/dv and 24 dq
-   launches a step and no scan launch; the 24 interiors of one more step
-   recorded with their ``do``, each backward held against the fp32 plain
+   launches a step and no scan launch, every forward on the CUDA-core body;
+   the 24 interiors of one more step recorded with their ``do``, each
+   forward's o held against the plain interior at the bf16 gate and each
+   backward held against the fp32 plain
    backward on its own bf16 inputs and kept result at the bf16 gate (the
    bf16 plain backward, which recomputes the result, is printed beside it:
    where a row's keys are nearly alike, dq is a small remainder of terms
@@ -140,7 +154,14 @@ on failure:
    ``attn_impl="einsum"`` model on the same weights. Prints an
    ``epoch_stage2`` JSON line. Checkpoints go under ``tempfile.mkdtemp()``
    and are removed at the end;
-14. prints the kernels line (six kernels), then the device line last.
+14. prints the kernels line (six kernels, the forward as two entries, one
+   a body: ``flash_attn_fwd`` on the tensor cores, timed in phase 7, and
+   ``flash_attn_fwd_cuda_cores``, the training forward, timed in phase 9
+   beside the plain interior and the library's forward with its residuals;
+   each with its own launches, which must not be 0 on the main path; the
+   attention kernels also with their bound from the ceilings phase 11
+   measured and their share of it, the forward's entries with their share
+   of the data-sheet bound and their instances), then the device line last.
 
 Phases 1-10 run at the depth and iteration counts they had before phases
 11-13 were added.
@@ -151,6 +172,7 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -311,7 +333,10 @@ def main() -> None:
         f"exp peak {sfu_rate:.4g}/s; fp32 peak {FP32_FLOPS:.3g} FLOP/s and HBM "
         f"{HBM_BYTES_PER_S:.3g} B/s (H100 SXM data sheet)")
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per source, all started together, always anew (phase 7
+    # reads ptxas' report of this build)
+    for k in KERNELS:
+        cuda_build.library_path(k).unlink(missing_ok=True)
     t0 = time.time()
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         for f in [pool.submit(cuda_build.build, k) for k in KERNELS]:
@@ -665,7 +690,36 @@ def main() -> None:
         f"{peak / 2**30:.2f} GiB allocated; scan forward {fwd_hck_step:.3f} ms and backward "
         f"{bwd_k_step:.3f} ms per step, on {card}")
 
-    # 7. flash kernel against plain
+    # 7. flash kernel against plain. First what was built: ptxas' registers,
+    # spills and shared memory of each instance of the forward, and the
+    # tensor-core instructions in the bf16 instances' SASS
+    fwd_lib = cuda_build.library_path("flash_attn_fwd")
+    fwd_ptxas = cuda_build.ptxas_report(cuda_build.build_logs.get("flash_attn_fwd", ""))
+    fwd_hmma = cuda_build.sass_counts(fwd_lib, "HMMA")
+    fwd_instances = {}
+    for mangled, rep in fwd_ptxas.items():
+        inst = re.search(
+            r"flash_attn_fwd_(bf16_kernelI|kernelIf|kernelI13__nv_bfloat16)Li(\d+)E", mangled)
+        if inst is None:
+            continue
+        body, hd = inst.group(1), int(inst.group(2))
+        name = {"bf16_kernelI": "bf16 tensor cores", "kernelIf": "fp32 CUDA cores",
+                "kernelI13__nv_bfloat16": "bf16 with residuals, CUDA cores"}[body]
+        smem = (cuda_build.load("flash_attn_fwd").flash_attn_fwd_bf16_smem_bytes(hd)
+                if body == "bf16_kernelI" else rep["static_smem"])
+        fwd_instances[f"{name} hd{hd}"] = {
+            "registers": rep["registers"], "spill_stores": rep["spill_stores"],
+            "spill_loads": rep["spill_loads"], "smem_bytes": smem,
+            "hmma": fwd_hmma.get(mangled, 0)}
+    for name, inst in sorted(fwd_instances.items()):
+        say(f"flash_attn_fwd {name}: {inst['registers']} registers, spills "
+            f"{inst['spill_stores']}/{inst['spill_loads']} bytes, {inst['smem_bytes']} B shared "
+            f"memory a block, {inst['hmma']} HMMA")
+    tc_hmma = [v["hmma"] for k, v in fwd_instances.items() if "tensor cores" in k]
+    if len(fwd_instances) != 9 or len(tc_hmma) != 3 or min(tc_hmma) == 0:
+        fail("the bf16 flash forward without residuals must run on the tensor cores: each "
+             f"of its instances needs HMMA in its SASS ({fwd_instances})")
+
     def attn_inputs(Bsz, T, h, hd, dtype, valid=None, seed=0):
         g = torch.Generator(device="cuda").manual_seed(seed)
         q, k, v = (torch.randn(Bsz, T, h, hd, generator=g, device="cuda").to(dtype)
@@ -691,8 +745,27 @@ def main() -> None:
                 out[i] = False
         return out
 
-    attn_worst = {"fp32": 0.0, "bf16": 0.0}
-    attn_abs = 0.0
+    # the two bodies of the forward: the tensor cores run bf16 without
+    # residuals (serving, no-grad), the CUDA cores fp32 and bf16 with them
+    # (training); each keeps its own worst errors and launch count
+    def body_of(dtype, with_residuals):
+        return ("tensor_cores" if dtype == torch.bfloat16 and not with_residuals
+                else "cuda_cores")
+
+    def zero_fwd_bodies():
+        for body in flash_attn_fwd.launches_by_body:
+            flash_attn_fwd.launches_by_body[body] = 0
+
+    def fwd_bodies():
+        return dict(flash_attn_fwd.launches_by_body)
+
+    attn_worst = {"tensor_cores": {"bf16": 0.0}, "cuda_cores": {"fp32": 0.0, "bf16": 0.0}}
+    attn_abs = {"tensor_cores": 0.0, "cuda_cores": 0.0}
+
+    def note_fwd(body, name, rel, abs_err):
+        attn_worst[body][name] = max(attn_worst[body][name], rel)
+        attn_abs[body] = max(attn_abs[body], abs_err)
+
     cases = [
         (197, 12, 64, None, "ViT, no mask"),
         (256, 12, 64, rows(256, "prefix:180", "holes", seed=1), "prefix + non-prefix"),
@@ -706,21 +779,29 @@ def main() -> None:
     for T, h, hd, valid, label in cases:
         for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
             q, k, v, mask = attn_inputs(2, T, h, hd, dtype, valid, seed=T + hd)
+            key_mask = None if mask is None else mask.reshape(2, T).contiguous()
             with torch.inference_mode():
-                o_k = flash_attention_interior(q, k, v, mask, sm_scale=hd**-0.5, impl="cuda")
                 o_p = attention_plain(q, k, v, mask, sm_scale=hd**-0.5)
+                # the interior as serving calls it, then the training forward
+                o_ks = {False: flash_attention_interior(q, k, v, mask, sm_scale=hd**-0.5,
+                                                        impl="cuda"),
+                        True: flash_attn_fwd(q, k, v, key_mask, sm_scale=hd**-0.5,
+                                             with_residuals=True)[0]}
             torch.cuda.synchronize()
-            (rel, abs_err), = rel_errs([o_k], [o_p])
-            ok = bool(torch.isfinite(o_k).all()) and rel <= ATTN_GATE[name]
-            if valid is not None and not valid[1].any():  # the all-masked row: the mean of v
-                (rel_m, _), = rel_errs([o_k[1]], [v[1].float().mean(0).reshape(1, -1)])
-                ok = ok and rel_m <= ATTN_GATE[name]
-            say(f"flash B=2 T={T} h={h} hd={hd} {name} ({label}): rel_err {rel:.3e} "
-                f"abs_err {abs_err:.3e} {'ok' if ok else 'FAIL'}")
-            if not ok:
-                fail(f"flash_attn_fwd disagrees with the plain interior at T={T} hd={hd} {name}")
-            attn_worst[name] = max(attn_worst[name], rel)
-            attn_abs = max(attn_abs, abs_err)
+            for with_res, o_k in o_ks.items():
+                (rel, abs_err), = rel_errs([o_k], [o_p])
+                ok = bool(torch.isfinite(o_k).all()) and rel <= ATTN_GATE[name]
+                if valid is not None and not valid[1].any():  # the all-masked row: mean of v
+                    (rel_m, _), = rel_errs([o_k[1]], [v[1].float().mean(0).reshape(1, -1)])
+                    ok = ok and rel_m <= ATTN_GATE[name]
+                body = body_of(dtype, with_res)
+                say(f"flash B=2 T={T} h={h} hd={hd} {name} ({label}), "
+                    f"{'with' if with_res else 'without'} residuals ({body}): rel_err {rel:.3e} "
+                    f"abs_err {abs_err:.3e} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"flash_attn_fwd disagrees with the plain interior at T={T} hd={hd} "
+                         f"{name}, {'with' if with_res else 'without'} residuals")
+                note_fwd(body, name, rel, abs_err)
 
     # at the serving batch (64) and type (bf16): the ViT and BERT shapes
     attn_shapes = {}
@@ -733,15 +814,19 @@ def main() -> None:
             o_k = flash_attention_interior(q, k, v, mask, sm_scale=sm, impl="cuda")
             o_p = attention_plain(q, k, v, mask, sm_scale=sm)
             (rel, abs_err), = rel_errs([o_k], [o_p])
+            key_mask = None if mask is None else mask.reshape(64, T).contiguous()
+            o_r = flash_attn_fwd(q, k, v, key_mask, sm_scale=sm, with_residuals=True)[0]
+            (rel_r, abs_r), = rel_errs([o_r], [o_p])
             ms_k = cuda_ms(lambda: flash_attention_interior(q, k, v, mask, sm_scale=sm,
                                                             impl="cuda"), 20)
             ms_p = cuda_ms(lambda: attention_plain(q, k, v, mask, sm_scale=sm), 20)
             ms_l = cuda_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, scale=sm), 20)
-        if rel > ATTN_GATE["bf16"]:
-            fail(f"flash_attn_fwd disagrees with the plain interior at the {tower} shape")
-        attn_worst["bf16"] = max(attn_worst["bf16"], rel)
-        attn_abs = max(attn_abs, abs_err)
+        if rel > ATTN_GATE["bf16"] or rel_r > ATTN_GATE["bf16"]:
+            fail(f"flash_attn_fwd disagrees with the plain interior at the {tower} shape: "
+                 f"rel err {rel:.3e} without residuals, {rel_r:.3e} with them")
+        note_fwd("tensor_cores", "bf16", rel, abs_err)
+        note_fwd("cuda_cores", "bf16", rel_r, abs_r)
         bound = attn_bound(64, T, 12, 64, 2, valid is not None, sfu_rate)
         attn_shapes[tower] = {"B": 64, "T": T, "h": 12, "hd": 64, "dtype": "bf16",
                               "masked": valid is not None, "launches_per_forward": 12,
@@ -749,8 +834,9 @@ def main() -> None:
                               "max_rel_err": rel}
         say(f"flash B=64 T={T} bf16 ({tower}): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
             f"scaled_dot_product_attention {ms_l:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-            f"({bound['bound_by']}), rel_err {rel:.3e}")
-        del q, k, v, qt, kt, vt, o_k, o_p
+            f"({bound['bound_by']}), rel_err {rel:.3e}; with residuals (CUDA cores) rel_err "
+            f"{rel_r:.3e}")
+        del q, k, v, qt, kt, vt, o_k, o_p, o_r
     say(json.dumps({"flash_attn_fwd_shapes": attn_shapes, "card": card}))
 
     # 8. CLIP serving at full width
@@ -786,6 +872,7 @@ def main() -> None:
             errors.append(f"{name} request {i}: {e!r}")
 
     selective_scan_fwd.launches = selective_scan_bwd.launches = flash_attn_fwd.launches = 0
+    zero_fwd_bodies()
     batchers = {name: MicroBatcher(lambda x, f=cfns[name]: f(clip, x), max_batch=16,
                                    max_delay_ms=100.0) for name in c_req}
     t0 = time.time()
@@ -799,6 +886,7 @@ def main() -> None:
         mb.close()
     wall = time.time() - t0
     clip_flash = flash_attn_fwd.launches
+    clip_flash_bodies = fwd_bodies()
     clip_scans = selective_scan_fwd.launches + selective_scan_bwd.launches
     if errors or any(t.is_alive() for t in threads):
         fail(f"clip serving: {errors or 'a request did not finish'}")
@@ -812,6 +900,9 @@ def main() -> None:
     if clip_flash != 12 * n_batches or clip_scans != 0:
         fail(f"{clip_flash} flash and {clip_scans} scan launches for {n_batches} batches, "
              "expected 12 flash launches each and no scan")
+    if clip_flash_bodies != {"tensor_cores": clip_flash, "cuda_cores": 0}:
+        fail(f"clip serving: the forward's launches by body {clip_flash_bodies}, expected "
+             "every one on the tensor cores")
     clip_diff = 0.0
     for name, reqs in c_req.items():
         got = np.concatenate(c_ans[name])
@@ -851,26 +942,27 @@ def main() -> None:
             o_p = attention_plain(q, k, v, pad_mask, sm_scale=sm_scale)
         (rel, abs_err), = rel_errs([o_k], [o_p])
         rec_attn = max(rec_attn, rel)
-        attn_abs = max(attn_abs, abs_err)
+        note_fwd("tensor_cores", "bf16", rel, abs_err)
         if not rel <= ATTN_GATE["bf16"]:
             fail(f"flash_attn_fwd disagrees with the plain interior on a served batch's "
                  f"inputs (T={q.shape[1]}): rel err {rel:.3e}")
     say(f"clip serving: the 24 recorded interiors (12 T={calls[0][0].shape[1]}, 12 "
         f"T={calls[-1][0].shape[1]}) agree with the plain interior: worst rel_err "
         f"{rec_attn:.3e} (gate {ATTN_GATE['bf16']:g})")
-    attn_worst["bf16"] = max(attn_worst["bf16"], rec_attn)
     del calls
 
     # the VSSM-towered CLIP: its image tower runs the scan, its text tower flash
     mm_clip, mm_fns, _ = make_serving_fns(
         "medmamba", is_clip=True, attn_impl="flash", precision="amp", device="cuda",
         generator=torch.Generator().manual_seed(2))
-    mm_launches = {}
+    mm_launches, mm_bodies = {}, {}
     for name, reqs in c_req.items():
         selective_scan_fwd.launches = flash_attn_fwd.launches = 0
+        zero_fwd_bodies()
         out = mm_fns[name](mm_clip, np.concatenate(reqs))
         torch.cuda.synchronize()
         mm_launches[name] = {"scan": selective_scan_fwd.launches, "flash": flash_attn_fwd.launches}
+        mm_bodies[name] = fwd_bodies()
         if out.shape != (16, 512) or not torch.isfinite(out).all():
             fail(f"medmamba CLIP {name} gave a bad result")
     say(f"clip serving: medmamba CLIP launches {mm_launches}")
@@ -1006,27 +1098,35 @@ def main() -> None:
         note_bwd(errs, "bf16")
         ms_f = cuda_ms(lambda: flash_attn_fwd(q, k, v, key_mask, sm_scale=sm,
                                               with_residuals=True), 20)
+        with torch.no_grad():
+            ms_pf = cuda_ms(lambda: attention_plain(q, k, v, mask, sm_scale=sm), 20)
         ms_kv = cuda_ms(lambda: flash_attn_bwd_dkv(q, k, v, *res, sm_scale=sm), 20)
         ms_q = cuda_ms(lambda: flash_attn_bwd_dq(q, k, v, *res, sm_scale=sm), 20)
         ms_p = cuda_ms(lambda: attention_plain_bwd(q, k, v, mask, do, sm), 10)
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
         o_l = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sm)
+        # the library's forward as training calls it: it keeps its residuals
+        ms_lf = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                               scale=sm), 20)
         do_l = do.view(64, T, 12, 64).transpose(1, 2)
         ms_l = cuda_ms(lambda: torch.autograd.grad(o_l, (qt, kt, vt), do_l, retain_graph=True),
                        20)
         masked = valid is not None
         b_kv = attn_bound(64, T, 12, 64, 2, masked, sfu_rate, tensors=6, stats=3, products=4)
         b_q = attn_bound(64, T, 12, 64, 2, masked, sfu_rate, tensors=5, stats=3, products=3)
+        b_f = attn_bound(64, T, 12, 64, 2, masked, sfu_rate, stats=2)
         bwd_shapes_attn[tower] = {
             "B": 64, "T": T, "h": 12, "hd": 64, "dtype": "bf16", "masked": masked,
             "launches_per_step": 12, "fwd_with_residuals_ms": ms_f,
+            "fwd": {"ms": ms_f, "plain_ms": ms_pf, "library_ms": ms_lf, **b_f},
             "dkv": {"ms": ms_kv, **b_kv}, "dq": {"ms": ms_q, **b_q},
             "plain_bwd_ms": ms_p, "library_bwd_ms": ms_l,
             "max_rel_err": max(r for r, _ in errs)}
         say(f"flash bwd B=64 T={T} bf16 ({tower}): dk/dv {ms_kv:.4f} ms (bound "
             f"{b_kv['bound_ms']:.4f}, {b_kv['bound_by']}), dq {ms_q:.4f} ms (bound "
-            f"{b_q['bound_ms']:.4f}, {b_q['bound_by']}), forward with residuals {ms_f:.4f} ms, "
-            f"plain backward {ms_p:.4f} ms, scaled_dot_product_attention backward "
+            f"{b_q['bound_ms']:.4f}, {b_q['bound_by']}), forward with residuals {ms_f:.4f} ms "
+            f"(bound {b_f['bound_ms']:.4f}, plain {ms_pf:.4f}, scaled_dot_product_attention "
+            f"{ms_lf:.4f}), plain backward {ms_p:.4f} ms, scaled_dot_product_attention backward "
             f"{ms_l:.4f} ms")
         del q, k, v, do, g_k, res, qt, kt, vt, o_l, do_l
     say(json.dumps({"flash_attn_bwd_shapes": bwd_shapes_attn, "card": card}))
@@ -1042,6 +1142,7 @@ def main() -> None:
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        zero_fwd_bodies()
 
     def read_counts():
         return {key: w.launches for key, w in wrappers.items()}
@@ -1081,10 +1182,15 @@ def main() -> None:
     reset_counts()
     state, clip_ms, clip_peak, metrics = timed_clip_steps(state, step_fn, batches, "flash")
     clip_train = read_counts()
-    say(f"clip training: launches in {steps} steps: {clip_train}")
+    clip_train_bodies = fwd_bodies()
+    say(f"clip training: launches in {steps} steps: {clip_train}; the forward's by body "
+        f"{clip_train_bodies}")
     want = {"fwd": 24 * steps, "dkv": 24 * steps, "dq": 24 * steps, "scan_fwd": 0, "scan_bwd": 0}
     if clip_train != want:
         fail(f"clip training: launches {clip_train}, expected {want}")
+    if clip_train_bodies != {"tensor_cores": 0, "cuda_cores": 24 * steps}:
+        fail(f"clip training: the forward's launches by body {clip_train_bodies}, expected "
+             "every one on the CUDA cores (with residuals)")
     first_loss = float(metrics[0]["loss"])
     if not 3.0 <= first_loss <= 6.0:
         fail(f"clip training: first loss {first_loss} outside [3, 6] (ln 64 = 4.16)")
@@ -1116,13 +1222,22 @@ def main() -> None:
     # row are nearly alike, so dq = sum_j ds_j k_j is a small remainder of
     # terms that cancel, and a difference of one bf16 rounding in
     # rowsum(o * do) is of dq's own size.
-    rec_bwd = rec_bwd_bf16 = 0.0
+    rec_bwd = rec_bwd_bf16 = rec_fwd = 0.0
     for c in calls:
         q, k, v = (c[n].contiguous() for n in "qkv")
         B_, T_ = q.shape[:2]
         key_mask = None if c["mask"] is None else c["mask"].reshape(B_, T_).contiguous()
         do = c["do"].contiguous()
         g_k, _, out = flash_bwd(q, k, v, key_mask, do, c["sm"])
+        # the forward's own result, held against the plain interior
+        with torch.no_grad():
+            (rel_o, abs_o), = rel_errs([out], [attention_plain(q, k, v, c["mask"],
+                                                               sm_scale=c["sm"])])
+        if not rel_o <= ATTN_GATE["bf16"]:
+            fail("flash_attn_fwd with residuals disagrees with the plain interior on a train "
+                 f"step's own inputs (T={T_}): rel err {rel_o:.3e}")
+        rec_fwd = max(rec_fwd, rel_o)
+        note_fwd("cuda_cores", "bf16", rel_o, abs_o)
         errs = rel_errs(g_k, attention_plain_bwd(q.float(), k.float(), v.float(), c["mask"],
                                                  do.float(), c["sm"], o=out.float()))
         errs_bf16 = rel_errs(g_k, attention_plain_bwd(q, k, v, c["mask"], do, c["sm"]))
@@ -1144,7 +1259,8 @@ def main() -> None:
     say(f"clip training: the 24 recorded interiors (12 T={calls[0]['q'].shape[1]}, 12 "
         f"T={calls[-1]['q'].shape[1]}) agree with the fp32 plain backward on their own inputs: "
         f"worst rel_err {rec_bwd:.3e} (gate {ATTN_GATE['bf16']:g}); against the bf16 plain "
-        f"backward {rec_bwd_bf16:.3e}")
+        f"backward {rec_bwd_bf16:.3e}; their forward's o against the plain interior "
+        f"{rec_fwd:.3e}")
     del calls, state, step_fn, c, q, k, v, do, g_k
     torch.cuda.empty_cache()
 
@@ -1186,6 +1302,7 @@ def main() -> None:
     reset_counts()
     st, m = fn(st, bs[0], 0)
     accum_counts = read_counts()
+    accum_bodies = fwd_bodies()
     check_metrics(m, "accum_freq=2 checkpointed clip step")
     say(f"clip training bs 8 accum_freq=2 grad_checkpointing: launches {accum_counts}")
     if accum_counts != {"fwd": 144, "dkv": 48, "dq": 48, "scan_fwd": 0, "scan_bwd": 0}:
@@ -1198,6 +1315,7 @@ def main() -> None:
     reset_counts()
     st, m = fn(st, bs[0], 0)
     mm_train = read_counts()
+    mm_train_bodies = fwd_bodies()
     check_metrics(m, "medmamba clip step")
     say(f"clip training bs 8 medmamba CLIP: launches {mm_train}")
     if mm_train != {"fwd": 12, "dkv": 12, "dq": 12, "scan_fwd": 14, "scan_bwd": 14}:
@@ -1214,6 +1332,7 @@ def main() -> None:
         "launches_per_step": {k: n / steps for k, n in clip_train.items()},
         "first_loss": first_loss, "recorded_interiors_max_rel_err": rec_bwd,
         "recorded_interiors_vs_bf16_plain_max_rel_err": rec_bwd_bf16,
+        "recorded_interiors_fwd_max_rel_err": rec_fwd,
         "bs8_kernel_vs_plain_max_rel": clip_e2e, "accum2_checkpointed_launches": accum_counts,
         "medmamba_clip_launches": mm_train}}))
     say(f"clip training: {clip_ms:.2f} ms/step, {TB / (clip_ms / 1e3):.1f} pairs/s, peak "
@@ -1390,6 +1509,7 @@ def main() -> None:
         epoch1_s = time.perf_counter() - t0
         peak1 = torch.cuda.max_memory_allocated()
         total1 = read_counts()
+        total1_bodies = fwd_bodies()
         names = sorted(os.listdir(run1.checkpoint_path))
         say(f"epoch stage 1: {len(log1)} steps, launches a step {log1}; in all {total1}; "
             f"metrics {metrics1}; checkpoints {names}; step checkpoint seen after batch 2: "
@@ -1528,6 +1648,7 @@ def main() -> None:
         torch.cuda.synchronize()
         peak2 = torch.cuda.max_memory_allocated()
         total2 = read_counts()
+        total2_bodies = fwd_bodies()
         say(f"epoch stage 2: {len(log2)} steps, launches a step {log2}; in all {total2}; "
             f"metrics {metrics2}; moments kept for {sorted(state2.opt_state.mu)}")
         want2 = {**step_want, "dkv": 0, "dq": 0}
@@ -1588,11 +1709,47 @@ def main() -> None:
         shutil.rmtree(work, ignore_errors=True)
 
     # 14. kernels line, then the device line
-    per_fwd = {key: sum(12 * attn_shapes[t][key] for t in attn_shapes)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    attn_by = {"bytes": 0.0, "operations": 0.0}
-    for shape in attn_shapes.values():
-        attn_by[shape["bound_by"]] += shape["bound_ms"]
+    # the forward's two bodies: serving's tensor-core body timed in phase 7,
+    # training's CUDA-core body (with residuals) in phase 9, on the same inputs
+    def by_bound(shapes):
+        by = {"bytes": 0.0, "operations": 0.0}
+        for sh in shapes:
+            by[sh["bound_by"]] += sh["bound_ms"]
+        return max(by, key=by.get)
+
+    fwd_times = {
+        "tensor_cores": {
+            **{key: sum(12 * sh[key] for sh in attn_shapes.values())
+               for key in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": by_bound(attn_shapes.values()),
+            "library_ms": sum(12 * sh["library_ms"] for sh in attn_shapes.values())},
+        "cuda_cores": {
+            **{key: sum(12 * sh["fwd"][key] for sh in bwd_shapes_attn.values())
+               for key in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": by_bound(sh["fwd"] for sh in bwd_shapes_attn.values()),
+            "library_ms": sum(12 * sh["fwd"]["library_ms"] for sh in bwd_shapes_attn.values())}}
+    fwd_paths = {"clip_serve": clip_flash_bodies, "clip_train": clip_train_bodies,
+                 "epoch_stage1": total1_bodies, "epoch_stage2": total2_bodies,
+                 "medmamba_clip_text_embed": mm_bodies["text_embed"],
+                 "clip_train_accum2_checkpointed": accum_bodies,
+                 "medmamba_clip_train": mm_train_bodies}
+    fwd_launches = {body: sum(fwd_paths[p][body] for p in ("clip_serve", "clip_train",
+                                                            "epoch_stage1", "epoch_stage2"))
+                    for body in ("tensor_cores", "cuda_cores")}
+    if min(fwd_launches.values()) == 0:
+        fail(f"the main path did not launch both bodies of the flash forward: {fwd_launches}")
+    # the attention kernels' bounds again from the ceilings phase 11 measured
+    # (HBM and exp; the tensor cores' rate stays the data sheet's)
+    attn_m = {"sfu_rate": measured["sfu_rate"], "hbm_rate": measured["hbm_rate"]}
+    fwd_bound_meas = {body: sum(12 * attn_bound(64, sh["T"], 12, 64, 2, sh["masked"], **attn_m,
+                                                stats=stats)["bound_ms"]
+                                for sh in attn_shapes.values())
+                      for body, stats in (("tensor_cores", 0), ("cuda_cores", 2))}
+    bwd_bound_meas = {key: sum(12 * attn_bound(64, sh["T"], 12, 64, 2, sh["masked"], **attn_m,
+                                               **kw)["bound_ms"]
+                               for sh in bwd_shapes_attn.values())
+                      for key, kw in (("dkv", dict(tensors=6, stats=3, products=4)),
+                                      ("dq", dict(tensors=5, stats=3, products=3)))}
     say(json.dumps({"kernels": [{
         "name": "selective_scan_fwd",
         "route": "cuda",
@@ -1622,27 +1779,28 @@ def main() -> None:
         "bound_ms": bwd_bound_step,
         "bound_by": max(bwd_terms, key=bwd_terms.get),
         "library_ms": None,
-    }, {
-        "name": "flash_attn_fwd",
+    }] + [{
+        "name": name,
         "route": "cuda",
         "source": "src/mamba_clip_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "src/mamba_clip_tpu/ops/flash_attn.py:75",
-        "launches": clip_flash + clip_train["fwd"] + total1["fwd"] + total2["fwd"],
-        "launches_by_path": {"clip_serve": clip_flash, "epoch_stage1": total1["fwd"],
-                             "epoch_stage2": total2["fwd"],
-                             "medmamba_clip_text_embed": mm_launches["text_embed"]["flash"],
-                             "clip_train": clip_train["fwd"],
-                             "clip_train_accum2_checkpointed": accum_counts["fwd"],
-                             "medmamba_clip_train": mm_train["fwd"]},
-        "max_abs_err": attn_abs,
-        "max_rel_err": attn_worst,
-        # per image_embed + text_embed pair at batch 64: 12 ViT + 12 BERT launches
-        "ms": per_fwd["ms"],
-        "plain_ms": per_fwd["plain_ms"],
-        "bound_ms": per_fwd["bound_ms"],
-        "bound_by": max(attn_by, key=attn_by.get),
-        "library_ms": per_fwd["library_ms"],
-    }] + [{
+        "body": runs,
+        "launches": fwd_launches[body],
+        "launches_by_path": {path: counts[body] for path, counts in fwd_paths.items()},
+        "max_abs_err": attn_abs[body],
+        "max_rel_err": attn_worst[body],
+        # per image_embed + text_embed pair (tensor cores) or per train step
+        # (CUDA cores) at batch 64: 12 ViT + 12 BERT launches
+        **fwd_times[body],
+        "bound_ms_measured": fwd_bound_meas[body],
+        "share_of_bound_datasheet": fwd_times[body]["bound_ms"] / fwd_times[body]["ms"],
+        "share_of_bound_measured": fwd_bound_meas[body] / fwd_times[body]["ms"],
+        "instances": {n: i for n, i in fwd_instances.items() if n.startswith(prefix)},
+    } for name, body, runs, prefix in (
+        ("flash_attn_fwd", "tensor_cores", "bf16 without residuals (serving, no-grad), "
+         "mma.sync on the tensor cores", "bf16 tensor cores"),
+        ("flash_attn_fwd_cuda_cores", "cuda_cores", "bf16 with residuals (training) and fp32, "
+         "on the CUDA cores", ("fp32", "bf16 with residuals")))] + [{
         "name": name,
         "route": "cuda",
         "source": "src/mamba_clip_tpu_torch/csrc/flash_attn_bwd.cu",
@@ -1664,6 +1822,9 @@ def main() -> None:
             sh[key]["bound_ms"] for sh in bwd_shapes_attn.values()
             if sh[key]["bound_by"] == by)),
         "library_ms": sum(12 * bwd_shapes_attn[t]["library_bwd_ms"] for t in bwd_shapes_attn),
+        "bound_ms_measured": bwd_bound_meas[key],
+        "share_of_bound_measured": bwd_bound_meas[key] / sum(
+            12 * bwd_shapes_attn[t][key]["ms"] for t in bwd_shapes_attn),
     } for name, key, line in (("flash_attn_bwd_dkv", "dkv", 796),
                               ("flash_attn_bwd_dq", "dq", 1146))] + [{
         "name": "vpu_chain",

@@ -40,7 +40,12 @@
 //   registers, K and V tiles (and the mask bytes) staged in shared memory.
 // The ragged tail of T is masked in both directions: rows past T are never
 // staged or walked, and a block's own rows past T compute on zeros and write
-// nothing. All arithmetic is fp32; dq, dk and dv are rounded once.
+// nothing. All arithmetic is fp32; dq, dk and dv are rounded once. The
+// scores recomputed here are the forward's bit for bit in both types: the
+// forward with residuals runs the CUDA-core body of flash_attn_fwd.cu, also
+// in bf16, and only the bf16 forward without residuals (serving) sums q.k on
+// the tensor cores. These kernels and that forward move to the tensor cores
+// together.
 //
 // What bounds them on an H100. dk/dv does 8*B*H*T^2*HD FLOPs and dq
 // 6*B*H*T^2*HD against about 6 and 5 tensors of B*T*H*HD elements moved, so

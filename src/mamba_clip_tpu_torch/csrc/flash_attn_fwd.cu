@@ -22,27 +22,85 @@
 // m + log(l) would round back to -1e9 in fp32. Serving passes null pointers
 // and writes nothing but o.
 //
-// Design. One block per (tile of 64 query rows, head, batch). A query row
-// belongs to HD/32 neighbouring lanes, each holding 32 of its dims of q and
-// of the fp32 accumulator in registers; lane g of a row owns the 16-byte
-// chunks g, g + HD/32, ... of the head dim, so the lanes of a warp read
-// neighbouring banks and every row of the warp the same words (broadcast).
-// K and V are staged in shared memory as fp32, one tile of keys at a time
-// (64 keys, 32 at HD 128); each row keeps its running max, sum and
+// Two bodies share that contract.
+//
+// The CUDA-core body (flash_attn_fwd_kernel) runs fp32, and bf16 with the
+// residuals, that is training. One block per (tile of 64 query rows, head,
+// batch). A query row belongs to HD/32 neighbouring lanes, each holding 32
+// of its dims of q and of the fp32 accumulator in registers; lane g of a row
+// owns the 16-byte chunks g, g + HD/32, ... of the head dim, so the lanes of
+// a warp read neighbouring banks and every row of the warp the same words
+// (broadcast). K and V are staged in shared memory as fp32, one tile of keys
+// at a time (64 keys, 32 at HD 128); each row keeps its running max, sum and
 // accumulator in fp32 (the online softmax), rescaled once per tile. The
-// scores are fp32 products of the inputs summed in fp32, the partial sums of
-// a row's lanes joined by shuffles. The TPU kernel's padding of T to 128
-// and its segment ids are not carried over: the ragged tail of T is masked
-// here, keys past T are never read, and the pad mask is one byte a key.
+// scores are fp32 products of the inputs summed in fp32, the partial sums
+// of a row's lanes joined by shuffles, in the order the backward kernels
+// take them, so the backward recomputes these scores bit for bit. TF32
+// would lose that and the fp32 gate of 5e-4.
+// Training stays on it in bf16 too, because chip_smoke.py's batch-8
+// contrastive steps (phase 10: loss and grad norm within 2^-7 of the plain
+// interiors') held only with its bits. At random init the grad norm is
+// carried by dq, a small remainder of terms that cancel, which takes any
+// rounding of o (through di = rowsum(o * do)) at its own size: o from the
+// tensor-core body, and this body's own o moved by 1e-6 before its
+// rounding, each left the plain grad norm by more than 2^-7 (PERF.md has
+// the numbers). The training forward moves to the tensor cores with the
+// backward pair.
+//
+// The tensor-core body (flash_attn_fwd_bf16_kernel) runs bf16 without the
+// residuals: image_embed, text_embed and the no-grad forward of evaluation
+// and of stage 2. After FlashAttention-2: one block of kWarps warps per
+// (tile of 16 * kWarps query rows, head, batch); a warp owns 16 query rows.
+// Its Q fragment is loaded once (ldmatrix) and stays in registers for the
+// whole key loop. Per tile of kBlockN keys:
+// - S = Q . K^T on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
+//   accumulators: 16 x kBlockN a warp), K's fragments by ldmatrix.x4;
+// - the online softmax on the accumulators: the scale, -1e9 for a masked
+//   key, the row max over the quad of lanes that shares a row (shuffles 1
+//   and 2), O and l rescaled once a tile, p = exp(s - m) in fp32;
+// - P is rounded to bf16 in registers, two neighbouring m16n8 accumulators
+//   making one m16k16 A fragment, and O += P . V on the tensor cores with
+//   V's fragments by ldmatrix.x4.trans; O stays fp32 in registers.
+// l sums the fp32 p. The plain interior rounds the normalised p instead;
+// the 2e-2 bf16 gate covers either.
+// Staging: K and V go to shared memory as bf16 with 16-byte cp.async, two
+// buffers deep: tile n+1 is in flight while tile n is consumed. A row of a
+// staged tile is padded by 16 bytes, so the 8 rows an ldmatrix reads start
+// on 8 different groups of 4 banks (a 128-byte row, HD 64, would put them
+// all on the same banks). A tile's mask bytes are read with its copy and
+// stored after the current tile's math, as one code a key: attend, masked,
+// or past T.
+// The ragged tail: rows are handled in 16-row warp tiles, and a warp whose
+// rows all lie past T does no math but takes part in every barrier. Keys
+// are walked in 16-key chunks, the mma's depth, so T = 197 computes 208 x
+// 208 (the CUDA-core body, 256 x 256). Keys past T are excluded, not
+// masked: their score is -inf, so p is exactly 0 and they never enter l
+// (an all-masked row gets l = T, not 208), and their K/V rows in shared
+// memory are zero-filled (cp.async with source size 0), so no stale NaN
+// reaches O through 0 * NaN. The epilogue rounds O / l to bf16 once and
+// writes each warp's 16 rows through shared memory (its own rows of the Q
+// buffer), so that the stores to o are 16 bytes a thread.
+// Block sizes (kWarps, kBlockN, the blocks an SM holds) were chosen by
+// measurement at the towers' shapes; PERF.md has the sweep. HD 128 halves
+// the key tile, as its O accumulator alone is 64 registers a thread.
+//
+// The TPU kernel's padding of T to 128 and its segment ids are not carried
+// over: the ragged tail of T is handled here and the pad mask is one byte a
+// key.
 //
 // What bounds it on an H100. Per launch the work is 4*B*H*T^2*HD FLOPs
 // against 4*B*T*H*HD elements moved; at the towers' shapes (T 197 or 256,
-// HD 64) that is about 100 FLOPs a byte, so with the tensor cores the
-// bytes would bound it. This first kernel computes on the CUDA cores
-// (fp32 FMA), two FMAs per shared-memory word read, so the FMA pipes and
-// shared-memory bandwidth bound it, far above the bytes bound. mma.sync or
-// wgmma on bf16 tiles, TMA staging and a pipelined ring of K/V tiles are
-// later work.
+// HD 64) that is about 100 FLOPs a byte, under the ~295 at which the bf16
+// tensor cores would bound it, so the bytes bound it. The CUDA-core body
+// computes on the FMA pipes, two FMAs per shared-memory word read, far
+// above the bytes bound. The tensor-core body halves the staged bytes and
+// moves the products to the tensor cores; at 128 registers a thread an SM
+// holds 4 blocks, 16 warps, and each warp's tile is a dependent chain (S,
+// the shuffles, exp, P . V) that 4 warps a scheduler only partly hide, so
+// it runs at about 30% of the bytes bound (PERF.md). wgmma with TMA staging,
+// which runs the products asynchronously, is the next step.
+
+#include <type_traits>
 
 #include "flash_attn_common.cuh"
 
@@ -144,10 +202,253 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The bf16 body's block geometry, chosen by measurement at the towers'
+// shapes (PERF.md has the sweep): 4 warps, key tiles of 64 (32 at HD 128),
+// and at HD 32 and 64 at least 4 blocks an SM, which caps the registers.
+// Without the cap ptxas took 136 registers at HD 64, so an SM held 3 blocks
+// of 4 warps and not 4, and the launch at T 197 ran 14% slower.
+template <int HD>
+struct Bf16Cfg {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBlockM = 16 * kWarps;                         // query rows a block
+  static constexpr int kBlockN = HD <= 64 ? 64 : 32;                 // keys a tile
+  static constexpr int kMinBlocks = HD <= 64 ? 4 : 1;                // blocks an SM
+  static constexpr int kRowChunks = HD / 8;   // 16-byte chunks of a bf16 row
+  static constexpr int kStride = HD + 8;      // a staged row in bf16: one 16-byte pad
+  static constexpr int kTile = kBlockN * kStride;
+  // Q (later each warp's O), two K and two V tiles, two tiles' key codes
+  static constexpr int kSmemBytes = (kBlockM + 4 * kBlockN) * kStride * 2 + 2 * kBlockN;
+  static_assert(kBlockN % 16 == 0 && kBlockN <= kThreads, "a key tile is 16-key chunks");
+};
+
+// A key's code in the staged tile: attend, masked (score -1e9), or past T
+// (excluded: p = 0, no part of l).
+constexpr uint8_t kKeyMasked = 0, kKeyAttend = 1, kKeyPast = 2;
+
+template <int HD>
+__global__ void __launch_bounds__(Bf16Cfg<HD>::kThreads, Bf16Cfg<HD>::kMinBlocks)
+flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
+                           int T_len, int H, float sm_scale) {
+  using C = Bf16Cfg<HD>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);   // [kBlockM][kStride]
+  bf16* k_s = q_s + C::kBlockM * C::kStride;   // [2][kBlockN][kStride]
+  bf16* v_s = k_s + 2 * C::kTile;              // [2][kBlockN][kStride]
+  uint8_t* code_s = reinterpret_cast<uint8_t*>(v_s + 2 * C::kTile);  // [2][kBlockN]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, quad = lane % 4;  // the fragment's row and column pair
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int row0 = blockIdx.x * C::kBlockM;
+  const int wrow0 = row0 + 16 * warp;       // this warp's first query row
+  const bool active = wrow0 < T_len;        // the same in every lane of the warp
+  // element (b, t, h, 0) of q, k, v and o: rows of H*HD elements
+  const int64_t row_stride = (int64_t)H * HD;
+  const int64_t head0 = (int64_t)b * T_len * row_stride + (int64_t)h * HD;
+  const int n_tiles = (T_len + C::kBlockN - 1) / C::kBlockN;
+
+  // rows r0 .. r0 + rows - 1 of src into dst; rows past T are zero-filled
+  auto stage = [&](bf16* dst, const bf16* src, int r0, int rows) {
+    for (int idx = tid; idx < rows * C::kRowChunks; idx += C::kThreads) {
+      const int r = idx / C::kRowChunks, c = idx % C::kRowChunks;
+      const bool in = r0 + r < T_len;
+      cp_async16(dst + r * C::kStride + 8 * c,
+                 src + head0 + (int64_t)(in ? r0 + r : 0) * row_stride + 8 * c, in ? 16 : 0);
+    }
+  };
+  auto key_code = [&](int key) -> uint8_t {
+    if (key >= T_len) return kKeyPast;
+    return mask == nullptr || mask[(int64_t)b * T_len + key] ? kKeyAttend : kKeyMasked;
+  };
+
+  stage(q_s, q, row0, C::kBlockM);
+  stage(k_s, k, 0, C::kBlockN);
+  stage(v_s, v, 0, C::kBlockN);
+  cp_async_commit();
+  if (tid < C::kBlockN) code_s[tid] = key_code(tid);
+
+  unsigned qf[HD / 16][4];          // this warp's 16 rows of q, A fragments
+  float acc[HD / 8][4];             // O, 16 x HD a warp, fp32
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
+  float l_run[2] = {0.f, 0.f};      // this lane's part of l; the quad's sum at the end
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int buf = n & 1;
+    uint8_t next_code = kKeyPast;
+    if (n + 1 < n_tiles) {  // tile n+1 into the other buffer, consumed at n-1
+      const int n1 = (n + 1) * C::kBlockN;
+      stage(k_s + (buf ^ 1) * C::kTile, k, n1, C::kBlockN);
+      stage(v_s + (buf ^ 1) * C::kTile, v, n1, C::kBlockN);
+      cp_async_commit();
+      if (tid < C::kBlockN) next_code = key_code(n1 + tid);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile n (and at n = 0 the Q tile) is there for every thread
+
+    if (active) {
+      if (n == 0) {
+        const bf16* qw = q_s + (16 * warp + lane % 16) * C::kStride + 8 * (lane / 16);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(qf[kk], qw + 16 * kk);
+      }
+      const int nk = min(C::kBlockN, T_len - n * C::kBlockN);
+      const int chunks = (nk + 15) / 16;  // 16-key chunks that hold a key before T
+      const bf16* ks = k_s + buf * C::kTile;
+      const bf16* vs = v_s + buf * C::kTile;
+      const uint8_t* code = code_s + buf * C::kBlockN;
+
+      // S = Q . K^T: chunk c is the accumulators s[2c] and s[2c + 1]
+      float s[C::kBlockN / 8][4];
+#pragma unroll
+      for (int c = 0; c < C::kBlockN / 16; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[2 * c][e] = s[2 * c + 1][e] = 0.f;
+        if (c < chunks) {
+          const bf16* kr = ks + (16 * c + 8 * (lane / 16) + lane % 8) * C::kStride
+                           + 8 * ((lane / 8) % 2);
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            unsigned kb[4];
+            ldmatrix_x4(kb, kr + 16 * kk);
+            mma_bf16_16816(s[2 * c], qf[kk], kb[0], kb[1]);
+            mma_bf16_16816(s[2 * c + 1], qf[kk], kb[2], kb[3]);
+          }
+        }
+      }
+
+      // scale and mask; the row max over the tile and the quad
+      float m_new[2] = {m_run[0], m_run[1]};
+#pragma unroll
+      for (int t8 = 0; t8 < C::kBlockN / 8; ++t8) {
+        if (t8 / 2 < chunks) {
+          const int j = 8 * t8 + 2 * quad;  // columns j, j + 1 of rows g, g + 8
+          const unsigned two = *reinterpret_cast<const uint16_t*>(code + j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const unsigned cd = (two >> (8 * (e & 1))) & 0xffu;
+            const float sc = cd == kKeyAttend ? s[t8][e] * sm_scale
+                             : cd == kKeyMasked ? kMasked : -INFINITY;
+            s[t8][e] = sc;
+            m_new[e / 2] = fmaxf(m_new[e / 2], sc);
+          }
+        }
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(kFull, m_new[r], 1));
+        m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(kFull, m_new[r], 2));
+        corr[r] = __expf(m_run[r] - m_new[r]);  // 0 at the first tile: m_run = -inf
+        m_run[r] = m_new[r];
+        l_run[r] *= corr[r];
+      }
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d) {
+        acc[d][0] *= corr[0];
+        acc[d][1] *= corr[0];
+        acc[d][2] *= corr[1];
+        acc[d][3] *= corr[1];
+      }
+
+      // p = exp(s - m) (exactly 0 past T), l += p, then O += P . V
+#pragma unroll
+      for (int c = 0; c < C::kBlockN / 16; ++c) {
+        if (c < chunks) {
+          unsigned pa[4];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            float* st = s[2 * c + half];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              st[e] = __expf(st[e] - m_run[e / 2]);
+              l_run[e / 2] += st[e];
+            }
+            pa[2 * half] = pack_bf16(st[0], st[1]);      // row g
+            pa[2 * half + 1] = pack_bf16(st[2], st[3]);  // row g + 8
+          }
+          const bf16* vr = vs + (16 * c + 8 * ((lane / 8) % 2) + lane % 8) * C::kStride
+                           + 8 * (lane / 16);
+#pragma unroll
+          for (int d2 = 0; d2 < HD / 16; ++d2) {
+            unsigned vb[4];
+            ldmatrix_x4_trans(vb, vr + 16 * d2);
+            mma_bf16_16816(acc[2 * d2], pa, vb[0], vb[1]);
+            mma_bf16_16816(acc[2 * d2 + 1], pa, vb[2], vb[3]);
+          }
+        }
+      }
+    }
+
+    if (tid < C::kBlockN && n + 1 < n_tiles) code_s[(buf ^ 1) * C::kBlockN + tid] = next_code;
+    __syncthreads();  // tile n consumed before iteration n+1 refills its buffer
+  }
+
+  if (!active) return;
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(kFull, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(kFull, l_run[r], 2);
+    inv[r] = 1.f / l_run[r];  // l >= 1: the row's max key adds exp(0)
+  }
+  // O / l in bf16 into this warp's rows of the Q buffer, then 16-byte stores
+  bf16* ow = q_s + 16 * warp * C::kStride;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    const int col = 8 * d + 2 * quad;
+    *reinterpret_cast<unsigned*>(ow + g * C::kStride + col) =
+        pack_bf16(acc[d][0] * inv[0], acc[d][1] * inv[0]);
+    *reinterpret_cast<unsigned*>(ow + (g + 8) * C::kStride + col) =
+        pack_bf16(acc[d][2] * inv[1], acc[d][3] * inv[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int idx = lane; idx < 16 * C::kRowChunks; idx += 32) {
+    const int r = idx / C::kRowChunks, c = idx % C::kRowChunks;
+    if (wrow0 + r < T_len)
+      *reinterpret_cast<uint4*>(o + head0 + (int64_t)(wrow0 + r) * row_stride + 8 * c) =
+          *reinterpret_cast<const uint4*>(ow + r * C::kStride + 8 * c);
+  }
+}
+
+template <int HD>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* mask, void* o,
+                        int batch, int T_len, int H, float sm_scale, cudaStream_t stream) {
+  using C = Bf16Cfg<HD>;
+  if (C::kSmemBytes > 48 * 1024) {  // above 48 KB only after opting in
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attn_fwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        C::kSmemBytes);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((unsigned)((T_len + C::kBlockM - 1) / C::kBlockM), (unsigned)H,
+                  (unsigned)batch);
+  flash_attn_fwd_bf16_kernel<HD><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
+      static_cast<__nv_bfloat16*>(o), T_len, H, sm_scale);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* mask, void* o,
                       float* m_out, float* l_out, int batch, int T_len, int H, float sm_scale,
                       cudaStream_t stream) {
+  // bf16 without residuals (serving, no-grad) on the tensor cores; fp32,
+  // and bf16 with residuals (training), on the CUDA-core body
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (m_out == nullptr)
+      return launch_bf16<HD>(q, k, v, mask, o, batch, T_len, H, sm_scale, stream);
+  }
   const dim3 grid((unsigned)((T_len + kRows - 1) / kRows), (unsigned)H, (unsigned)batch);
   flash_attn_fwd_kernel<T, HD><<<grid, Cfg<HD>::kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -190,4 +491,14 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                    void* stream) {
   return (int)launch<__nv_bfloat16>(q, k, v, mask, o, m_out, l_out, batch, T_len, H, HD,
                                     sm_scale, static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory a block of the bf16 body takes at head dim HD, or -1.
+extern "C" int flash_attn_fwd_bf16_smem_bytes(int HD) {
+  switch (HD) {
+    case 32: return Bf16Cfg<32>::kSmemBytes;
+    case 64: return Bf16Cfg<64>::kSmemBytes;
+    case 128: return Bf16Cfg<128>::kSmemBytes;
+    default: return -1;
+  }
 }

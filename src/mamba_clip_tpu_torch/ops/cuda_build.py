@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -78,3 +79,49 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _loaded[name] = ctypes.CDLL(str(build(name)))
         return lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_REGS = re.compile(r"Used (\d+) registers")
+_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_SMEM = re.compile(r"(\d+) bytes smem")
+
+
+def ptxas_report(log: str) -> Dict[str, dict]:
+    """Each kernel's registers, spill stores and loads (bytes) and static
+    shared memory (bytes) from ptxas' ``-v`` report, by mangled name."""
+    out: Dict[str, dict] = {}
+    entry = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            entry = out.setdefault(m.group(1), {"registers": None, "spill_stores": 0,
+                                                "spill_loads": 0, "static_smem": 0})
+            continue
+        if entry is None:
+            continue
+        if (m := _SPILL.search(line)):
+            entry["spill_stores"], entry["spill_loads"] = int(m.group(1)), int(m.group(2))
+        if (m := _REGS.search(line)):
+            entry["registers"] = int(m.group(1))
+            if (sm := _SMEM.search(line)):
+                entry["static_smem"] = int(sm.group(1))
+    return out
+
+
+def sass_counts(library: Path, opcode: str) -> Dict[str, int]:
+    """How many instructions of ``opcode`` (``"HMMA"``) each kernel of a
+    built library holds, from ``cuobjdump -sass``, by mangled name."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
+                          text=True, check=True)
+    out: Dict[str, int] = {}
+    fn = None
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+            out.setdefault(fn, 0)
+        elif fn is not None and re.search(rf"\b{opcode}\b", line):
+            out[fn] += 1
+    return out

@@ -18,7 +18,11 @@ Two implementations:
 - the hand-written CUDA kernels, which replace the three kernels of JAX's
   Pallas TPU flash attention: :func:`flash_attn_fwd`
   (``csrc/flash_attn_fwd.cu``, ``_flash_attention_kernel``; for training it
-  also writes the softmax residuals m and l of every row), and
+  also writes the softmax residuals m and l of every row; bf16 without
+  residuals runs its two products on the tensor cores, mma.sync with fp32
+  accumulators over bf16 K/V tiles staged by cp.async, while fp32, and bf16
+  with residuals, run the CUDA-core body whose scores the backward kernels
+  recompute bit for bit), and
   :func:`flash_attn_bwd_dkv` and :func:`flash_attn_bwd_dq`
   (``csrc/flash_attn_bwd.cu``, ``_flash_attention_dkv_kernel`` and
   ``_flash_attention_dq_kernel``). Each wrapper launches its kernel or
@@ -188,9 +192,11 @@ def _launch(fn_name: str, library: str, q, pointers, sm_scale: float):
 _launches_lock = threading.Lock()  # the two towers may be served from two threads
 
 
-def _count(wrapper) -> None:
+def _count(wrapper, body: Optional[str] = None) -> None:
     with _launches_lock:
         wrapper.launches += 1
+        if body is not None:
+            wrapper.launches_by_body[body] += 1
 
 
 def flash_attn_fwd(q, k, v, key_mask=None, *, sm_scale: float, with_residuals: bool = False):
@@ -202,7 +208,10 @@ def flash_attn_fwd(q, k, v, key_mask=None, *, sm_scale: float, with_residuals: b
     and v 16-byte aligned. Returns ``[B, T, h*hd]`` in q's type; with
     ``with_residuals`` (training) also the softmax residuals of every row,
     its max score m and its sum l of ``exp(s - m)``, ``[B, h, T]`` fp32
-    each. Counts each launch in ``flash_attn_fwd.launches``.
+    each. Counts each launch in ``flash_attn_fwd.launches``, and in
+    ``flash_attn_fwd.launches_by_body`` under the body that ran it:
+    ``"tensor_cores"`` for bf16 without residuals, ``"cuda_cores"`` for
+    fp32 and for bf16 with residuals.
     """
     mask_u8 = _check_kernel_inputs("flash_attn_fwd", {"q": q, "k": k, "v": v}, key_mask)
     B, T, h, hd = q.shape
@@ -213,11 +222,13 @@ def flash_attn_fwd(q, k, v, key_mask=None, *, sm_scale: float, with_residuals: b
         l = torch.empty((B, h, T), dtype=torch.float32, device=q.device)
     if out.numel() > 0:
         _launch("flash_attn_fwd", "flash_attn_fwd", q, (q, k, v, mask_u8, out, m, l), sm_scale)
-        _count(flash_attn_fwd)
+        tensor_cores = q.dtype == torch.bfloat16 and not with_residuals
+        _count(flash_attn_fwd, "tensor_cores" if tensor_cores else "cuda_cores")
     return (out, m, l) if with_residuals else out
 
 
 flash_attn_fwd.launches = 0
+flash_attn_fwd.launches_by_body = {"tensor_cores": 0, "cuda_cores": 0}
 
 
 def flash_attn_bwd_dkv(q, k, v, key_mask, do, m, l, di, *, sm_scale: float):

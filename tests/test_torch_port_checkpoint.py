@@ -46,6 +46,11 @@ from mamba_clip_tpu_torch.optim import build_optimizer, freeze_submodule_mask
 from mamba_clip_tpu_torch.schedules import create_schedule
 from mamba_clip_tpu_torch.utils.precision import LossScaleState, get_policy
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 VIT = dict(image_size=32, patch_size=16, width=32, depth=2, num_heads=4, embed_dim=16)
 BERT = dict(vocab_size=128, context_length=16, width=32, depth=2, num_heads=4, embed_dim=16)
 AUG = {"scale": (1.0, 1.0), "ratio": (1.0, 1.0), "hflip": 0.0, "re_prob": 0.0}

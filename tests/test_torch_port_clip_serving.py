@@ -44,6 +44,11 @@ from mamba_clip_tpu_torch.ops.selective_scan import selective_scan_fwd
 from mamba_clip_tpu_torch.serve import MicroBatcher
 from mamba_clip_tpu_torch.serving import make_serving_fns
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 SMALL = dict(precision="fp32", image_size=32, context_length=16, vocab_size=128)
 REPORTS = [

@@ -40,6 +40,11 @@ from test_torch_port_towers import _image as image
 from test_torch_port_towers import _tokens as tokens
 from test_torch_port_towers import _variables as variables_of
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 VIT = dict(image_size=32, patch_size=16, width=32, depth=2, num_heads=4, embed_dim=16)
 BERT = dict(vocab_size=128, context_length=16, width=32, depth=2, num_heads=4, embed_dim=16)
 VSSM = dict(depths=(1, 1), dims=(16, 32), num_classes=0)
@@ -199,7 +204,7 @@ def test_patch_dropout_matches_flax_with_its_mask_injected(monkeypatch):
                        rngs={"dropout": jax.random.PRNGKey(0)})
         return jnp.sum(out * w), out
 
-    (_, want), jgrads = jax.value_and_grad(j_loss, has_aux=True)(variables["params"])
+    (_, want), jgrads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(variables["params"])
     port = load_jax_variables(tvit.VisionTransformer(**kw), variables).train()
     got = port(torch.from_numpy(x), generator=torch.Generator())
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-5, rtol=0)

@@ -26,6 +26,11 @@ from mamba_clip_tpu_torch.data import report_gen as trep
 from mamba_clip_tpu_torch.data import sampling as tsamp
 from mamba_clip_tpu_torch.data import tokenizer as ttok
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 
 def _targets(n=203, seed=0):
     t = (np.random.default_rng(seed).random(n) < 0.15).astype(np.int64)

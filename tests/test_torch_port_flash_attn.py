@@ -14,6 +14,8 @@ wrapper refuses what the kernel does not take, and that a CPU tensor takes
 the plain interior.
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,11 @@ import torch
 
 from mamba_clip_tpu.ops import flash_attn as jfa
 from mamba_clip_tpu_torch.ops import flash_attn as tfa
+
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
 
 TOL = 2e-5
 
@@ -146,3 +153,41 @@ def test_flash_interior_takes_the_plain_interior_on_cpu(dtype):
     assert got.dtype == dtype and got.shape == (2, 33, 128)
     assert torch.equal(got, want)
     assert tfa.flash_attn_fwd.launches == 0
+
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_attn_fwd_kernelIfLi64EEEvPKT_S3_S3_PKhPS1_PfS7_iif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_attn_fwd_kernelIfLi64EEEvPKT_S3_S3_PKhPS1_PfS7_iif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, 33024 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126flash_attn_fwd_bf16_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PKhPS1_PfS7_iif' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_126flash_attn_fwd_bf16_kernelILi64EEEvPK13__nv_bfloat16S3_S3_PKhPS1_PfS7_iif
+    0 bytes stack frame, 60 bytes spill stores, 94 bytes spill loads
+ptxas info    : Used 128 registers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_reads_each_kernel():
+    """chip_smoke.py reports the forward's instances from ptxas' -v log:
+    registers, spills and static shared memory, by mangled name."""
+    from mamba_clip_tpu_torch.ops import cuda_build
+
+    rep = cuda_build.ptxas_report(_PTXAS_LOG)
+    fp32, bf16 = sorted(rep, key=lambda name: "bf16" in name)
+    assert rep[fp32] == {"registers": 96, "spill_stores": 0, "spill_loads": 0,
+                         "static_smem": 33024}
+    assert rep[bf16] == {"registers": 128, "spill_stores": 60, "spill_loads": 94,
+                         "static_smem": 0}
+    assert cuda_build.ptxas_report("") == {}
+
+
+def test_library_path_is_one_per_source():
+    """Each source builds into one library under the build directory, keyed
+    by its text, the shared headers and the flags."""
+    from mamba_clip_tpu_torch.ops import cuda_build
+
+    fwd = cuda_build.library_path("flash_attn_fwd")
+    bwd = cuda_build.library_path("flash_attn_bwd")
+    assert fwd != bwd and fwd == cuda_build.library_path("flash_attn_fwd")
+    assert fwd.parent == bwd.parent == cuda_build.BUILD_DIR
+    assert re.fullmatch(r"libflash_attn_fwd_[0-9a-f]{16}\.so", fwd.name)

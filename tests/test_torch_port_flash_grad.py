@@ -35,6 +35,11 @@ import torch
 from mamba_clip_tpu.ops import flash_attn as jfa
 from mamba_clip_tpu_torch.ops import flash_attn as tfa
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 TOL = 5e-5
 
 

@@ -65,6 +65,11 @@ from mamba_clip_tpu_torch.schedules import create_schedule
 from mamba_clip_tpu_torch.utils.logging import ResultsWriter
 from mamba_clip_tpu_torch.utils.precision import get_policy
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 VIT = dict(image_size=32, patch_size=16, width=32, depth=2, num_heads=4, embed_dim=16)
 BERT = dict(vocab_size=128, context_length=16, width=32, depth=2, num_heads=4, embed_dim=16)
 AUG = {"scale": (1.0, 1.0), "ratio": (1.0, 1.0), "hflip": 0.0, "re_prob": 0.0}
@@ -107,7 +112,7 @@ def test_clip_classifier_logits_match_jax_in_every_feature_mode(mode):
     rs = np.random.RandomState(0)
     img = rs.randn(BATCH, IMAGE, IMAGE, 3).astype(np.float32)
     tok = _tokens(rs)
-    want = np.asarray(jm.apply(variables, jnp.asarray(img), jnp.asarray(tok)))
+    want = np.asarray(jax.jit(jm.apply)(variables, jnp.asarray(img), jnp.asarray(tok)))
     tm.eval()
     got = tm(torch.from_numpy(img), torch.from_numpy(tok))
     assert got.dtype == torch.float32 and got.shape == (BATCH, 2)

@@ -16,6 +16,11 @@ from mamba_clip_tpu.ops.preprocess import eval_preprocess as jax_eval
 from mamba_clip_tpu_torch.data.preprocess_cfg import get_transform_config as torch_cfg
 from mamba_clip_tpu_torch.ops.preprocess import eval_preprocess as torch_eval
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 
 

@@ -31,6 +31,11 @@ from jax.experimental import pallas as pl
 from mamba_clip_tpu_torch import roofline, scan_roofline
 from mamba_clip_tpu_torch.ops import vpu_chain as vc
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 

@@ -33,6 +33,11 @@ from mamba_clip_tpu_torch.ops.selective_scan import (
     selective_scan_tm,
 )
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 RTOL_F32 = 1e-5
 RTOL_BF16 = 1e-4
 

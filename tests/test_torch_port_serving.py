@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from flax import linen as nn
 
 from mamba_clip_tpu.serving import make_serving_fns as jax_make_serving_fns
 from mamba_clip_tpu_torch.convert import load_jax_variables
@@ -32,14 +33,43 @@ from mamba_clip_tpu_torch.ops.selective_scan import selective_scan_fwd
 from mamba_clip_tpu_torch.serve import MicroBatcher, _bucket
 from mamba_clip_tpu_torch.serving import make_serving_fns
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 ATOL = 1e-4
+
+
+def _shaped_init(self, rngs, *args, **kw):
+    """A stand-in for ``flax.linen.Module.init``: the variables' shapes from
+    ``jax.eval_shape`` of the real init, values from a numpy seed (the eager
+    init of the full-width medmamba takes most of a minute on the CPU; the
+    BatchNorm statistics are redrawn below). LayerNorm scales are drawn
+    around 1, so every mapping of the bridge carries a value that shows."""
+    shapes = jax.eval_shape(lambda: _FLAX_INIT(self, rngs, *args, **kw))
+    rs = np.random.default_rng(4)
+
+    def leaf(path, s):
+        name = path[-1].key
+        if name in ("scale", "var"):
+            return rs.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        std = 1 / np.sqrt(np.prod(s.shape[:-1])) if name == "kernel" else 0.1
+        return (std * rs.standard_normal(s.shape, np.float32)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+_FLAX_INIT = nn.Module.init
 
 
 @pytest.fixture(scope="module")
 def slice_pair():
     """(jax classify, jax variables, port model, port classify, meta)."""
-    _, jvars, jfns, jmeta = jax_make_serving_fns(
-        "medmamba", precision="fp32", image_size=32, scan_impl="xla")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(nn.Module, "init", _shaped_init)
+        _, jvars, jfns, jmeta = jax_make_serving_fns(
+            "medmamba", precision="fp32", image_size=32, scan_impl="xla")
     rs = np.random.RandomState(5)
 
     def stat(path, a):

@@ -33,6 +33,11 @@ from mamba_clip_tpu_torch.models import text_bert as tbert
 from mamba_clip_tpu_torch.models import vit as tvit
 from mamba_clip_tpu_torch.models import vssm as tvssm
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 ATOL = 1e-5
 ATOL_BF16 = 5e-2
 VIT = dict(image_size=32, patch_size=16, width=32, depth=2, num_heads=4, embed_dim=16)

@@ -38,6 +38,11 @@ from mamba_clip_tpu_torch.models import vssm as tv
 from mamba_clip_tpu_torch.ops import preprocess as tp
 from mamba_clip_tpu_torch.utils import precision as tprec
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 
 def _fill(shapes, seed):
     """numpy values for a Flax variable tree of ShapeDtypeStructs."""

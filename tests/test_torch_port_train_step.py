@@ -49,6 +49,11 @@ from mamba_clip_tpu_torch.optim import build_optimizer
 from mamba_clip_tpu_torch.schedules import create_schedule
 from mamba_clip_tpu_torch.utils.precision import get_policy
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 MODEL = dict(depths=(1, 1), dims=(32, 64), num_classes=3, drop_path_rate=0.0)
 AUG = {"scale": (1.0, 1.0), "ratio": (1.0, 1.0), "hflip": 0.0, "re_prob": 0.0}
 IMAGE, STAGING, BATCH, SEED = 32, 40, 8, 0
@@ -130,7 +135,7 @@ def test_five_fp32_steps_match_jax():
         return jax_ce(logits, jnp.asarray(batches[0]["target"]))
 
     jgrads = state_dict_from_jax(
-        {"params": jax.tree_util.tree_map(np.asarray, jax.grad(loss_fn)(
+        {"params": jax.tree_util.tree_map(np.asarray, jax.jit(jax.grad(loss_fn))(
             pair.variables["params"]))})
 
     for i, batch in enumerate(batches):

@@ -23,6 +23,11 @@ from mamba_clip_tpu.models import vssm as jv
 from mamba_clip_tpu_torch.convert import load_jax_variables, state_dict_from_jax
 from mamba_clip_tpu_torch.models import vssm as tv
 
+# The plain paths are Python loops of small tensor ops: one intra-op thread
+# runs them as fast as eight alone, and keeps them from stalling (up to ten
+# times slower) when the test workers share the machine's cores.
+torch.set_num_threads(1)
+
 ATOL = 1e-4
 
 
