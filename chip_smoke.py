@@ -9,7 +9,7 @@ on failure:
 
 1. device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for matmuls and convolutions;
-2. build: compiles the five CUDA sources (six kernels) from ``csrc/``, one
+2. build: compiles the five CUDA sources from ``csrc/``, one
    nvcc each, started together (always anew: an earlier run's libraries
    are removed first), and prints ptxas' registers and spills;
 3. kernel against plain: ``selective_scan_fwd`` against the plain loop on
@@ -42,16 +42,16 @@ on failure:
    scan kernels' ms per step;
 7. flash kernel against plain: first each instance of the forward that
    phase 2 built (at hd 32, 64, 128: the tensor-core body, which bf16 runs
-   without residuals, and the CUDA-core body, which fp32 and bf16 with
-   residuals run), with ptxas' registers and spills, its shared memory a
-   block and the ``HMMA`` instructions in its SASS (``cuobjdump -sass``);
-   every tensor-core instance must hold some, or the phase fails. Then
+   with and without residuals, and the CUDA-core body, which fp32 runs),
+   with ptxas' registers and spills, its shared memory a block and the
+   ``HMMA`` instructions in its SASS (``cuobjdump -sass``); every
+   tensor-core instance must hold some, or the phase fails. Then
    ``flash_attn_fwd`` against the plain
    (einsum) interior at h = 12, hd = 64, batch 2: T = 197 unmasked; T = 256
    with a prefix, a non-prefix, a one-key and an all-masked key row; the
    trimmed text context 224; a ragged 77; and hd 32 and 128; fp32 and bf16;
-   each case as serving calls it (no residuals: bf16 on the tensor cores)
-   and as training calls it (with residuals: the CUDA-core body); gate
+   each case as serving calls it (no residuals) and as training calls it
+   (with residuals); gate
    max|o_k - o_p| / max|o_p| <= 5e-4 (fp32) and 2e-2 (bf16), and the
    all-masked row must be the mean of v. Then, at batch 64 in bf16, the
    kernel, the plain interior and ``F.scaled_dot_product_attention`` (the
@@ -71,29 +71,33 @@ on failure:
    gate; the VSSM-towered CLIP's ``image_embed`` must make 14 scan
    launches and no flash launch, its ``text_embed`` 12 flash launches;
    then image/s and texts/s at batch 64, flash and einsum;
-9. flash backward kernels against plain: ``flash_attn_bwd_dq`` and
+9. flash backward kernels against plain: first each instance of the two
+   backward kernels, as phase 7 lists the forward's (a tensor-core instance
+   without ``HMMA`` fails). Then ``flash_attn_bwd_dq`` and
    ``flash_attn_bwd_dkv`` against ``attention_plain_bwd`` at the shapes of
    phase 7 (the one-key and the all-masked row beside a non-prefix row,
-   since their own dq and dk vanish), each gradient at
+   since their own dq and dk vanish), fp32 on the CUDA-core bodies and bf16
+   on the tensor-core bodies, each gradient at
    max|g_k - g_p| / max|g_p| <= 5e-4 (fp32) and 2e-2 (bf16: the plain
-   backward rounds p, dp and ds to bf16, the kernels keep fp32 and round
-   dq, dk, dv once; in bf16 each case is held against the bf16 plain
+   backward rounds p, dp and ds to bf16, the kernels round p once for dv and
+   carry ds as two bf16 terms; in bf16 each case is held against the bf16 plain
    backward, a row with one valid key left out because its dq and dk vanish
    and the bf16 plain backward leaves rounding noise there, and against the
    fp32 plain backward on the same inputs, every row); the forward's
    residuals m and l against the plain ones at 5e-4; dk and dv of a masked key exactly 0 from every row that has a valid
    key, dq and dk exactly 0 for a row with none; two runs bit-identical.
-   Then, at batch 64 in bf16 at the ViT and BERT shapes, the forward with
-   residuals and both backward kernels are timed beside their bounds, the
-   plain forward and backward, and the forward (with its residuals, as
-   training calls it) and backward of ``F.scaled_dot_product_attention``;
+   Then, at batch 64 at the ViT and BERT shapes, in bf16 (tensor cores) and
+   fp32 (CUDA cores), the forward with residuals and both backward kernels
+   are timed beside their bounds, the plain forward and backward, and the
+   forward (with its residuals, as training calls it) and backward of
+   ``F.scaled_dot_product_attention`` in the same type;
 10. CLIP training: the stage-1 contrastive step of full-width BiomedCLIP
    (``amp``, ``attn_impl="flash"``, batch 64, device-resident uint8 images
    at staging 256, HashTokenizer tokens of report-like text, AdamW with
    clipping at 1.0): 2 warm-up and 5 timed steps with finite loss and grad
    norm, the first loss within [3, 6] (ln 64 = 4.16 at random init),
    ``logit_scale`` within [1, 100], exactly 24 forward, 24 dk/dv and 24 dq
-   launches a step and no scan launch, every forward on the CUDA-core body;
+   launches a step and no scan launch, every one on the tensor cores;
    the 24 interiors of one more step recorded with their ``do``, each
    forward's o held against the plain interior at the bf16 gate and each
    backward held against the fp32 plain
@@ -102,18 +106,27 @@ on failure:
    where a row's keys are nearly alike, dq is a small remainder of terms
    that cancel and one bf16 rounding of rowsum(o * do) is of its size);
    the same step with ``attn_impl="einsum"`` for its time and peak memory.
-   At batch 8: 2 steps
-   with the kernels against 2 steps with the plain interiors from the same
-   state (loss and grad norm within 2^-7 relative, two bf16 ulps: the plain
-   backward rounds p, dp and ds to bf16 where the kernels keep fp32, and an
-   optimizer step carries the difference on); one step with
-   ``accum_freq=2`` and ``grad_checkpointing``
+   At batch 8 (``clip_step_check``, seed 1): from S_0, the init, and S_1,
+   the state after the kernel step, a step with the kernels, one with the
+   plain interiors and one with the kernel forward and the fp32 plain
+   backward on its kept o: (a) the loss with the kernels within 2^-7
+   relative of the plain step's, (b) the grad norm within 2^-7 of the
+   mixed step's, which sees the same o and di, so that only the backward
+   kernels differ, and (c) the grad norm against the plain step's, printed
+   and not gated (one rounding of o moves di, and at random init dq is a
+   small remainder of its size: PERF.md, Findings). One fp32 step under the
+   same gates runs the CUDA-core bodies (24 + 24 + 24 launches, every one
+   on the CUDA cores); one step with ``accum_freq=2`` and
+   ``grad_checkpointing``
    (144 forward launches: 2 micro-batches x 24 in the no-grad bank pass, and
    x 24 x 2 in the graded pass, whose checkpoints run each forward again;
-   48 dk/dv and 48 dq); one step of the ``medmamba`` CLIP (14 + 14 scan
+   48 dk/dv and 48 dq, every one on the tensor cores); one step of the
+   ``medmamba`` CLIP (14 + 14 scan
    launches, 12 + 12 + 12 flash launches). Prints ms per step, pairs/s,
    peak memory with flash and with einsum, and the flash kernels' ms per
-   step;
+   step. ``python3 chip_smoke.py --clip-check-seeds 1 2 3 4 [--src DIR]``
+   runs only the batch-8 check, at those seeds, on the package under
+   ``DIR`` (another tree's ``src/``), and prints its readings;
 11. ceiling kernel against plain, then the roofline: ``vpu_chain`` with
    c = 0.5, d = 0 and with c = 1, d = 1 at rounds 1 to 4 must give
    x * 2^(-16 rounds) and x + 16 rounds bit for bit (every step ran, on a
@@ -154,14 +167,17 @@ on failure:
    ``attn_impl="einsum"`` model on the same weights. Prints an
    ``epoch_stage2`` JSON line. Checkpoints go under ``tempfile.mkdtemp()``
    and are removed at the end;
-14. prints the kernels line (six kernels, the forward as two entries, one
-   a body: ``flash_attn_fwd`` on the tensor cores, timed in phase 7, and
-   ``flash_attn_fwd_cuda_cores``, the training forward, timed in phase 9
-   beside the plain interior and the library's forward with its residuals;
-   each with its own launches, which must not be 0 on the main path; the
-   attention kernels also with their bound from the ceilings phase 11
-   measured and their share of it, the forward's entries with their share
-   of the data-sheet bound and their instances), then the device line last.
+14. prints the kernels line (nine entries: the two scan kernels, the
+   roofline's chain kernel, and each flash kernel as two entries, one a
+   body: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
+   ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
+   from the main path, and ``..._cuda_cores``, fp32, whose launches come
+   from phase 10's fp32 step; a body launched no time fails. Each flash
+   entry is timed at the towers' shapes in its type beside the plain
+   version and the library's, with its bound from the data sheet and from
+   the ceilings phase 11 measured, its shares of both, and its instances;
+   the forward's tensor-core entry is serving's pair, its training launches
+   under ``training``), then the device line last.
 
 Phases 1-10 run at the depth and iteration counts they had before phases
 11-13 were added.
@@ -169,8 +185,10 @@ Phases 1-10 run at the depth and iteration counts they had before phases
 
 from __future__ import annotations
 
+import argparse
 import functools
 import json
+import math
 import os
 import re
 import shutil
@@ -270,7 +288,142 @@ def rel_errs(got, want):
     return out
 
 
-def main() -> None:
+def clip_step_check(seed: int, precision: str = "amp", steps: int = 2, counted=None):
+    """The flash path in the stage-1 contrastive step of full-width
+    BiomedCLIP at batch 8 against the plain interiors, each part gated
+    where it is well posed. S_0 is the init from ``seed``, S_(i+1) the state
+    after the kernel step from S_i; from every S_i three steps run:
+
+    - "kernel": the flash kernels, forward and backward, as training runs;
+    - "plain": the plain interior and its backward;
+    - "mixed": the kernel forward, then ``attention_plain_bwd`` in fp32 on
+      the kept result o.
+
+    (a) the kernel step's loss against the plain step's: the loss does not
+    pass through di = rowsum(o * do). (b) the kernel step's grad norm against
+    the mixed step's: both see the same o and so the same di, and only the
+    backward kernels differ. (c) the kernel step's grad norm against the
+    plain step's, printed and not gated: at random init dq is a small
+    remainder of terms that cancel, and one bf16 rounding of o moves di,
+    and so the grad norm, by more than 2^-7 (PERF.md, Findings).
+
+    ``counted``: (reset, read), called around each kernel step; the reads
+    come back with the readings. Returns one dict a step."""
+    import torch
+
+    from mamba_clip_tpu_torch.models import vit as vit_mod
+    from mamba_clip_tpu_torch.ops.flash_attn import attention_plain_bwd, flash_attn_fwd
+    from mamba_clip_tpu_torch.optim import AdamState
+    from mamba_clip_tpu_torch.profile_train import clip_train_setup
+    from mamba_clip_tpu_torch.train import TrainState
+
+    class KernelFwdPlainBwd(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, key_mask, sm):
+            out = flash_attn_fwd(q, k, v, key_mask, sm_scale=sm, with_residuals=True)[0]
+            ctx.sm = sm
+            ctx.save_for_backward(q, k, v, key_mask, out)
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, key_mask, out = ctx.saved_tensors
+            mask = None if key_mask is None else key_mask[:, None, None, :]
+            grads = attention_plain_bwd(q.float(), k.float(), v.float(), mask, do.float(),
+                                        ctx.sm, o=out.float())
+            return (*(g.to(q.dtype) for g in grads), None, None)
+
+    interior = vit_mod.flash_attention_interior
+
+    def mixed(q, k, v, pad_mask=None, *, sm_scale, impl=None):
+        B, T = q.shape[:2]
+        key_mask = None if pad_mask is None else pad_mask.reshape(B, T).contiguous()
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        return KernelFwdPlainBwd.apply(q, k, v, key_mask, sm_scale)
+
+    interiors = {"plain": functools.partial(interior, impl="plain"), "mixed": mixed,
+                 "kernel": functools.partial(interior, impl="cuda")}
+    kw = {} if precision == "amp" else {"precision": precision}
+    st, fn, bs = clip_train_setup(8, seed=seed, **kw)
+    model = st.model
+
+    def restore(snap):
+        step, params, count, mu, nu = snap
+        model.load_state_dict(params)
+        return TrainState(step=step, model=model, opt_state=AdamState(
+            count, {k: t.clone() for k, t in mu.items()}, {k: t.clone() for k, t in nu.items()}))
+
+    readings = []
+    for i in range(steps):
+        snap = (st.step, {k: t.clone() for k, t in model.state_dict().items()},
+                st.opt_state.count, st.opt_state.mu, st.opt_state.nu)
+        got, counts = {}, None
+        for name in ("plain", "mixed", "kernel"):  # the kernel step's state goes on
+            vit_mod.flash_attention_interior = interiors[name]
+            try:
+                if name == "kernel" and counted is not None:
+                    counted[0]()
+                new, m = fn(restore(snap), bs[i % 2], 0)
+                got[name] = (float(m["loss"]), float(m["grad_norm"]))
+                if name == "kernel" and counted is not None:
+                    counts = counted[1]()
+            finally:
+                vit_mod.flash_attention_interior = interior
+        st = new
+        (lk, gk), (lp, gp), (_, gm) = got["kernel"], got["plain"], got["mixed"]
+        rl, rg, rc = abs(lk - lp) / abs(lp), abs(gk - gm) / abs(gm), abs(gk - gp) / abs(gp)
+        finite = all(math.isfinite(x) for pair in got.values() for x in pair)
+        readings.append({
+            "seed": seed, "precision": precision, "step": i, "loss_kernel": lk,
+            "loss_plain": lp, "loss_rel": rl, "grad_norm_kernel": gk, "grad_norm_mixed": gm,
+            "grad_norm_rel": rg, "grad_norm_plain": gp, "grad_norm_vs_plain_rel": rc,
+            "counts": counts,
+            "ok": bool(finite and rl <= CLIP_TRAIN_REL and rg <= CLIP_TRAIN_REL)})
+    del st, fn, bs, model, snap, new
+    torch.cuda.empty_cache()
+    return readings
+
+
+def say_clip_step(r: dict) -> None:
+    say(f"clip step check seed {r['seed']} {r['precision']} step {r['step']}: (a) loss kernel "
+        f"{r['loss_kernel']:.6f} plain {r['loss_plain']:.6f} (rel {r['loss_rel']:.2e}); (b) "
+        f"grad_norm kernel {r['grad_norm_kernel']:.6f} kernel forward + fp32 plain backward "
+        f"{r['grad_norm_mixed']:.6f} (rel {r['grad_norm_rel']:.2e}); gate {CLIP_TRAIN_REL:g}: "
+        f"{'ok' if r['ok'] else 'FAIL'}; (c, not gated) grad_norm plain "
+        f"{r['grad_norm_plain']:.6f} (rel {r['grad_norm_vs_plain_rel']:.2e}: di from a "
+        "differently rounded o moves dq, a small remainder, at its own size)")
+
+
+def clip_check_only(seeds, src: Path) -> None:
+    """``--clip-check-seeds``: only the batch-8 check, at each seed, on the
+    package under ``src``; the readings as one JSON line. Exits 0 whether
+    or not a seed passes: it reports."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test runs on the card only")
+    sys.path.insert(0, str(src))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = nvidia_smi("name,power.limit")
+    say(card)
+    readings = []
+    for seed in seeds:
+        for r in clip_step_check(seed):
+            say_clip_step(r)
+            readings.append(r)
+    say(json.dumps({"clip_step_check": readings, "src": str(src), "card": card}))
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one card.")
+    ap.add_argument("--clip-check-seeds", type=int, nargs="+", default=None,
+                    help="run only phase 10's batch-8 check, at these seeds")
+    ap.add_argument("--src", default=str(SRC),
+                    help="with --clip-check-seeds: the src/ directory whose package is checked")
+    args = ap.parse_args(argv)
+    if args.clip_check_seeds is not None:
+        return clip_check_only(args.clip_check_seeds, Path(args.src).resolve())
     if not (SRC / "mamba_clip_tpu_torch").is_dir():
         fail(f"{SRC / 'mamba_clip_tpu_torch'} not found: run from a checkout of the repository")
     try:
@@ -693,32 +846,40 @@ def main() -> None:
     # 7. flash kernel against plain. First what was built: ptxas' registers,
     # spills and shared memory of each instance of the forward, and the
     # tensor-core instructions in the bf16 instances' SASS
-    fwd_lib = cuda_build.library_path("flash_attn_fwd")
-    fwd_ptxas = cuda_build.ptxas_report(cuda_build.build_logs.get("flash_attn_fwd", ""))
-    fwd_hmma = cuda_build.sass_counts(fwd_lib, "HMMA")
-    fwd_instances = {}
-    for mangled, rep in fwd_ptxas.items():
-        inst = re.search(
-            r"flash_attn_fwd_(bf16_kernelI|kernelIf|kernelI13__nv_bfloat16)Li(\d+)E", mangled)
-        if inst is None:
-            continue
-        body, hd = inst.group(1), int(inst.group(2))
-        name = {"bf16_kernelI": "bf16 tensor cores", "kernelIf": "fp32 CUDA cores",
-                "kernelI13__nv_bfloat16": "bf16 with residuals, CUDA cores"}[body]
-        smem = (cuda_build.load("flash_attn_fwd").flash_attn_fwd_bf16_smem_bytes(hd)
-                if body == "bf16_kernelI" else rep["static_smem"])
-        fwd_instances[f"{name} hd{hd}"] = {
-            "registers": rep["registers"], "spill_stores": rep["spill_stores"],
-            "spill_loads": rep["spill_loads"], "smem_bytes": smem,
-            "hmma": fwd_hmma.get(mangled, 0)}
-    for name, inst in sorted(fwd_instances.items()):
-        say(f"flash_attn_fwd {name}: {inst['registers']} registers, spills "
-            f"{inst['spill_stores']}/{inst['spill_loads']} bytes, {inst['smem_bytes']} B shared "
-            f"memory a block, {inst['hmma']} HMMA")
-    tc_hmma = [v["hmma"] for k, v in fwd_instances.items() if "tensor cores" in k]
-    if len(fwd_instances) != 9 or len(tc_hmma) != 3 or min(tc_hmma) == 0:
-        fail("the bf16 flash forward without residuals must run on the tensor cores: each "
-             f"of its instances needs HMMA in its SASS ({fwd_instances})")
+    def instances(library, pattern, smem_of):
+        """Each kernel instance of a built library: ptxas' registers and
+        spills, its shared memory a block (``smem_of(kernel, hd)`` for the
+        dynamic shared memory of a tensor-core body, else the static) and
+        the HMMA instructions in its SASS, by "<kernel> <body> hd<HD>"."""
+        report = cuda_build.ptxas_report(cuda_build.build_logs.get(library, ""))
+        hmma = cuda_build.sass_counts(cuda_build.library_path(library), "HMMA")
+        out = {}
+        for mangled, rep in report.items():
+            inst = re.search(pattern, mangled)
+            if inst is None:
+                continue
+            kernel, tc, hd = inst.group(1), inst.group(2) == "bf16_", int(inst.group(3))
+            out[f"{kernel} {'bf16 tensor cores' if tc else 'fp32 CUDA cores'} hd{hd}"] = {
+                "registers": rep["registers"], "spill_stores": rep["spill_stores"],
+                "spill_loads": rep["spill_loads"],
+                "smem_bytes": smem_of(kernel, hd) if tc else rep["static_smem"],
+                "hmma": hmma.get(mangled, 0)}
+        for name, inst in sorted(out.items()):
+            say(f"{library} {name}: {inst['registers']} registers, spills "
+                f"{inst['spill_stores']}/{inst['spill_loads']} bytes, {inst['smem_bytes']} B "
+                f"shared memory a block, {inst['hmma']} HMMA")
+        tc_hmma = [v["hmma"] for k, v in out.items() if "tensor cores" in k]
+        if not tc_hmma or len(tc_hmma) * 2 != len(out) or min(tc_hmma) == 0:
+            fail(f"{library}: bf16 runs on the tensor cores, so each of its bf16 instances "
+                 f"needs HMMA in its SASS, beside one fp32 instance each ({out})")
+        return out
+
+    fwd_lib = cuda_build.load("flash_attn_fwd")
+    fwd_instances = instances("flash_attn_fwd", r"(flash_attn_fwd)_(bf16_)?kernelILi(\d+)E",
+                              lambda _, hd: fwd_lib.flash_attn_fwd_bf16_smem_bytes(hd))
+    if len(fwd_instances) != 6:
+        fail(f"flash_attn_fwd: expected 6 instances (hd 32, 64, 128 of two bodies), got "
+             f"{sorted(fwd_instances)}")
 
     def attn_inputs(Bsz, T, h, hd, dtype, valid=None, seed=0):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -745,25 +906,27 @@ def main() -> None:
                 out[i] = False
         return out
 
-    # the two bodies of the forward: the tensor cores run bf16 without
-    # residuals (serving, no-grad), the CUDA cores fp32 and bf16 with them
-    # (training); each keeps its own worst errors and launch count
-    def body_of(dtype, with_residuals):
-        return ("tensor_cores" if dtype == torch.bfloat16 and not with_residuals
-                else "cuda_cores")
+    # the two bodies of each flash kernel: the tensor cores run bf16 (with
+    # and without the forward's residuals), the CUDA cores fp32; each body
+    # keeps its own worst errors and launch count
+    flash_wrappers = {"fwd": flash_attn_fwd, "dkv": flash_attn_bwd_dkv, "dq": flash_attn_bwd_dq}
 
-    def zero_fwd_bodies():
-        for body in flash_attn_fwd.launches_by_body:
-            flash_attn_fwd.launches_by_body[body] = 0
+    def body_of(dtype):
+        return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
 
-    def fwd_bodies():
-        return dict(flash_attn_fwd.launches_by_body)
+    def zero_bodies():
+        for w in flash_wrappers.values():
+            for body in w.launches_by_body:
+                w.launches_by_body[body] = 0
 
-    attn_worst = {"tensor_cores": {"bf16": 0.0}, "cuda_cores": {"fp32": 0.0, "bf16": 0.0}}
+    def flash_bodies():
+        return {key: dict(w.launches_by_body) for key, w in flash_wrappers.items()}
+
+    attn_worst = {"tensor_cores": 0.0, "cuda_cores": 0.0}
     attn_abs = {"tensor_cores": 0.0, "cuda_cores": 0.0}
 
-    def note_fwd(body, name, rel, abs_err):
-        attn_worst[body][name] = max(attn_worst[body][name], rel)
+    def note_fwd(body, rel, abs_err):
+        attn_worst[body] = max(attn_worst[body], rel)
         attn_abs[body] = max(attn_abs[body], abs_err)
 
     cases = [
@@ -794,14 +957,14 @@ def main() -> None:
                 if valid is not None and not valid[1].any():  # the all-masked row: mean of v
                     (rel_m, _), = rel_errs([o_k[1]], [v[1].float().mean(0).reshape(1, -1)])
                     ok = ok and rel_m <= ATTN_GATE[name]
-                body = body_of(dtype, with_res)
+                body = body_of(dtype)
                 say(f"flash B=2 T={T} h={h} hd={hd} {name} ({label}), "
                     f"{'with' if with_res else 'without'} residuals ({body}): rel_err {rel:.3e} "
                     f"abs_err {abs_err:.3e} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     fail(f"flash_attn_fwd disagrees with the plain interior at T={T} hd={hd} "
                          f"{name}, {'with' if with_res else 'without'} residuals")
-                note_fwd(body, name, rel, abs_err)
+                note_fwd(body, rel, abs_err)
 
     # at the serving batch (64) and type (bf16): the ViT and BERT shapes
     attn_shapes = {}
@@ -825,8 +988,7 @@ def main() -> None:
         if rel > ATTN_GATE["bf16"] or rel_r > ATTN_GATE["bf16"]:
             fail(f"flash_attn_fwd disagrees with the plain interior at the {tower} shape: "
                  f"rel err {rel:.3e} without residuals, {rel_r:.3e} with them")
-        note_fwd("tensor_cores", "bf16", rel, abs_err)
-        note_fwd("cuda_cores", "bf16", rel_r, abs_r)
+        note_fwd("tensor_cores", max(rel, rel_r), max(abs_err, abs_r))
         bound = attn_bound(64, T, 12, 64, 2, valid is not None, sfu_rate)
         attn_shapes[tower] = {"B": 64, "T": T, "h": 12, "hd": 64, "dtype": "bf16",
                               "masked": valid is not None, "launches_per_forward": 12,
@@ -834,7 +996,7 @@ def main() -> None:
                               "max_rel_err": rel}
         say(f"flash B=64 T={T} bf16 ({tower}): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
             f"scaled_dot_product_attention {ms_l:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-            f"({bound['bound_by']}), rel_err {rel:.3e}; with residuals (CUDA cores) rel_err "
+            f"({bound['bound_by']}), rel_err {rel:.3e}; with residuals rel_err "
             f"{rel_r:.3e}")
         del q, k, v, qt, kt, vt, o_k, o_p, o_r
     say(json.dumps({"flash_attn_fwd_shapes": attn_shapes, "card": card}))
@@ -872,7 +1034,7 @@ def main() -> None:
             errors.append(f"{name} request {i}: {e!r}")
 
     selective_scan_fwd.launches = selective_scan_bwd.launches = flash_attn_fwd.launches = 0
-    zero_fwd_bodies()
+    zero_bodies()
     batchers = {name: MicroBatcher(lambda x, f=cfns[name]: f(clip, x), max_batch=16,
                                    max_delay_ms=100.0) for name in c_req}
     t0 = time.time()
@@ -886,7 +1048,7 @@ def main() -> None:
         mb.close()
     wall = time.time() - t0
     clip_flash = flash_attn_fwd.launches
-    clip_flash_bodies = fwd_bodies()
+    clip_flash_bodies = flash_bodies()
     clip_scans = selective_scan_fwd.launches + selective_scan_bwd.launches
     if errors or any(t.is_alive() for t in threads):
         fail(f"clip serving: {errors or 'a request did not finish'}")
@@ -900,7 +1062,7 @@ def main() -> None:
     if clip_flash != 12 * n_batches or clip_scans != 0:
         fail(f"{clip_flash} flash and {clip_scans} scan launches for {n_batches} batches, "
              "expected 12 flash launches each and no scan")
-    if clip_flash_bodies != {"tensor_cores": clip_flash, "cuda_cores": 0}:
+    if clip_flash_bodies["fwd"] != {"tensor_cores": clip_flash, "cuda_cores": 0}:
         fail(f"clip serving: the forward's launches by body {clip_flash_bodies}, expected "
              "every one on the tensor cores")
     clip_diff = 0.0
@@ -942,7 +1104,7 @@ def main() -> None:
             o_p = attention_plain(q, k, v, pad_mask, sm_scale=sm_scale)
         (rel, abs_err), = rel_errs([o_k], [o_p])
         rec_attn = max(rec_attn, rel)
-        note_fwd("tensor_cores", "bf16", rel, abs_err)
+        note_fwd("tensor_cores", rel, abs_err)
         if not rel <= ATTN_GATE["bf16"]:
             fail(f"flash_attn_fwd disagrees with the plain interior on a served batch's "
                  f"inputs (T={q.shape[1]}): rel err {rel:.3e}")
@@ -958,11 +1120,11 @@ def main() -> None:
     mm_launches, mm_bodies = {}, {}
     for name, reqs in c_req.items():
         selective_scan_fwd.launches = flash_attn_fwd.launches = 0
-        zero_fwd_bodies()
+        zero_bodies()
         out = mm_fns[name](mm_clip, np.concatenate(reqs))
         torch.cuda.synchronize()
         mm_launches[name] = {"scan": selective_scan_fwd.launches, "flash": flash_attn_fwd.launches}
-        mm_bodies[name] = fwd_bodies()
+        mm_bodies[name] = flash_bodies()
         if out.shape != (16, 512) or not torch.isfinite(out).all():
             fail(f"medmamba CLIP {name} gave a bad result")
     say(f"clip serving: medmamba CLIP launches {mm_launches}")
@@ -999,7 +1161,16 @@ def main() -> None:
                                      "medmamba_clip_launches": mm_launches}}))
     del clip, clip_e, cfns, efns, batchers
 
-    # 9. flash backward kernels against the plain backward
+    # 9. flash backward kernels against the plain backward. First what was
+    # built, as phase 7 lists the forward's instances
+    bwd_lib = cuda_build.load("flash_attn_bwd")
+    bwd_instances = instances(
+        "flash_attn_bwd", r"(flash_attn_bwd_dkv|flash_attn_bwd_dq)_(bf16_)?kernelILi(\d+)E",
+        lambda kernel, hd: bwd_lib.flash_attn_bwd_bf16_smem_bytes(int(kernel.endswith("dq")), hd))
+    if len(bwd_instances) != 12:
+        fail(f"flash_attn_bwd: expected 12 instances (dk/dv and dq at hd 32, 64, 128 of two "
+             f"bodies), got {sorted(bwd_instances)}")
+
     def plain_residuals(q, k, mask, sm):
         sc = torch.matmul(q.transpose(1, 2).float(), k.permute(0, 2, 3, 1).float()) * sm
         if mask is not None:
@@ -1025,15 +1196,14 @@ def main() -> None:
         dk, dv = flash_attn_bwd_dkv(q, k, v, *res, sm_scale=sm)
         return (flash_attn_bwd_dq(q, k, v, *res, sm_scale=sm), dk, dv), res, out
 
-    bwd_attn_worst = {"dq": {"fp32": 0.0, "bf16": 0.0}, "dkv": {"fp32": 0.0, "bf16": 0.0}}
-    bwd_attn_abs = {"dq": 0.0, "dkv": 0.0}
+    bwd_attn_worst = {key: {"tensor_cores": 0.0, "cuda_cores": 0.0} for key in ("dq", "dkv")}
+    bwd_attn_abs = {key: {"tensor_cores": 0.0, "cuda_cores": 0.0} for key in ("dq", "dkv")}
 
-    def note_bwd(errs, name):
+    def note_bwd(errs, body):
         (r_q, a_q), (r_k, a_k), (r_v, a_v) = errs
-        bwd_attn_worst["dq"][name] = max(bwd_attn_worst["dq"][name], r_q)
-        bwd_attn_worst["dkv"][name] = max(bwd_attn_worst["dkv"][name], r_k, r_v)
-        bwd_attn_abs["dq"] = max(bwd_attn_abs["dq"], a_q)
-        bwd_attn_abs["dkv"] = max(bwd_attn_abs["dkv"], a_k, a_v)
+        for key, rel, abs_err in (("dq", r_q, a_q), ("dkv", max(r_k, r_v), max(a_k, a_v))):
+            bwd_attn_worst[key][body] = max(bwd_attn_worst[key][body], rel)
+            bwd_attn_abs[key][body] = max(bwd_attn_abs[key][body], abs_err)
 
     bwd_cases = [c if c[4] != "one valid key + all masked" else
                  (256, 12, 64, rows(256, "one", "none", "holes", seed=4),
@@ -1075,65 +1245,73 @@ def main() -> None:
             ok = (all(bool(torch.isfinite(g).all()) for g in g_k)
                   and all(r <= ATTN_GATE[name] for r, _ in errs)
                   and res_err <= GATE_REL and same_bits and zeros_ok)
-            say(f"flash bwd B={Bsz} T={T} h={h} hd={hd} {name} ({label}): "
+            say(f"flash bwd B={Bsz} T={T} h={h} hd={hd} {name} ({label}, {body_of(dtype)}): "
                 + " ".join(f"{n} {r:.2e}" for n, (r, _) in zip(("dq", "dk", "dv"), errs))
                 + f" residuals {res_err:.2e} same_bits {same_bits} exact_zeros {zeros_ok}"
                 + (" ok" if ok else " FAIL"))
             if not ok:
                 fail(f"the flash backward kernels disagree with the plain backward at T={T} "
                      f"hd={hd} {name}")
-            note_bwd(errs, name)
+            note_bwd(errs, body_of(dtype))
 
-    # at the training batch (64) and type (bf16): the ViT and BERT shapes
-    bwd_shapes_attn = {}
-    for tower, T, valid in (("vit", 197, None),
-                            ("bert", 256, report_tokens(64) != HashTokenizer.PAD)):
-        q, k, v, mask, key_mask, do = flash_bwd_inputs(64, T, 12, 64, torch.bfloat16, valid, 5)
-        sm = 64**-0.5
-        g_k, res, _ = flash_bwd(q, k, v, key_mask, do, sm)
-        errs = rel_errs(g_k, attention_plain_bwd(q, k, v, mask, do, sm))
-        if any(r > ATTN_GATE["bf16"] for r, _ in errs):
-            fail(f"the flash backward kernels disagree with the plain backward at the {tower} "
-                 "shape")
-        note_bwd(errs, "bf16")
-        ms_f = cuda_ms(lambda: flash_attn_fwd(q, k, v, key_mask, sm_scale=sm,
-                                              with_residuals=True), 20)
-        with torch.no_grad():
-            ms_pf = cuda_ms(lambda: attention_plain(q, k, v, mask, sm_scale=sm), 20)
-        ms_kv = cuda_ms(lambda: flash_attn_bwd_dkv(q, k, v, *res, sm_scale=sm), 20)
-        ms_q = cuda_ms(lambda: flash_attn_bwd_dq(q, k, v, *res, sm_scale=sm), 20)
-        ms_p = cuda_ms(lambda: attention_plain_bwd(q, k, v, mask, do, sm), 10)
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        o_l = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sm)
-        # the library's forward as training calls it: it keeps its residuals
-        ms_lf = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                               scale=sm), 20)
-        do_l = do.view(64, T, 12, 64).transpose(1, 2)
-        ms_l = cuda_ms(lambda: torch.autograd.grad(o_l, (qt, kt, vt), do_l, retain_graph=True),
-                       20)
-        masked = valid is not None
-        b_kv = attn_bound(64, T, 12, 64, 2, masked, sfu_rate, tensors=6, stats=3, products=4)
-        b_q = attn_bound(64, T, 12, 64, 2, masked, sfu_rate, tensors=5, stats=3, products=3)
-        b_f = attn_bound(64, T, 12, 64, 2, masked, sfu_rate, stats=2)
-        bwd_shapes_attn[tower] = {
-            "B": 64, "T": T, "h": 12, "hd": 64, "dtype": "bf16", "masked": masked,
-            "launches_per_step": 12, "fwd_with_residuals_ms": ms_f,
-            "fwd": {"ms": ms_f, "plain_ms": ms_pf, "library_ms": ms_lf, **b_f},
-            "dkv": {"ms": ms_kv, **b_kv}, "dq": {"ms": ms_q, **b_q},
-            "plain_bwd_ms": ms_p, "library_bwd_ms": ms_l,
-            "max_rel_err": max(r for r, _ in errs)}
-        say(f"flash bwd B=64 T={T} bf16 ({tower}): dk/dv {ms_kv:.4f} ms (bound "
-            f"{b_kv['bound_ms']:.4f}, {b_kv['bound_by']}), dq {ms_q:.4f} ms (bound "
-            f"{b_q['bound_ms']:.4f}, {b_q['bound_by']}), forward with residuals {ms_f:.4f} ms "
-            f"(bound {b_f['bound_ms']:.4f}, plain {ms_pf:.4f}, scaled_dot_product_attention "
-            f"{ms_lf:.4f}), plain backward {ms_p:.4f} ms, scaled_dot_product_attention backward "
-            f"{ms_l:.4f} ms")
-        del q, k, v, do, g_k, res, qt, kt, vt, o_l, do_l
+    # at the training batch (64), the ViT and BERT shapes: bf16 on the tensor
+    # cores (training under amp), fp32 on the CUDA cores; each beside the
+    # plain forward and backward and the library's, in the same type. The
+    # operations of an fp32 body are bound by the fp32 rate outside the
+    # tensor cores.
+    bwd_shapes_attn = {"tensor_cores": {}, "cuda_cores": {}}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        body, itemsize = body_of(dtype), dtype.itemsize
+        rate = {} if dtype == torch.bfloat16 else {"tc_rate": FP32_FLOPS}
+        for tower, T, valid in (("vit", 197, None),
+                                ("bert", 256, report_tokens(64) != HashTokenizer.PAD)):
+            q, k, v, mask, key_mask, do = flash_bwd_inputs(64, T, 12, 64, dtype, valid, 5)
+            sm = 64**-0.5
+            g_k, res, _ = flash_bwd(q, k, v, key_mask, do, sm)
+            errs = rel_errs(g_k, attention_plain_bwd(q, k, v, mask, do, sm))
+            if any(r > ATTN_GATE[name] for r, _ in errs):
+                fail(f"the flash backward kernels disagree with the plain backward at the "
+                     f"{tower} shape in {name}")
+            note_bwd(errs, body)
+            ms_f = cuda_ms(lambda: flash_attn_fwd(q, k, v, key_mask, sm_scale=sm,
+                                                  with_residuals=True), 20)
+            with torch.no_grad():
+                ms_pf = cuda_ms(lambda: attention_plain(q, k, v, mask, sm_scale=sm), 20)
+            ms_kv = cuda_ms(lambda: flash_attn_bwd_dkv(q, k, v, *res, sm_scale=sm), 20)
+            ms_q = cuda_ms(lambda: flash_attn_bwd_dq(q, k, v, *res, sm_scale=sm), 20)
+            ms_p = cuda_ms(lambda: attention_plain_bwd(q, k, v, mask, do, sm), 10)
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+            o_l = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, scale=sm)
+            # the library's forward as training calls it: it keeps its residuals
+            ms_lf = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                                   scale=sm), 20)
+            do_l = do.view(64, T, 12, 64).transpose(1, 2)
+            ms_l = cuda_ms(lambda: torch.autograd.grad(o_l, (qt, kt, vt), do_l,
+                                                       retain_graph=True), 20)
+            masked = valid is not None
+            b_kv = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, tensors=6, stats=3,
+                              products=4, **rate)
+            b_q = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, tensors=5, stats=3,
+                             products=3, **rate)
+            b_f = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, stats=2, **rate)
+            bwd_shapes_attn[body][tower] = {
+                "B": 64, "T": T, "h": 12, "hd": 64, "dtype": name, "masked": masked,
+                "launches_per_step": 12,
+                "fwd": {"ms": ms_f, "plain_ms": ms_pf, "library_ms": ms_lf, **b_f},
+                "dkv": {"ms": ms_kv, **b_kv}, "dq": {"ms": ms_q, **b_q},
+                "plain_bwd_ms": ms_p, "library_bwd_ms": ms_l,
+                "max_rel_err": max(r for r, _ in errs)}
+            say(f"flash bwd B=64 T={T} {name} ({tower}, {body}): dk/dv {ms_kv:.4f} ms (bound "
+                f"{b_kv['bound_ms']:.4f}, {b_kv['bound_by']}), dq {ms_q:.4f} ms (bound "
+                f"{b_q['bound_ms']:.4f}, {b_q['bound_by']}), forward with residuals "
+                f"{ms_f:.4f} ms (bound {b_f['bound_ms']:.4f}, plain {ms_pf:.4f}, "
+                f"scaled_dot_product_attention {ms_lf:.4f}), plain backward {ms_p:.4f} ms, "
+                f"scaled_dot_product_attention backward {ms_l:.4f} ms")
+            del q, k, v, do, g_k, res, qt, kt, vt, o_l, do_l
     say(json.dumps({"flash_attn_bwd_shapes": bwd_shapes_attn, "card": card}))
-    flash_ms_per_step = {
-        "fwd": sum(12 * sh["fwd_with_residuals_ms"] for sh in bwd_shapes_attn.values()),
-        "dkv": sum(12 * sh["dkv"]["ms"] for sh in bwd_shapes_attn.values()),
-        "dq": sum(12 * sh["dq"]["ms"] for sh in bwd_shapes_attn.values())}
+    flash_ms_per_step = {key: sum(12 * sh[key]["ms"]
+                                  for sh in bwd_shapes_attn["tensor_cores"].values())
+                         for key in ("fwd", "dkv", "dq")}
 
     # 10. CLIP training: the stage-1 contrastive step of full-width BiomedCLIP
     wrappers = {"fwd": flash_attn_fwd, "dkv": flash_attn_bwd_dkv, "dq": flash_attn_bwd_dq,
@@ -1142,7 +1320,7 @@ def main() -> None:
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
-        zero_fwd_bodies()
+        zero_bodies()
 
     def read_counts():
         return {key: w.launches for key, w in wrappers.items()}
@@ -1182,15 +1360,15 @@ def main() -> None:
     reset_counts()
     state, clip_ms, clip_peak, metrics = timed_clip_steps(state, step_fn, batches, "flash")
     clip_train = read_counts()
-    clip_train_bodies = fwd_bodies()
-    say(f"clip training: launches in {steps} steps: {clip_train}; the forward's by body "
+    clip_train_bodies = flash_bodies()
+    say(f"clip training: launches in {steps} steps: {clip_train}; by body "
         f"{clip_train_bodies}")
     want = {"fwd": 24 * steps, "dkv": 24 * steps, "dq": 24 * steps, "scan_fwd": 0, "scan_bwd": 0}
     if clip_train != want:
         fail(f"clip training: launches {clip_train}, expected {want}")
-    if clip_train_bodies != {"tensor_cores": 0, "cuda_cores": 24 * steps}:
-        fail(f"clip training: the forward's launches by body {clip_train_bodies}, expected "
-             "every one on the CUDA cores (with residuals)")
+    if any(b != {"tensor_cores": 24 * steps, "cuda_cores": 0} for b in clip_train_bodies.values()):
+        fail(f"clip training: launches by body {clip_train_bodies}, expected every one on the "
+             "tensor cores")
     first_loss = float(metrics[0]["loss"])
     if not 3.0 <= first_loss <= 6.0:
         fail(f"clip training: first loss {first_loss} outside [3, 6] (ln 64 = 4.16)")
@@ -1237,7 +1415,7 @@ def main() -> None:
             fail("flash_attn_fwd with residuals disagrees with the plain interior on a train "
                  f"step's own inputs (T={T_}): rel err {rel_o:.3e}")
         rec_fwd = max(rec_fwd, rel_o)
-        note_fwd("cuda_cores", "bf16", rel_o, abs_o)
+        note_fwd("tensor_cores", rel_o, abs_o)
         errs = rel_errs(g_k, attention_plain_bwd(q.float(), k.float(), v.float(), c["mask"],
                                                  do.float(), c["sm"], o=out.float()))
         errs_bf16 = rel_errs(g_k, attention_plain_bwd(q, k, v, c["mask"], do, c["sm"]))
@@ -1255,7 +1433,7 @@ def main() -> None:
                  f"step's own inputs (T={T_}): rel err {worst:.3e}")
         rec_bwd = max(rec_bwd, worst)
         rec_bwd_bf16 = max(rec_bwd_bf16, max(r for r, _ in errs_bf16))
-        note_bwd(errs, "bf16")
+        note_bwd(errs, "tensor_cores")
     say(f"clip training: the 24 recorded interiors (12 T={calls[0]['q'].shape[1]}, 12 "
         f"T={calls[-1]['q'].shape[1]}) agree with the fp32 plain backward on their own inputs: "
         f"worst rel_err {rec_bwd:.3e} (gate {ATTN_GATE['bf16']:g}); against the bf16 plain "
@@ -1270,52 +1448,51 @@ def main() -> None:
     del state, step_fn
     torch.cuda.empty_cache()
 
-    # kernels against plain interiors end to end: 2 steps at batch 8 from one state
-    init = {k: v.clone() for k, v in build_clip(
-        "biomedclip", dtype=torch.bfloat16, attn_flash=True,
-        generator=torch.Generator().manual_seed(1)).state_dict().items()}
-    runs = {}
-    for impl in ("cuda", "plain"):
-        st, fn, bs = clip_train_setup(8, seed=1, model_state=init)
-        vit_mod.flash_attention_interior = functools.partial(interior, impl=impl)
-        try:
-            runs[impl] = []
-            for i in range(2):
-                st, m = fn(st, bs[i], 0)
-                runs[impl].append(check_metrics(m, f"batch-8 clip step, {impl} interiors"))
-        finally:
-            vit_mod.flash_attention_interior = interior
-        del st, fn
-    clip_e2e = 0.0
-    for i, ((lk, gk), (lp, gp)) in enumerate(zip(runs["cuda"], runs["plain"])):
-        rl, rg = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
-        clip_e2e = max(clip_e2e, rl, rg)
-        say(f"clip training bs 8 step {i}: loss kernel {lk:.6f} plain {lp:.6f} (rel {rl:.2e}); "
-            f"grad_norm kernel {gk:.6f} plain {gp:.6f} (rel {rg:.2e})")
-    if clip_e2e > CLIP_TRAIN_REL:
-        fail(f"the clip train step with the kernels differs from the plain interiors by "
-             f"{clip_e2e:.3e} relative (bound {CLIP_TRAIN_REL:g})")
+    # kernels against plain interiors end to end at batch 8, seed 1, from S_0
+    # and S_1, each part gated where it is well posed (clip_step_check)
+    clip_check = clip_step_check(1)
+    for r in clip_check:
+        say_clip_step(r)
+    if not all(r["ok"] for r in clip_check):
+        fail(f"the clip train step with the kernels differs from the plain interiors beyond "
+             f"{CLIP_TRAIN_REL:g}: (a) loss or (b) grad norm, {clip_check}")
+    # one fp32 step: the CUDA-core bodies through the normal entry point,
+    # under the same gates; their main path, so its launches are counted
+    fp32_check = clip_step_check(1, precision="fp32", steps=1,
+                                 counted=(reset_counts, lambda: (read_counts(), flash_bodies())))
+    say_clip_step(fp32_check[0])
+    fp32_counts, fp32_bodies = fp32_check[0].pop("counts")
+    say(f"clip training bs 8 fp32: launches {fp32_counts}; by body {fp32_bodies}")
+    if not fp32_check[0]["ok"]:
+        fail(f"the fp32 clip train step with the kernels differs from the plain interiors "
+             f"beyond {CLIP_TRAIN_REL:g}: {fp32_check[0]}")
+    if (fp32_counts != {"fwd": 24, "dkv": 24, "dq": 24, "scan_fwd": 0, "scan_bwd": 0}
+            or any(b != {"tensor_cores": 0, "cuda_cores": 24} for b in fp32_bodies.values())):
+        fail(f"the fp32 clip train step: launches {fp32_counts}, by body {fp32_bodies}; "
+             "expected 24 + 24 + 24, every one on the CUDA cores")
 
     # accum_freq=2 with grad_checkpointing: the bank pass and the recomputes launch too
-    st, fn, _ = clip_train_setup(8, seed=1, model_state=init, grad_checkpointing=True,
-                                 accum_freq=2)
+    st, fn, bs = clip_train_setup(8, seed=1, grad_checkpointing=True, accum_freq=2)
     reset_counts()
     st, m = fn(st, bs[0], 0)
     accum_counts = read_counts()
-    accum_bodies = fwd_bodies()
+    accum_bodies = flash_bodies()
     check_metrics(m, "accum_freq=2 checkpointed clip step")
     say(f"clip training bs 8 accum_freq=2 grad_checkpointing: launches {accum_counts}")
     if accum_counts != {"fwd": 144, "dkv": 48, "dq": 48, "scan_fwd": 0, "scan_bwd": 0}:
         fail("accum_freq=2 with grad_checkpointing: expected 144 forward (48 in the bank "
              "pass, 96 in the graded pass and its recomputes), 48 dk/dv and 48 dq launches")
-    del st, fn, init
+    if any(b["cuda_cores"] for b in accum_bodies.values()):
+        fail(f"accum_freq=2 with grad_checkpointing: launches by body {accum_bodies}, "
+             "expected every one on the tensor cores")
+    del st, fn
 
     # the VSSM-towered CLIP: scans in the image tower, flash in the text tower
     st, fn, _ = clip_train_setup(8, model_name="medmamba", seed=2)
     reset_counts()
     st, m = fn(st, bs[0], 0)
     mm_train = read_counts()
-    mm_train_bodies = fwd_bodies()
+    mm_train_bodies = flash_bodies()
     check_metrics(m, "medmamba clip step")
     say(f"clip training bs 8 medmamba CLIP: launches {mm_train}")
     if mm_train != {"fwd": 12, "dkv": 12, "dq": 12, "scan_fwd": 14, "scan_bwd": 14}:
@@ -1333,7 +1510,8 @@ def main() -> None:
         "first_loss": first_loss, "recorded_interiors_max_rel_err": rec_bwd,
         "recorded_interiors_vs_bf16_plain_max_rel_err": rec_bwd_bf16,
         "recorded_interiors_fwd_max_rel_err": rec_fwd,
-        "bs8_kernel_vs_plain_max_rel": clip_e2e, "accum2_checkpointed_launches": accum_counts,
+        "bs8_check": clip_check, "bs8_fp32_check": fp32_check,
+        "bs8_fp32_launches": fp32_counts, "accum2_checkpointed_launches": accum_counts,
         "medmamba_clip_launches": mm_train}}))
     say(f"clip training: {clip_ms:.2f} ms/step, {TB / (clip_ms / 1e3):.1f} pairs/s, peak "
         f"{clip_peak / 2**30:.2f} GiB allocated with flash; einsum {einsum_ms:.2f} ms/step, "
@@ -1509,7 +1687,7 @@ def main() -> None:
         epoch1_s = time.perf_counter() - t0
         peak1 = torch.cuda.max_memory_allocated()
         total1 = read_counts()
-        total1_bodies = fwd_bodies()
+        total1_bodies = flash_bodies()
         names = sorted(os.listdir(run1.checkpoint_path))
         say(f"epoch stage 1: {len(log1)} steps, launches a step {log1}; in all {total1}; "
             f"metrics {metrics1}; checkpoints {names}; step checkpoint seen after batch 2: "
@@ -1648,7 +1826,7 @@ def main() -> None:
         torch.cuda.synchronize()
         peak2 = torch.cuda.max_memory_allocated()
         total2 = read_counts()
-        total2_bodies = fwd_bodies()
+        total2_bodies = flash_bodies()
         say(f"epoch stage 2: {len(log2)} steps, launches a step {log2}; in all {total2}; "
             f"metrics {metrics2}; moments kept for {sorted(state2.opt_state.mu)}")
         want2 = {**step_want, "dkv": 0, "dq": 0}
@@ -1708,48 +1886,96 @@ def main() -> None:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # 14. kernels line, then the device line
-    # the forward's two bodies: serving's tensor-core body timed in phase 7,
-    # training's CUDA-core body (with residuals) in phase 9, on the same inputs
+    # 14. kernels line, then the device line. Each attention kernel as two
+    # entries, one a body: the tensor cores (bf16: what serving and training
+    # under amp run, its launches from the main path) and the CUDA cores
+    # (fp32, its launches from phase 10's fp32 step), each timed at the
+    # towers' shapes in its own type (phase 7 serving's forward, phase 9 the
+    # rest)
     def by_bound(shapes):
         by = {"bytes": 0.0, "operations": 0.0}
         for sh in shapes:
             by[sh["bound_by"]] += sh["bound_ms"]
         return max(by, key=by.get)
 
-    fwd_times = {
-        "tensor_cores": {
-            **{key: sum(12 * sh[key] for sh in attn_shapes.values())
-               for key in ("ms", "plain_ms", "bound_ms")},
-            "bound_by": by_bound(attn_shapes.values()),
-            "library_ms": sum(12 * sh["library_ms"] for sh in attn_shapes.values())},
-        "cuda_cores": {
-            **{key: sum(12 * sh["fwd"][key] for sh in bwd_shapes_attn.values())
-               for key in ("ms", "plain_ms", "bound_ms")},
-            "bound_by": by_bound(sh["fwd"] for sh in bwd_shapes_attn.values()),
-            "library_ms": sum(12 * sh["fwd"]["library_ms"] for sh in bwd_shapes_attn.values())}}
-    fwd_paths = {"clip_serve": clip_flash_bodies, "clip_train": clip_train_bodies,
-                 "epoch_stage1": total1_bodies, "epoch_stage2": total2_bodies,
-                 "medmamba_clip_text_embed": mm_bodies["text_embed"],
-                 "clip_train_accum2_checkpointed": accum_bodies,
-                 "medmamba_clip_train": mm_train_bodies}
-    fwd_launches = {body: sum(fwd_paths[p][body] for p in ("clip_serve", "clip_train",
-                                                            "epoch_stage1", "epoch_stage2"))
-                    for body in ("tensor_cores", "cuda_cores")}
-    if min(fwd_launches.values()) == 0:
-        fail(f"the main path did not launch both bodies of the flash forward: {fwd_launches}")
+    flash_paths = {"clip_serve": clip_flash_bodies, "clip_train": clip_train_bodies,
+                   "epoch_stage1": total1_bodies, "epoch_stage2": total2_bodies,
+                   "medmamba_clip_text_embed": mm_bodies["text_embed"],
+                   "clip_train_accum2_checkpointed": accum_bodies,
+                   "medmamba_clip_train": mm_train_bodies, "clip_train_fp32": fp32_bodies}
+    main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2"),
+                  "dkv": ("clip_train", "epoch_stage1"), "dq": ("clip_train", "epoch_stage1")}
+    flash_launches = {key: {"tensor_cores": sum(flash_paths[p][key]["tensor_cores"]
+                                                for p in paths),
+                            "cuda_cores": fp32_bodies[key]["cuda_cores"]}
+                      for key, paths in main_paths.items()}
+    if any(n == 0 for by in flash_launches.values() for n in by.values()):
+        fail(f"a flash body was launched no time: {flash_launches} (the tensor cores on the "
+             "main path, the CUDA cores in the fp32 step)")
     # the attention kernels' bounds again from the ceilings phase 11 measured
-    # (HBM and exp; the tensor cores' rate stays the data sheet's)
+    # (HBM, exp and the fp32 FMA rate; the tensor cores' rate stays the data
+    # sheet's)
     attn_m = {"sfu_rate": measured["sfu_rate"], "hbm_rate": measured["hbm_rate"]}
-    fwd_bound_meas = {body: sum(12 * attn_bound(64, sh["T"], 12, 64, 2, sh["masked"], **attn_m,
-                                                stats=stats)["bound_ms"]
-                                for sh in attn_shapes.values())
-                      for body, stats in (("tensor_cores", 0), ("cuda_cores", 2))}
-    bwd_bound_meas = {key: sum(12 * attn_bound(64, sh["T"], 12, 64, 2, sh["masked"], **attn_m,
-                                               **kw)["bound_ms"]
-                               for sh in bwd_shapes_attn.values())
-                      for key, kw in (("dkv", dict(tensors=6, stats=3, products=4)),
-                                      ("dq", dict(tensors=5, stats=3, products=3)))}
+    bound_kw = {"fwd": dict(stats=2), "dkv": dict(tensors=6, stats=3, products=4),
+                "dq": dict(tensors=5, stats=3, products=3)}
+
+    def attn_rows(key, body):
+        """phase 9's rows of ``key`` in ``body`` with their plain and
+        library times (the backward's: one call for dq, dk and dv)"""
+        if key == "fwd":
+            return [{**sh["fwd"], "T": sh["T"], "masked": sh["masked"]}
+                    for sh in bwd_shapes_attn[body].values()]
+        return [{**sh[key], "plain_ms": sh["plain_bwd_ms"], "library_ms": sh["library_bwd_ms"],
+                 "T": sh["T"], "masked": sh["masked"]} for sh in bwd_shapes_attn[body].values()]
+
+    def attn_times(rows, tc, kw):
+        """ms, plain, bound and library ms per 12 + 12 launches at batch 64
+        (a train step's, or an image_embed and a text_embed), and the shares
+        of the data-sheet and the measured bounds."""
+        out = {k: sum(12 * r[k] for r in rows)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        out["bound_by"] = by_bound(rows)
+        rate = {} if tc else {"tc_rate": measured["fp32_rate"]}
+        meas = sum(12 * attn_bound(64, r["T"], 12, 64, 2 if tc else 4, r["masked"], **attn_m,
+                                   **kw, **rate)["bound_ms"] for r in rows)
+        out.update(bound_ms_measured=meas, share_of_bound_datasheet=out["bound_ms"] / out["ms"],
+                   share_of_bound_measured=meas / out["ms"])
+        return out
+
+    fwd_serving = attn_times(list(attn_shapes.values()), True, {"stats": 0})
+    attn_entries = []
+    for key, name, source, replaces in (
+            ("fwd", "flash_attn_fwd", "flash_attn_fwd.cu", "src/mamba_clip_tpu/ops/flash_attn.py:75"),
+            ("dkv", "flash_attn_bwd_dkv", "flash_attn_bwd.cu",
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:796 (reached from "
+             "src/mamba_clip_tpu/ops/flash_attn.py:122)"),
+            ("dq", "flash_attn_bwd_dq", "flash_attn_bwd.cu",
+             "jax/experimental/pallas/ops/tpu/flash_attention.py:1146 (reached from "
+             "src/mamba_clip_tpu/ops/flash_attn.py:122)")):
+        for body in ("tensor_cores", "cuda_cores"):
+            tc = body == "tensor_cores"
+            times = attn_times(attn_rows(key, body), tc, bound_kw[key])
+            entry = {
+                "name": name if tc else f"{name}_cuda_cores",
+                "route": "cuda",
+                "source": f"src/mamba_clip_tpu_torch/csrc/{source}",
+                "replaces": replaces,
+                "body": ("bf16 (serving and training under amp), mma.sync on the tensor cores"
+                         if tc else "fp32, on the CUDA cores"),
+                "launches": flash_launches[key][body],
+                "launches_by_path": {p: c[key][body] for p, c in flash_paths.items()},
+                "max_abs_err": (attn_abs if key == "fwd" else bwd_attn_abs[key])[body],
+                "max_rel_err": (attn_worst if key == "fwd" else bwd_attn_worst[key])[body],
+                # the forward's tensor-core entry: an image_embed + text_embed
+                # pair (serving, no residuals), its "training" the train
+                # step's launches; the rest per train step in their type
+                **(fwd_serving if tc and key == "fwd" else times),
+                "instances": {n: i for n, i in {**fwd_instances, **bwd_instances}.items()
+                              if n.startswith(f"{name} {'bf16' if tc else 'fp32'}")},
+            }
+            if tc and key == "fwd":
+                entry["training"] = times
+            attn_entries.append(entry)
     say(json.dumps({"kernels": [{
         "name": "selective_scan_fwd",
         "route": "cuda",
@@ -1779,54 +2005,7 @@ def main() -> None:
         "bound_ms": bwd_bound_step,
         "bound_by": max(bwd_terms, key=bwd_terms.get),
         "library_ms": None,
-    }] + [{
-        "name": name,
-        "route": "cuda",
-        "source": "src/mamba_clip_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "src/mamba_clip_tpu/ops/flash_attn.py:75",
-        "body": runs,
-        "launches": fwd_launches[body],
-        "launches_by_path": {path: counts[body] for path, counts in fwd_paths.items()},
-        "max_abs_err": attn_abs[body],
-        "max_rel_err": attn_worst[body],
-        # per image_embed + text_embed pair (tensor cores) or per train step
-        # (CUDA cores) at batch 64: 12 ViT + 12 BERT launches
-        **fwd_times[body],
-        "bound_ms_measured": fwd_bound_meas[body],
-        "share_of_bound_datasheet": fwd_times[body]["bound_ms"] / fwd_times[body]["ms"],
-        "share_of_bound_measured": fwd_bound_meas[body] / fwd_times[body]["ms"],
-        "instances": {n: i for n, i in fwd_instances.items() if n.startswith(prefix)},
-    } for name, body, runs, prefix in (
-        ("flash_attn_fwd", "tensor_cores", "bf16 without residuals (serving, no-grad), "
-         "mma.sync on the tensor cores", "bf16 tensor cores"),
-        ("flash_attn_fwd_cuda_cores", "cuda_cores", "bf16 with residuals (training) and fp32, "
-         "on the CUDA cores", ("fp32", "bf16 with residuals")))] + [{
-        "name": name,
-        "route": "cuda",
-        "source": "src/mamba_clip_tpu_torch/csrc/flash_attn_bwd.cu",
-        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:{line} (reached from "
-                    "src/mamba_clip_tpu/ops/flash_attn.py:122)",
-        "launches": clip_train[key] + total1[key],
-        "launches_by_path": {"clip_serve": 0, "clip_train": clip_train[key],
-                             "epoch_stage1": total1[key], "epoch_stage2": total2[key],
-                             "clip_train_accum2_checkpointed": accum_counts[key],
-                             "medmamba_clip_train": mm_train[key]},
-        "max_abs_err": bwd_attn_abs[key],
-        "max_rel_err": bwd_attn_worst[key],
-        # per train step at batch 64: 12 ViT + 12 BERT launches; the plain
-        # backward and the library's compute dq, dk and dv in one call
-        "ms": sum(12 * bwd_shapes_attn[t][key]["ms"] for t in bwd_shapes_attn),
-        "plain_ms": sum(12 * bwd_shapes_attn[t]["plain_bwd_ms"] for t in bwd_shapes_attn),
-        "bound_ms": sum(12 * bwd_shapes_attn[t][key]["bound_ms"] for t in bwd_shapes_attn),
-        "bound_by": max(("bytes", "operations"), key=lambda by: sum(
-            sh[key]["bound_ms"] for sh in bwd_shapes_attn.values()
-            if sh[key]["bound_by"] == by)),
-        "library_ms": sum(12 * bwd_shapes_attn[t]["library_bwd_ms"] for t in bwd_shapes_attn),
-        "bound_ms_measured": bwd_bound_meas[key],
-        "share_of_bound_measured": bwd_bound_meas[key] / sum(
-            12 * bwd_shapes_attn[t][key]["ms"] for t in bwd_shapes_attn),
-    } for name, key, line in (("flash_attn_bwd_dkv", "dkv", 796),
-                              ("flash_attn_bwd_dq", "dq", 1146))] + [{
+    }] + attn_entries + [{
         "name": "vpu_chain",
         "route": "cuda",
         "source": "src/mamba_clip_tpu_torch/csrc/vpu_chain.cu",

@@ -27,32 +27,68 @@
 // to every dv_j, as the plain backward does.
 //
 // Design. Two kernels, as on the TPU, so that neither needs atomics and two
-// runs give the same bits.
-// - dk/dv: one block per (tile of 64 key rows, head, batch). A key row
-//   belongs to HD/32 neighbouring lanes, each holding 32 dims of k_j, v_j and
-//   of the fp32 accumulators of dk_j and dv_j in registers. The block walks
-//   the query rows in tiles (64, 32 at HD 128) staged in shared memory as
-//   fp32 (q, do, and m, 1/l, di of each row); per query row a lane takes its
-//   part of q.k and do.v, joins them with its row's other lanes by shuffles,
-//   recomputes p and ds and adds p*do_t and ds*q_t to its accumulators.
-// - dq: one block per (tile of 64 query rows, head, batch), the mirror image
-//   and the forward's own shape: q_t, do_t and the accumulator of dq_t in
-//   registers, K and V tiles (and the mask bytes) staged in shared memory.
-// The ragged tail of T is masked in both directions: rows past T are never
-// staged or walked, and a block's own rows past T compute on zeros and write
-// nothing. All arithmetic is fp32; dq, dk and dv are rounded once. The
-// scores recomputed here are the forward's bit for bit in both types: the
-// forward with residuals runs the CUDA-core body of flash_attn_fwd.cu, also
-// in bf16, and only the bf16 forward without residuals (serving) sums q.k on
-// the tensor cores. These kernels and that forward move to the tensor cores
-// together.
+// runs give the same bits: dk/dv, one block per (tile of 64 key rows, head,
+// batch) walking the query tiles, and dq, one block per (tile of 64 query
+// rows, head, batch) walking the key tiles. Each has two bodies.
+//
+// The tensor-core bodies run bf16 (training under amp). A warp owns 16 rows
+// and every product runs mma.sync m16n8k16 (bf16 in, fp32 accumulators) on
+// tiles that cp.async stages two buffers deep with a 16-byte pad a row, as
+// in the forward's tensor-core body:
+// - dk/dv (flash_attn_bwd_dkv_bf16_kernel): the warp's 16 rows of K and V
+//   are A fragments in registers, its dK and dV fp32 accumulators too (64
+//   registers a thread at HD 64). Per tile of kBlockN query rows the block
+//   stages Q, dO and each row's m, 1/l and di; per 16-query chunk a warp
+//   takes the transposed products, so that nothing passes through shared
+//   memory to be transposed: S^T = K Q^T (Q's B fragments by ldmatrix),
+//   P^T = exp(S^T * scale - m_t) / l_t on the accumulators, dV += P^T dO
+//   (P^T from the accumulators as an A fragment, dO by ldmatrix.trans),
+//   dP^T = V dO^T (dO by ldmatrix), dS^T = P^T (dP^T - di_t) * scale and
+//   dK += dS^T Q (Q by ldmatrix.trans).
+// - dq (flash_attn_bwd_dq_bf16_kernel), the forward's shape: the warp's 16
+//   rows of Q and dO are A fragments in registers, m, 1/l and di of its rows
+//   too; per staged K/V tile (with one code a key: attend, masked, past T),
+//   per 16-key chunk: S = Q K^T, P = exp(S * scale - m) / l, dP = dO V^T,
+//   dS = P (dP - di) * scale, dQ += dS K (K by ldmatrix.trans).
+// Rounding: q, k, v and do are bf16, so every product the tensor cores
+// take of them is exact and sums in fp32. Two operands are rounded that the
+// fp32 bodies keep: P, to bf16 once for dV (p >= 0, as the forward's P . V),
+// and dS for dK and dQ. dq and dk are small remainders of terms that cancel
+// (sum_j ds_tj is 0 for every row), so one rounding of ds is of their size;
+// ds goes in as two bf16 terms, hi = bf16(ds) and lo = bf16(ds - hi), two
+// mma a product, which carries it to about 2^-16. The scores are summed by
+// the tensor cores: the dq kernel takes S = Q K^T as the forward does, the
+// dk/dv kernel S^T = K Q^T with the operands swapped; m and l come from the
+// forward, so a recomputed score is only ever put against them.
+// The ragged tail of T: rows are handled in 16-row warp tiles, a warp whose
+// rows all lie past T does no math but takes part in every barrier, and the
+// staged rows past T are zero-filled. A query row past T is given m = +inf
+// and 1/l = 0 (so p = 0 exactly), a key past T the code "past" (p = 0,
+// ds = 0): T 197 computes 208 x 208, and the last query tile of dk/dv holds
+// 5 rows. The epilogues round dQ, dK and dV once and write each warp's rows
+// through shared memory with 16-byte stores.
+//
+// The CUDA-core bodies run fp32: a row belongs to HD/32 neighbouring lanes,
+// each holding 32 of its dims of the block's own rows (k_j, v_j and the
+// accumulators of dk_j, dv_j; or q_t, do_t and dq_t) in registers, and the
+// other side's tiles (64 rows, 32 at HD 128) are staged in shared memory as
+// fp32; per row of a tile a lane takes its part of q.k and do.v, joins them
+// with its row's other lanes by shuffles and adds p*do_t and ds*q_t (or
+// ds*k_j) to its accumulators. All their arithmetic is fp32, in the order of
+// the fp32 forward, whose scores they recompute bit for bit.
 //
 // What bounds them on an H100. dk/dv does 8*B*H*T^2*HD FLOPs and dq
-// 6*B*H*T^2*HD against about 6 and 5 tensors of B*T*H*HD elements moved, so
-// with the tensor cores the bytes would bound both. These first kernels
-// compute on the CUDA cores (fp32 FMA), two FMAs per shared-memory word
-// read, so the FMA pipes and shared-memory bandwidth bound them. mma.sync
-// or wgmma on bf16 tiles and pipelined staging are later work.
+// 6*B*H*T^2*HD (10 and 8 with the two-term dS) against about 6 and 5
+// tensors of B*T*H*HD elements moved: at the towers' shapes (T 197, 256; HD
+// 64) about 50-150 FLOPs a byte in bf16, under the ~295 at which the bf16
+// tensor cores would bound them, so the bytes bound both. Each tile is read
+// by ldmatrix two ways, and a warp's chunk is a dependent chain (two
+// products, exp, two or three products) that the 4 warps of a block and
+// the blocks an SM holds must hide; wgmma with TMA staging is the next step.
+// The fp32 bodies compute on the FMA pipes, two FMAs per shared-memory word
+// read, far above their bound.
+
+#include <type_traits>
 
 #include "flash_attn_common.cuh"
 
@@ -60,13 +96,13 @@ namespace {
 
 using namespace fa;
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(Cfg<HD>::kThreads)
-flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                          const T* __restrict__ dout, const float* __restrict__ m,
+flash_attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                          const float* __restrict__ dout, const float* __restrict__ m,
                           const float* __restrict__ l, const float* __restrict__ di,
-                          T* __restrict__ dk, T* __restrict__ dv, int T_len, int H,
+                          float* __restrict__ dk, float* __restrict__ dv, int T_len, int H,
                           float sm_scale) {
   using C = Cfg<HD>;
   constexpr int kQ = C::kKeys;  // query rows a staged tile
@@ -148,13 +184,13 @@ flash_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(Cfg<HD>::kThreads)
-flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                         const T* __restrict__ dout, const float* __restrict__ m,
+flash_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                         const float* __restrict__ dout, const float* __restrict__ m,
                          const float* __restrict__ l, const float* __restrict__ di,
-                         T* __restrict__ dq, int T_len, int H, float sm_scale) {
+                         float* __restrict__ dq, int T_len, int H, float sm_scale) {
   using C = Cfg<HD>;
   __shared__ float4 k_tile[C::kKeys][C::kRowChunks];
   __shared__ float4 v_tile[C::kKeys][C::kRowChunks];
@@ -225,6 +261,349 @@ flash_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// The tensor-core bodies' geometry: 4 warps of 16 rows own a block's 64
+// rows; the other side is staged kBlockN rows a tile (64, 32 at HD 128).
+template <int HD>
+struct BwdCfg {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBlockM = 16 * kWarps;        // the block's own rows
+  static constexpr int kBlockN = HD <= 64 ? 64 : 32;  // rows a staged tile
+  static constexpr int kStride = TcTile<HD>::kStride;
+  static constexpr int kOwn = kBlockM * kStride;     // one tensor of the block's rows
+  static constexpr int kTile = kBlockN * kStride;    // one staged tile
+  // dk/dv: K and V (later dK and dV), two Q and two dO tiles, two tiles'
+  // m, 1/l and di; dq: Q and dO (later dQ), two K and two V tiles, two
+  // tiles' key codes
+  static constexpr int kSmemDkv = (2 * kOwn + 4 * kTile) * 2 + 2 * 3 * kBlockN * 4;
+  static constexpr int kSmemDq = (2 * kOwn + 4 * kTile) * 2 + 2 * kBlockN;
+  static_assert(kBlockN % 16 == 0 && kBlockN <= kThreads, "a tile is 16-row chunks");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(BwdCfg<HD>::kThreads)
+flash_attn_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                               const __nv_bfloat16* __restrict__ k,
+                               const __nv_bfloat16* __restrict__ v,
+                               const uint8_t* __restrict__ mask,
+                               const __nv_bfloat16* __restrict__ dout,
+                               const float* __restrict__ m, const float* __restrict__ l,
+                               const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int T_len, int H,
+                               float sm_scale) {
+  using C = BwdCfg<HD>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [kBlockM][kStride], later dK
+  bf16* v_s = k_s + C::kOwn;                  // [kBlockM][kStride], later dV
+  bf16* q_s = v_s + C::kOwn;                  // [2][kBlockN][kStride]
+  bf16* do_s = q_s + 2 * C::kTile;            // [2][kBlockN][kStride]
+  float* st_s = reinterpret_cast<float*>(do_s + 2 * C::kTile);  // [2][m, 1/l, di][kBlockN]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, quad = lane % 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int row0 = blockIdx.x * C::kBlockM;  // the block's first key row
+  const int wrow0 = row0 + 16 * warp;        // this warp's first key row
+  const bool active = wrow0 < T_len;
+  const int64_t row_stride = (int64_t)H * HD;
+  const int64_t head0 = (int64_t)b * T_len * row_stride + (int64_t)h * HD;
+  const int64_t stat0 = ((int64_t)b * H + h) * T_len;
+  const int n_tiles = (T_len + C::kBlockN - 1) / C::kBlockN;
+
+  auto stage = [&](bf16* dst, const bf16* src, int r0, int rows) {
+    stage_rows<HD, C::kThreads>(dst, src + head0, row_stride, r0, rows, T_len, tid);
+  };
+  // m, 1/l and di of query row t; a row past T gets p = 0 exactly
+  auto row_stats = [&](int t, float (&st)[3]) {
+    const bool in = t < T_len;
+    st[0] = in ? m[stat0 + t] : INFINITY;
+    st[1] = in ? 1.f / l[stat0 + t] : 0.f;  // l >= 1
+    st[2] = in ? di[stat0 + t] : 0.f;
+  };
+
+  stage(k_s, k, row0, C::kBlockM);
+  stage(v_s, v, row0, C::kBlockM);
+  stage(q_s, q, 0, C::kBlockN);
+  stage(do_s, dout, 0, C::kBlockN);
+  cp_async_commit();
+  if (tid < C::kBlockN) {
+    float st[3];
+    row_stats(tid, st);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) st_s[i * C::kBlockN + tid] = st[i];
+  }
+
+  // this lane's key rows g and g + 8: does a query attend them?
+  bool attend[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) attend[r] = key_code(mask, b, wrow0 + g + 8 * r, T_len) == kKeyAttend;
+
+  unsigned kf[HD / 16][4], vf[HD / 16][4];  // this warp's 16 rows of K and V
+  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int buf = n & 1;
+    float next[3];
+    if (n + 1 < n_tiles) {  // tile n+1 into the other buffer, consumed at n-1
+      const int n1 = (n + 1) * C::kBlockN;
+      stage(q_s + (buf ^ 1) * C::kTile, q, n1, C::kBlockN);
+      stage(do_s + (buf ^ 1) * C::kTile, dout, n1, C::kBlockN);
+      cp_async_commit();
+      if (tid < C::kBlockN) row_stats(n1 + tid, next);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile n (and at n = 0 the K and V rows) is there for every thread
+
+    if (active) {
+      if (n == 0) {
+        const bf16* kw = a_addr(k_s + 16 * warp * C::kStride, C::kStride, lane);
+        const bf16* vw = a_addr(v_s + 16 * warp * C::kStride, C::kStride, lane);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          ldmatrix_x4(kf[kk], kw + 16 * kk);
+          ldmatrix_x4(vf[kk], vw + 16 * kk);
+        }
+      }
+      const int nq = min(C::kBlockN, T_len - n * C::kBlockN);
+      const int chunks = (nq + 15) / 16;  // 16-query chunks that hold a row before T
+      const bf16* qs = q_s + buf * C::kTile;
+      const bf16* dos = do_s + buf * C::kTile;
+      const float* st = st_s + buf * 3 * C::kBlockN;
+
+      for (int c = 0; c < chunks; ++c) {
+        // S^T = K Q^T and dP^T = V dO^T: 16 keys x 16 queries, two n8 tiles each
+        float s[2][4], dp[2][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+        const bf16* qr = b_addr(qs + 16 * c * C::kStride, C::kStride, lane);
+        const bf16* dr = b_addr(dos + 16 * c * C::kStride, C::kStride, lane);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          unsigned qb[4], db[4];
+          ldmatrix_x4(qb, qr + 16 * kk);
+          mma_bf16_16816(s[0], kf[kk], qb[0], qb[1]);
+          mma_bf16_16816(s[1], kf[kk], qb[2], qb[3]);
+          ldmatrix_x4(db, dr + 16 * kk);
+          mma_bf16_16816(dp[0], vf[kk], db[0], db[1]);
+          mma_bf16_16816(dp[1], vf[kk], db[2], db[3]);
+        }
+        // P^T and dS^T on the accumulators: element e of tile t is key row
+        // g + 8 (e / 2), query column 16 c + 8 t + 2 quad + e % 2
+        unsigned pa[4], dsh[4], dsl[4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int col = 16 * c + 8 * t + 2 * quad;
+          const float2 mt = *reinterpret_cast<const float2*>(st + col);
+          const float2 ilt = *reinterpret_cast<const float2*>(st + C::kBlockN + col);
+          const float2 dit = *reinterpret_cast<const float2*>(st + 2 * C::kBlockN + col);
+          float p[4], ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool att = attend[e / 2];
+            const float sc = att ? s[t][e] * sm_scale : kMasked;
+            p[e] = __expf(sc - (e & 1 ? mt.y : mt.x)) * (e & 1 ? ilt.y : ilt.x);
+            ds[e] = att ? p[e] * (dp[t][e] - (e & 1 ? dit.y : dit.x)) * sm_scale : 0.f;
+          }
+          pa[2 * t] = pack_bf16(p[0], p[1]);      // key row g
+          pa[2 * t + 1] = pack_bf16(p[2], p[3]);  // key row g + 8
+          split_bf16(ds[0], ds[1], dsh[2 * t], dsl[2 * t]);
+          split_bf16(ds[2], ds[3], dsh[2 * t + 1], dsl[2 * t + 1]);
+        }
+        // dV += P^T dO and dK += dS^T Q, dO and Q by ldmatrix.trans
+        const bf16* dtr = bt_addr(dos + 16 * c * C::kStride, C::kStride, lane);
+        const bf16* qtr = bt_addr(qs + 16 * c * C::kStride, C::kStride, lane);
+#pragma unroll
+        for (int d2 = 0; d2 < HD / 16; ++d2) {
+          unsigned db[4], qb[4];
+          ldmatrix_x4_trans(db, dtr + 16 * d2);
+          mma_bf16_16816(dv_acc[2 * d2], pa, db[0], db[1]);
+          mma_bf16_16816(dv_acc[2 * d2 + 1], pa, db[2], db[3]);
+          ldmatrix_x4_trans(qb, qtr + 16 * d2);
+          mma_bf16_16816(dk_acc[2 * d2], dsh, qb[0], qb[1]);
+          mma_bf16_16816(dk_acc[2 * d2 + 1], dsh, qb[2], qb[3]);
+          mma_bf16_16816(dk_acc[2 * d2], dsl, qb[0], qb[1]);
+          mma_bf16_16816(dk_acc[2 * d2 + 1], dsl, qb[2], qb[3]);
+        }
+      }
+    }
+
+    if (tid < C::kBlockN && n + 1 < n_tiles) {
+      float* stn = st_s + (buf ^ 1) * 3 * C::kBlockN;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) stn[i * C::kBlockN + tid] = next[i];
+    }
+    __syncthreads();  // tile n consumed before iteration n+1 refills its buffer
+  }
+
+  if (!active) return;
+  // each warp rewrites only its own rows of K and V, read at n = 0
+  const float one[2] = {1.f, 1.f};
+  store_warp_tile<HD>(k_s + 16 * warp * C::kStride, dk_acc, one, dk + head0, row_stride, wrow0,
+                      T_len, lane);
+  store_warp_tile<HD>(v_s + 16 * warp * C::kStride, dv_acc, one, dv + head0, row_stride, wrow0,
+                      T_len, lane);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(BwdCfg<HD>::kThreads)
+flash_attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                              const __nv_bfloat16* __restrict__ k,
+                              const __nv_bfloat16* __restrict__ v,
+                              const uint8_t* __restrict__ mask,
+                              const __nv_bfloat16* __restrict__ dout,
+                              const float* __restrict__ m, const float* __restrict__ l,
+                              const float* __restrict__ di, __nv_bfloat16* __restrict__ dq,
+                              int T_len, int H, float sm_scale) {
+  using C = BwdCfg<HD>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kBlockM][kStride], later dQ
+  bf16* do_s = q_s + C::kOwn;                 // [kBlockM][kStride]
+  bf16* k_s = do_s + C::kOwn;                 // [2][kBlockN][kStride]
+  bf16* v_s = k_s + 2 * C::kTile;             // [2][kBlockN][kStride]
+  uint8_t* code_s = reinterpret_cast<uint8_t*>(v_s + 2 * C::kTile);  // [2][kBlockN]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, quad = lane % 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int row0 = blockIdx.x * C::kBlockM;  // the block's first query row
+  const int wrow0 = row0 + 16 * warp;        // this warp's first query row
+  const bool active = wrow0 < T_len;
+  const int64_t row_stride = (int64_t)H * HD;
+  const int64_t head0 = (int64_t)b * T_len * row_stride + (int64_t)h * HD;
+  const int64_t stat0 = ((int64_t)b * H + h) * T_len;
+  const int n_tiles = (T_len + C::kBlockN - 1) / C::kBlockN;
+
+  auto stage = [&](bf16* dst, const bf16* src, int r0, int rows) {
+    stage_rows<HD, C::kThreads>(dst, src + head0, row_stride, r0, rows, T_len, tid);
+  };
+
+  stage(q_s, q, row0, C::kBlockM);
+  stage(do_s, dout, row0, C::kBlockM);
+  stage(k_s, k, 0, C::kBlockN);
+  stage(v_s, v, 0, C::kBlockN);
+  cp_async_commit();
+  if (tid < C::kBlockN) code_s[tid] = key_code(mask, b, tid, T_len);
+
+  // m, 1/l and di of this lane's query rows g and g + 8; a row past T gets
+  // p = 0 exactly and writes nothing
+  float m_t[2], il_t[2], di_t[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = wrow0 + g + 8 * r;
+    const bool in = t < T_len;
+    m_t[r] = in ? m[stat0 + t] : INFINITY;
+    il_t[r] = in ? 1.f / l[stat0 + t] : 0.f;  // l >= 1
+    di_t[r] = in ? di[stat0 + t] : 0.f;
+  }
+
+  unsigned qf[HD / 16][4], dof[HD / 16][4];  // this warp's 16 rows of Q and dO
+  float acc[HD / 8][4];                      // dQ, fp32
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int buf = n & 1;
+    uint8_t next_code = kKeyPast;
+    if (n + 1 < n_tiles) {  // tile n+1 into the other buffer, consumed at n-1
+      const int n1 = (n + 1) * C::kBlockN;
+      stage(k_s + (buf ^ 1) * C::kTile, k, n1, C::kBlockN);
+      stage(v_s + (buf ^ 1) * C::kTile, v, n1, C::kBlockN);
+      cp_async_commit();
+      if (tid < C::kBlockN) next_code = key_code(mask, b, n1 + tid, T_len);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile n (and at n = 0 the Q and dO rows) is there for every thread
+
+    if (active) {
+      if (n == 0) {
+        const bf16* qw = a_addr(q_s + 16 * warp * C::kStride, C::kStride, lane);
+        const bf16* dw = a_addr(do_s + 16 * warp * C::kStride, C::kStride, lane);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          ldmatrix_x4(qf[kk], qw + 16 * kk);
+          ldmatrix_x4(dof[kk], dw + 16 * kk);
+        }
+      }
+      const int nk = min(C::kBlockN, T_len - n * C::kBlockN);
+      const int chunks = (nk + 15) / 16;  // 16-key chunks that hold a key before T
+      const bf16* ks = k_s + buf * C::kTile;
+      const bf16* vs = v_s + buf * C::kTile;
+      const uint8_t* code = code_s + buf * C::kBlockN;
+
+      for (int c = 0; c < chunks; ++c) {
+        // S = Q K^T (as the forward takes it) and dP = dO V^T: 16 x 16 each
+        float s[2][4], dp[2][4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+        const bf16* kr = b_addr(ks + 16 * c * C::kStride, C::kStride, lane);
+        const bf16* vr = b_addr(vs + 16 * c * C::kStride, C::kStride, lane);
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          unsigned kb[4], vb[4];
+          ldmatrix_x4(kb, kr + 16 * kk);
+          mma_bf16_16816(s[0], qf[kk], kb[0], kb[1]);
+          mma_bf16_16816(s[1], qf[kk], kb[2], kb[3]);
+          ldmatrix_x4(vb, vr + 16 * kk);
+          mma_bf16_16816(dp[0], dof[kk], vb[0], vb[1]);
+          mma_bf16_16816(dp[1], dof[kk], vb[2], vb[3]);
+        }
+        // dS on the accumulators: element e of tile t is query row
+        // g + 8 (e / 2), key column 16 c + 8 t + 2 quad + e % 2
+        unsigned dsh[4], dsl[4];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int j = 16 * c + 8 * t + 2 * quad;
+          const unsigned two = *reinterpret_cast<const uint16_t*>(code + j);
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const unsigned cd = (two >> (8 * (e & 1))) & 0xffu;
+            const int r = e / 2;
+            const float p = __expf(s[t][e] * sm_scale - m_t[r]) * il_t[r];
+            ds[e] = cd == kKeyAttend ? p * (dp[t][e] - di_t[r]) * sm_scale : 0.f;
+          }
+          split_bf16(ds[0], ds[1], dsh[2 * t], dsl[2 * t]);          // row g
+          split_bf16(ds[2], ds[3], dsh[2 * t + 1], dsl[2 * t + 1]);  // row g + 8
+        }
+        // dQ += dS K, K by ldmatrix.trans
+        const bf16* ktr = bt_addr(ks + 16 * c * C::kStride, C::kStride, lane);
+#pragma unroll
+        for (int d2 = 0; d2 < HD / 16; ++d2) {
+          unsigned kb[4];
+          ldmatrix_x4_trans(kb, ktr + 16 * d2);
+          mma_bf16_16816(acc[2 * d2], dsh, kb[0], kb[1]);
+          mma_bf16_16816(acc[2 * d2 + 1], dsh, kb[2], kb[3]);
+          mma_bf16_16816(acc[2 * d2], dsl, kb[0], kb[1]);
+          mma_bf16_16816(acc[2 * d2 + 1], dsl, kb[2], kb[3]);
+        }
+      }
+    }
+
+    if (tid < C::kBlockN && n + 1 < n_tiles) code_s[(buf ^ 1) * C::kBlockN + tid] = next_code;
+    __syncthreads();  // tile n consumed before iteration n+1 refills its buffer
+  }
+
+  if (!active) return;
+  // each warp rewrites only its own rows of Q, read at n = 0
+  const float one[2] = {1.f, 1.f};
+  store_warp_tile<HD>(q_s + 16 * warp * C::kStride, acc, one, dq + head0, row_stride, wrow0,
+                      T_len, lane);
+}
+
 // The arguments both kernels share, as the C entry points take them.
 struct Args {
   const void *q, *k, *v, *mask, *dout, *m, *l, *di;
@@ -233,26 +612,63 @@ struct Args {
   cudaStream_t stream;
 };
 
+// Above 48 KB of dynamic shared memory only after opting in.
+template <typename K>
+cudaError_t allow_smem(K kernel, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// bf16 on the tensor cores, fp32 on the CUDA cores
 template <typename T, int HD>
 cudaError_t launch_dkv_hd(const Args& a, void* dk, void* dv) {
-  const dim3 grid((unsigned)((a.T_len + kRows - 1) / kRows), (unsigned)a.H, (unsigned)a.batch);
-  flash_attn_bwd_dkv_kernel<T, HD><<<grid, Cfg<HD>::kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.m), static_cast<const float*>(a.l),
-      static_cast<const float*>(a.di), static_cast<T*>(dk), static_cast<T*>(dv), a.T_len, a.H,
-      a.sm_scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using C = BwdCfg<HD>;
+    const cudaError_t err = allow_smem(flash_attn_bwd_dkv_bf16_kernel<HD>, C::kSmemDkv);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((unsigned)((a.T_len + C::kBlockM - 1) / C::kBlockM), (unsigned)a.H,
+                    (unsigned)a.batch);
+    flash_attn_bwd_dkv_bf16_kernel<HD><<<grid, C::kThreads, C::kSmemDkv, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.m), static_cast<const float*>(a.l),
+        static_cast<const float*>(a.di), static_cast<T*>(dk), static_cast<T*>(dv), a.T_len,
+        a.H, a.sm_scale);
+  } else {
+    const dim3 grid((unsigned)((a.T_len + kRows - 1) / kRows), (unsigned)a.H,
+                    (unsigned)a.batch);
+    flash_attn_bwd_dkv_kernel<HD><<<grid, Cfg<HD>::kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.m), static_cast<const float*>(a.l),
+        static_cast<const float*>(a.di), static_cast<T*>(dk), static_cast<T*>(dv), a.T_len,
+        a.H, a.sm_scale);
+  }
   return cudaGetLastError();
 }
 
 template <typename T, int HD>
 cudaError_t launch_dq_hd(const Args& a, void* dq) {
-  const dim3 grid((unsigned)((a.T_len + kRows - 1) / kRows), (unsigned)a.H, (unsigned)a.batch);
-  flash_attn_bwd_dq_kernel<T, HD><<<grid, Cfg<HD>::kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.m), static_cast<const float*>(a.l),
-      static_cast<const float*>(a.di), static_cast<T*>(dq), a.T_len, a.H, a.sm_scale);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using C = BwdCfg<HD>;
+    const cudaError_t err = allow_smem(flash_attn_bwd_dq_bf16_kernel<HD>, C::kSmemDq);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((unsigned)((a.T_len + C::kBlockM - 1) / C::kBlockM), (unsigned)a.H,
+                    (unsigned)a.batch);
+    flash_attn_bwd_dq_bf16_kernel<HD><<<grid, C::kThreads, C::kSmemDq, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.m), static_cast<const float*>(a.l),
+        static_cast<const float*>(a.di), static_cast<T*>(dq), a.T_len, a.H, a.sm_scale);
+  } else {
+    const dim3 grid((unsigned)((a.T_len + kRows - 1) / kRows), (unsigned)a.H,
+                    (unsigned)a.batch);
+    flash_attn_bwd_dq_kernel<HD><<<grid, Cfg<HD>::kThreads, 0, a.stream>>>(
+        static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+        static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
+        static_cast<const float*>(a.m), static_cast<const float*>(a.l),
+        static_cast<const float*>(a.di), static_cast<T*>(dq), a.T_len, a.H, a.sm_scale);
+  }
   return cudaGetLastError();
 }
 
@@ -325,4 +741,15 @@ extern "C" int flash_attn_bwd_dq_bf16(const void* q, const void* k, const void* 
   const Args a{q, k, v, mask, dout, m, l, di, batch, T_len, H, sm_scale,
                static_cast<cudaStream_t>(stream)};
   return (int)launch_dq<__nv_bfloat16>(a, HD, dq);
+}
+
+// Dynamic shared memory a block of a tensor-core body takes at head dim HD
+// (kind 0: dk/dv, 1: dq), or -1.
+extern "C" int flash_attn_bwd_bf16_smem_bytes(int kind, int HD) {
+  switch (HD) {
+    case 32: return kind == 0 ? BwdCfg<32>::kSmemDkv : BwdCfg<32>::kSmemDq;
+    case 64: return kind == 0 ? BwdCfg<64>::kSmemDkv : BwdCfg<64>::kSmemDq;
+    case 128: return kind == 0 ? BwdCfg<128>::kSmemDkv : BwdCfg<128>::kSmemDq;
+    default: return -1;
+  }
 }

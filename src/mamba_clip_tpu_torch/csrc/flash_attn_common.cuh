@@ -1,20 +1,22 @@
-// Shared by flash_attn_fwd.cu and flash_attn_bwd.cu: the tile geometry and
-// the 16-byte load, store and FMA helpers of the flash-attention kernels.
+// Shared by flash_attn_fwd.cu and flash_attn_bwd.cu: the tile geometry,
+// the helpers of the fp32 CUDA-core bodies and the tensor-core helpers of the
+// bf16 bodies.
 //
-// A row (a query row in the forward and the dq kernel, a key row in the
-// dk/dv kernel) belongs to HD/32 neighbouring lanes, each holding 32 of its
-// dims in registers as 8 float4 chunks; lane g of a row owns the chunks g,
+// The fp32 bodies (the forward and the two backward kernels): a row (a query
+// row in the forward and the dq kernel, a key row in the dk/dv kernel)
+// belongs to HD/32 neighbouring lanes, each holding 32 of its dims in
+// registers as 8 float4 chunks; lane g of a row owns the chunks g,
 // g + HD/32, ... of the head dim, so the lanes of a warp read neighbouring
 // shared-memory banks and every row of the warp the same words (broadcast).
 // A dot product over the head dim is each lane's partial sum joined by
-// shuffles (reduce_row). What training runs, the forward with residuals and
-// the two backward kernels, takes the products in one order, so the
-// backward recomputes the forward's scores bit for bit, in fp32 and in
-// bf16. The bf16 forward without residuals (serving) sums its scores on the
-// tensor cores, in the hardware's order; nothing recomputes them.
+// shuffles (reduce_row). The three take the products in one order, so the
+// fp32 backward recomputes the fp32 forward's scores bit for bit.
 //
-// The tensor-core helpers below (cp.async, ldmatrix, mma.sync) serve that
-// bf16 forward; nothing here that the backward uses changed with them.
+// The bf16 bodies run every product on the tensor cores (mma.sync m16n8k16,
+// bf16 in, fp32 accumulators) over tiles staged in shared memory by
+// cp.async; a warp owns 16 rows, and the fragments are read by ldmatrix.
+// The helpers below stage rows, give each lane its ldmatrix address for the
+// three ways an operand is read, and write a warp's accumulator tile out.
 
 #pragma once
 
@@ -43,24 +45,8 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
-  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
-  uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned*>(&a);
-  raw.y = *reinterpret_cast<const unsigned*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
@@ -83,7 +69,7 @@ __device__ __forceinline__ float reduce_row(float part) {
   return part;
 }
 
-// ---- tensor-core helpers (bf16 forward) ----------------------------------
+// ---- tensor-core helpers (the bf16 bodies) -------------------------------
 
 // 16 bytes global -> shared without the registers; src_bytes 0 reads nothing
 // and fills the 16 bytes with zeros.
@@ -141,6 +127,101 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const unsigned (&a
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Two floats as two bf16 terms each: hi = bf16(x), lo = bf16(x - hi), so that
+// hi + lo carries x to about 2^-16 of its size. Packed as pack_bf16 packs.
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = pack_bf16(x0 - hf.x, x1 - hf.y);
+}
+
+// A key's code in a staged tile: attend, masked (score -1e9), or past T
+// (excluded: p = 0, no part of l, ds = 0).
+constexpr uint8_t kKeyMasked = 0, kKeyAttend = 1, kKeyPast = 2;
+
+__device__ __forceinline__ uint8_t key_code(const uint8_t* mask, int b, int key, int T_len) {
+  if (key >= T_len) return kKeyPast;
+  return mask == nullptr || mask[(int64_t)b * T_len + key] ? kKeyAttend : kKeyMasked;
+}
+
+// The bf16 bodies' tiles: a row of HD bf16 staged with one 16-byte pad, so
+// the 8 rows an ldmatrix reads start on 8 different groups of 4 banks (a
+// 128-byte row, HD 64, would put them all on the same banks).
+template <int HD>
+struct TcTile {
+  static constexpr int kRowChunks = HD / 8;  // 16-byte chunks of a bf16 row
+  static constexpr int kStride = HD + 8;     // elements a staged row
+};
+
+// Rows r0 .. r0 + rows - 1 of one head into dst by 16-byte cp.async, spread
+// over THREADS threads; src points at the head's row 0 and rows are
+// row_stride elements apart. Rows past T read nothing and are zero-filled,
+// so no stale NaN reaches a product through 0 * NaN.
+template <int HD, int THREADS>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           int64_t row_stride, int r0, int rows, int T_len,
+                                           int tid) {
+  using L = TcTile<HD>;
+  for (int idx = tid; idx < rows * L::kRowChunks; idx += THREADS) {
+    const int r = idx / L::kRowChunks, c = idx % L::kRowChunks;
+    const bool in = r0 + r < T_len;
+    cp_async16(dst + r * L::kStride + 8 * c, src + (int64_t)(in ? r0 + r : 0) * row_stride + 8 * c,
+               in ? 16 : 0);
+  }
+}
+
+// Each lane's ldmatrix_x4 address in a staged tile (stride elements a row)
+// whose rows 0..15 and columns 0..15 from `tile` are read:
+// - a_addr: as an A fragment of the 16 rows (rows = M, columns = K);
+// - b_addr: as the B fragments of two n8 tiles, the rows being the n index
+//   (rows 0-7 give r[0], r[1], rows 8-15 r[2], r[3]; columns = K);
+// - bt_addr: with ldmatrix.trans, as the B fragments of two n8 tiles whose
+//   n index is the column (columns 0-7 give r[0], r[1], 8-15 r[2], r[3]; the
+//   rows are K).
+__device__ __forceinline__ const __nv_bfloat16* a_addr(const __nv_bfloat16* tile, int stride,
+                                                       int lane) {
+  return tile + (lane % 16) * stride + 8 * (lane / 16);
+}
+__device__ __forceinline__ const __nv_bfloat16* b_addr(const __nv_bfloat16* tile, int stride,
+                                                       int lane) {
+  return tile + (8 * (lane / 16) + lane % 8) * stride + 8 * ((lane / 8) % 2);
+}
+__device__ __forceinline__ const __nv_bfloat16* bt_addr(const __nv_bfloat16* tile, int stride,
+                                                        int lane) {
+  return tile + (8 * ((lane / 8) % 2) + lane % 8) * stride + 8 * (lane / 16);
+}
+
+// A warp's 16 x HD fp32 accumulator tile (rows g and g + 8 scaled by
+// scale[0] and scale[1]) rounded to bf16 once into ws (16 staged rows of
+// this warp, nothing else reads them), then written to rows wrow0.. of dst
+// (the head's row 0, row_stride apart) with 16-byte stores, rows past T
+// left out.
+template <int HD>
+__device__ __forceinline__ void store_warp_tile(__nv_bfloat16* ws, const float (&acc)[HD / 8][4],
+                                                const float (&scale)[2], __nv_bfloat16* dst,
+                                                int64_t row_stride, int wrow0, int T_len,
+                                                int lane) {
+  using L = TcTile<HD>;
+  const int g = lane / 4, quad = lane % 4;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    const int col = 8 * d + 2 * quad;
+    *reinterpret_cast<unsigned*>(ws + g * L::kStride + col) =
+        pack_bf16(acc[d][0] * scale[0], acc[d][1] * scale[0]);
+    *reinterpret_cast<unsigned*>(ws + (g + 8) * L::kStride + col) =
+        pack_bf16(acc[d][2] * scale[1], acc[d][3] * scale[1]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int idx = lane; idx < 16 * L::kRowChunks; idx += 32) {
+    const int r = idx / L::kRowChunks, c = idx % L::kRowChunks;
+    if (wrow0 + r < T_len)
+      *reinterpret_cast<uint4*>(dst + (int64_t)(wrow0 + r) * row_stride + 8 * c) =
+          *reinterpret_cast<const uint4*>(ws + r * L::kStride + 8 * c);
+  }
 }
 
 }  // namespace fa

@@ -24,35 +24,26 @@
 //
 // Two bodies share that contract.
 //
-// The CUDA-core body (flash_attn_fwd_kernel) runs fp32, and bf16 with the
-// residuals, that is training. One block per (tile of 64 query rows, head,
-// batch). A query row belongs to HD/32 neighbouring lanes, each holding 32
-// of its dims of q and of the fp32 accumulator in registers; lane g of a row
-// owns the 16-byte chunks g, g + HD/32, ... of the head dim, so the lanes of
-// a warp read neighbouring banks and every row of the warp the same words
-// (broadcast). K and V are staged in shared memory as fp32, one tile of keys
-// at a time (64 keys, 32 at HD 128); each row keeps its running max, sum and
+// The CUDA-core body (flash_attn_fwd_kernel) runs fp32, with or without the
+// residuals. One block per (tile of 64 query rows, head, batch). A query row
+// belongs to HD/32 neighbouring lanes, each holding 32 of its dims of q and
+// of the fp32 accumulator in registers; lane g of a row owns the 16-byte
+// chunks g, g + HD/32, ... of the head dim, so the lanes of a warp read
+// neighbouring banks and every row of the warp the same words (broadcast).
+// K and V are staged in shared memory as fp32, one tile of keys at a time
+// (64 keys, 32 at HD 128); each row keeps its running max, sum and
 // accumulator in fp32 (the online softmax), rescaled once per tile. The
 // scores are fp32 products of the inputs summed in fp32, the partial sums
-// of a row's lanes joined by shuffles, in the order the backward kernels
-// take them, so the backward recomputes these scores bit for bit. TF32
+// of a row's lanes joined by shuffles, in the order the fp32 backward
+// kernels take them, so they recompute these scores bit for bit. TF32
 // would lose that and the fp32 gate of 5e-4.
-// Training stays on it in bf16 too, because chip_smoke.py's batch-8
-// contrastive steps (phase 10: loss and grad norm within 2^-7 of the plain
-// interiors') held only with its bits. At random init the grad norm is
-// carried by dq, a small remainder of terms that cancel, which takes any
-// rounding of o (through di = rowsum(o * do)) at its own size: o from the
-// tensor-core body, and this body's own o moved by 1e-6 before its
-// rounding, each left the plain grad norm by more than 2^-7 (PERF.md has
-// the numbers). The training forward moves to the tensor cores with the
-// backward pair.
 //
-// The tensor-core body (flash_attn_fwd_bf16_kernel) runs bf16 without the
-// residuals: image_embed, text_embed and the no-grad forward of evaluation
-// and of stage 2. After FlashAttention-2: one block of kWarps warps per
-// (tile of 16 * kWarps query rows, head, batch); a warp owns 16 query rows.
-// Its Q fragment is loaded once (ldmatrix) and stays in registers for the
-// whole key loop. Per tile of kBlockN keys:
+// The tensor-core body (flash_attn_fwd_bf16_kernel) runs bf16, with or
+// without the residuals: training, image_embed, text_embed and the no-grad
+// forward of evaluation and of stage 2. After FlashAttention-2: one block of
+// kWarps warps per (tile of 16 * kWarps query rows, head, batch); a warp
+// owns 16 query rows. Its Q fragment is loaded once (ldmatrix) and stays in
+// registers for the whole key loop. Per tile of kBlockN keys:
 // - S = Q . K^T on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
 //   accumulators: 16 x kBlockN a warp), K's fragments by ldmatrix.x4;
 // - the online softmax on the accumulators: the scale, -1e9 for a masked
@@ -62,14 +53,14 @@
 //   making one m16k16 A fragment, and O += P . V on the tensor cores with
 //   V's fragments by ldmatrix.x4.trans; O stays fp32 in registers.
 // l sums the fp32 p. The plain interior rounds the normalised p instead;
-// the 2e-2 bf16 gate covers either.
+// the 2e-2 bf16 gate covers either. With the residuals the epilogue also
+// writes each row's m and l (the quad's sum), the only difference between
+// training's launch and serving's.
 // Staging: K and V go to shared memory as bf16 with 16-byte cp.async, two
 // buffers deep: tile n+1 is in flight while tile n is consumed. A row of a
-// staged tile is padded by 16 bytes, so the 8 rows an ldmatrix reads start
-// on 8 different groups of 4 banks (a 128-byte row, HD 64, would put them
-// all on the same banks). A tile's mask bytes are read with its copy and
-// stored after the current tile's math, as one code a key: attend, masked,
-// or past T.
+// staged tile is padded by 16 bytes (TcTile). A tile's mask bytes are read
+// with its copy and stored after the current tile's math, as one code a
+// key: attend, masked, or past T.
 // The ragged tail: rows are handled in 16-row warp tiles, and a warp whose
 // rows all lie past T does no math but takes part in every barrier. Keys
 // are walked in 16-key chunks, the mma's depth, so T = 197 computes 208 x
@@ -91,13 +82,14 @@
 // What bounds it on an H100. Per launch the work is 4*B*H*T^2*HD FLOPs
 // against 4*B*T*H*HD elements moved; at the towers' shapes (T 197 or 256,
 // HD 64) that is about 100 FLOPs a byte, under the ~295 at which the bf16
-// tensor cores would bound it, so the bytes bound it. The CUDA-core body
-// computes on the FMA pipes, two FMAs per shared-memory word read, far
-// above the bytes bound. The tensor-core body halves the staged bytes and
-// moves the products to the tensor cores; at 128 registers a thread an SM
-// holds 4 blocks, 16 warps, and each warp's tile is a dependent chain (S,
-// the shuffles, exp, P . V) that 4 warps a scheduler only partly hide, so
-// it runs at about 30% of the bytes bound (PERF.md). wgmma with TMA staging,
+// tensor cores would bound it, so the bytes bound it. In fp32 the FMA rate
+// bounds it (T/4, 49-64 FLOPs a byte, above the ~20 at which it would), and
+// the CUDA-core body computes on the FMA pipes, two FMAs per shared-memory
+// word read. The tensor-core body halves the staged bytes and moves the
+// products to the tensor cores; at 128 registers a thread an SM holds 4
+// blocks, 16 warps, and each warp's tile is a dependent chain (S, the
+// shuffles, exp, P . V) that 4 warps a scheduler only partly hide, so it
+// runs at about 30% of the bytes bound (PERF.md). wgmma with TMA staging,
 // which runs the products asynchronously, is the next step.
 
 #include <type_traits>
@@ -108,12 +100,12 @@ namespace {
 
 using namespace fa;
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(Cfg<HD>::kThreads)
-flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const uint8_t* __restrict__ mask,
-                      T* __restrict__ o, float* __restrict__ m_out, float* __restrict__ l_out,
-                      int T_len, int H, float sm_scale) {
+flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                      float* __restrict__ o, float* __restrict__ m_out,
+                      float* __restrict__ l_out, int T_len, int H, float sm_scale) {
   using C = Cfg<HD>;
   __shared__ float4 k_tile[C::kKeys][C::kRowChunks];
   __shared__ float4 v_tile[C::kKeys][C::kRowChunks];
@@ -214,17 +206,12 @@ struct Bf16Cfg {
   static constexpr int kBlockM = 16 * kWarps;                         // query rows a block
   static constexpr int kBlockN = HD <= 64 ? 64 : 32;                 // keys a tile
   static constexpr int kMinBlocks = HD <= 64 ? 4 : 1;                // blocks an SM
-  static constexpr int kRowChunks = HD / 8;   // 16-byte chunks of a bf16 row
-  static constexpr int kStride = HD + 8;      // a staged row in bf16: one 16-byte pad
+  static constexpr int kStride = TcTile<HD>::kStride;
   static constexpr int kTile = kBlockN * kStride;
   // Q (later each warp's O), two K and two V tiles, two tiles' key codes
   static constexpr int kSmemBytes = (kBlockM + 4 * kBlockN) * kStride * 2 + 2 * kBlockN;
   static_assert(kBlockN % 16 == 0 && kBlockN <= kThreads, "a key tile is 16-key chunks");
 };
-
-// A key's code in the staged tile: attend, masked (score -1e9), or past T
-// (excluded: p = 0, no part of l).
-constexpr uint8_t kKeyMasked = 0, kKeyAttend = 1, kKeyPast = 2;
 
 template <int HD>
 __global__ void __launch_bounds__(Bf16Cfg<HD>::kThreads, Bf16Cfg<HD>::kMinBlocks)
@@ -232,7 +219,8 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
-                           int T_len, int H, float sm_scale) {
+                           float* __restrict__ m_out, float* __restrict__ l_out, int T_len,
+                           int H, float sm_scale) {
   using C = Bf16Cfg<HD>;
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -252,25 +240,15 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int64_t head0 = (int64_t)b * T_len * row_stride + (int64_t)h * HD;
   const int n_tiles = (T_len + C::kBlockN - 1) / C::kBlockN;
 
-  // rows r0 .. r0 + rows - 1 of src into dst; rows past T are zero-filled
   auto stage = [&](bf16* dst, const bf16* src, int r0, int rows) {
-    for (int idx = tid; idx < rows * C::kRowChunks; idx += C::kThreads) {
-      const int r = idx / C::kRowChunks, c = idx % C::kRowChunks;
-      const bool in = r0 + r < T_len;
-      cp_async16(dst + r * C::kStride + 8 * c,
-                 src + head0 + (int64_t)(in ? r0 + r : 0) * row_stride + 8 * c, in ? 16 : 0);
-    }
-  };
-  auto key_code = [&](int key) -> uint8_t {
-    if (key >= T_len) return kKeyPast;
-    return mask == nullptr || mask[(int64_t)b * T_len + key] ? kKeyAttend : kKeyMasked;
+    stage_rows<HD, C::kThreads>(dst, src + head0, row_stride, r0, rows, T_len, tid);
   };
 
   stage(q_s, q, row0, C::kBlockM);
   stage(k_s, k, 0, C::kBlockN);
   stage(v_s, v, 0, C::kBlockN);
   cp_async_commit();
-  if (tid < C::kBlockN) code_s[tid] = key_code(tid);
+  if (tid < C::kBlockN) code_s[tid] = key_code(mask, b, tid, T_len);
 
   unsigned qf[HD / 16][4];          // this warp's 16 rows of q, A fragments
   float acc[HD / 8][4];             // O, 16 x HD a warp, fp32
@@ -287,7 +265,7 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       stage(k_s + (buf ^ 1) * C::kTile, k, n1, C::kBlockN);
       stage(v_s + (buf ^ 1) * C::kTile, v, n1, C::kBlockN);
       cp_async_commit();
-      if (tid < C::kBlockN) next_code = key_code(n1 + tid);
+      if (tid < C::kBlockN) next_code = key_code(mask, b, n1 + tid, T_len);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -296,7 +274,7 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     if (active) {
       if (n == 0) {
-        const bf16* qw = q_s + (16 * warp + lane % 16) * C::kStride + 8 * (lane / 16);
+        const bf16* qw = a_addr(q_s + 16 * warp * C::kStride, C::kStride, lane);
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(qf[kk], qw + 16 * kk);
       }
@@ -313,8 +291,7 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[2 * c][e] = s[2 * c + 1][e] = 0.f;
         if (c < chunks) {
-          const bf16* kr = ks + (16 * c + 8 * (lane / 16) + lane % 8) * C::kStride
-                           + 8 * ((lane / 8) % 2);
+          const bf16* kr = b_addr(ks + 16 * c * C::kStride, C::kStride, lane);
 #pragma unroll
           for (int kk = 0; kk < HD / 16; ++kk) {
             unsigned kb[4];
@@ -375,8 +352,7 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
             pa[2 * half] = pack_bf16(st[0], st[1]);      // row g
             pa[2 * half + 1] = pack_bf16(st[2], st[3]);  // row g + 8
           }
-          const bf16* vr = vs + (16 * c + 8 * ((lane / 8) % 2) + lane % 8) * C::kStride
-                           + 8 * (lane / 16);
+          const bf16* vr = bt_addr(vs + 16 * c * C::kStride, C::kStride, lane);
 #pragma unroll
           for (int d2 = 0; d2 < HD / 16; ++d2) {
             unsigned vb[4];
@@ -400,29 +376,26 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     l_run[r] += __shfl_xor_sync(kFull, l_run[r], 2);
     inv[r] = 1.f / l_run[r];  // l >= 1: the row's max key adds exp(0)
   }
-  // O / l in bf16 into this warp's rows of the Q buffer, then 16-byte stores
-  bf16* ow = q_s + 16 * warp * C::kStride;
+  if (m_out != nullptr && quad == 0) {  // training: the residuals of rows g, g + 8
+    const int64_t stat0 = ((int64_t)b * H + h) * T_len;
 #pragma unroll
-  for (int d = 0; d < HD / 8; ++d) {
-    const int col = 8 * d + 2 * quad;
-    *reinterpret_cast<unsigned*>(ow + g * C::kStride + col) =
-        pack_bf16(acc[d][0] * inv[0], acc[d][1] * inv[0]);
-    *reinterpret_cast<unsigned*>(ow + (g + 8) * C::kStride + col) =
-        pack_bf16(acc[d][2] * inv[1], acc[d][3] * inv[1]);
+    for (int r = 0; r < 2; ++r) {
+      const int t = wrow0 + g + 8 * r;
+      if (t < T_len) {
+        m_out[stat0 + t] = m_run[r];
+        l_out[stat0 + t] = l_run[r];
+      }
+    }
   }
-  __syncwarp();
-#pragma unroll
-  for (int idx = lane; idx < 16 * C::kRowChunks; idx += 32) {
-    const int r = idx / C::kRowChunks, c = idx % C::kRowChunks;
-    if (wrow0 + r < T_len)
-      *reinterpret_cast<uint4*>(o + head0 + (int64_t)(wrow0 + r) * row_stride + 8 * c) =
-          *reinterpret_cast<const uint4*>(ow + r * C::kStride + 8 * c);
-  }
+  // O / l in bf16 through this warp's rows of the Q buffer
+  store_warp_tile<HD>(q_s + 16 * warp * C::kStride, acc, inv, o + head0, row_stride, wrow0,
+                      T_len, lane);
 }
 
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* mask, void* o,
-                        int batch, int T_len, int H, float sm_scale, cudaStream_t stream) {
+                        float* m_out, float* l_out, int batch, int T_len, int H, float sm_scale,
+                        cudaStream_t stream) {
   using C = Bf16Cfg<HD>;
   if (C::kSmemBytes > 48 * 1024) {  // above 48 KB only after opting in
     const cudaError_t err = cudaFuncSetAttribute(
@@ -435,7 +408,7 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   flash_attn_fwd_bf16_kernel<HD><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<__nv_bfloat16*>(o), T_len, H, sm_scale);
+      static_cast<__nv_bfloat16*>(o), m_out, l_out, T_len, H, sm_scale);
   return cudaGetLastError();
 }
 
@@ -443,18 +416,17 @@ template <typename T, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* mask, void* o,
                       float* m_out, float* l_out, int batch, int T_len, int H, float sm_scale,
                       cudaStream_t stream) {
-  // bf16 without residuals (serving, no-grad) on the tensor cores; fp32,
-  // and bf16 with residuals (training), on the CUDA-core body
+  // bf16 on the tensor cores, fp32 on the CUDA cores
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (m_out == nullptr)
-      return launch_bf16<HD>(q, k, v, mask, o, batch, T_len, H, sm_scale, stream);
+    return launch_bf16<HD>(q, k, v, mask, o, m_out, l_out, batch, T_len, H, sm_scale, stream);
+  } else {
+    const dim3 grid((unsigned)((T_len + kRows - 1) / kRows), (unsigned)H, (unsigned)batch);
+    flash_attn_fwd_kernel<HD><<<grid, Cfg<HD>::kThreads, 0, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k),
+        static_cast<const float*>(v), static_cast<const uint8_t*>(mask),
+        static_cast<float*>(o), m_out, l_out, T_len, H, sm_scale);
+    return cudaGetLastError();
   }
-  const dim3 grid((unsigned)((T_len + kRows - 1) / kRows), (unsigned)H, (unsigned)batch);
-  flash_attn_fwd_kernel<T, HD><<<grid, Cfg<HD>::kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(o), m_out, l_out, T_len, H,
-      sm_scale);
-  return cudaGetLastError();
 }
 
 template <typename T>

@@ -18,15 +18,14 @@ Two implementations:
 - the hand-written CUDA kernels, which replace the three kernels of JAX's
   Pallas TPU flash attention: :func:`flash_attn_fwd`
   (``csrc/flash_attn_fwd.cu``, ``_flash_attention_kernel``; for training it
-  also writes the softmax residuals m and l of every row; bf16 without
-  residuals runs its two products on the tensor cores, mma.sync with fp32
-  accumulators over bf16 K/V tiles staged by cp.async, while fp32, and bf16
-  with residuals, run the CUDA-core body whose scores the backward kernels
-  recompute bit for bit), and
+  also writes the softmax residuals m and l of every row), and
   :func:`flash_attn_bwd_dkv` and :func:`flash_attn_bwd_dq`
   (``csrc/flash_attn_bwd.cu``, ``_flash_attention_dkv_kernel`` and
-  ``_flash_attention_dq_kernel``). Each wrapper launches its kernel or
-  raises, and counts its launches.
+  ``_flash_attention_dq_kernel``). Each has two bodies: bf16 runs every
+  product on the tensor cores (mma.sync with fp32 accumulators over bf16
+  tiles staged by cp.async), fp32 runs the CUDA cores, whose backward
+  recomputes the fp32 forward's scores bit for bit. Each wrapper launches
+  its kernel or raises, and counts its launches, in all and by body.
 
 :func:`flash_attention_interior` is what ``--attn-impl flash`` runs: the
 kernels for CUDA tensors, the plain versions for CPU tensors. Where a
@@ -192,11 +191,13 @@ def _launch(fn_name: str, library: str, q, pointers, sm_scale: float):
 _launches_lock = threading.Lock()  # the two towers may be served from two threads
 
 
-def _count(wrapper, body: Optional[str] = None) -> None:
+def _count(wrapper, dtype) -> None:
+    """One launch of ``wrapper``, under the body that ran it: the tensor
+    cores for bf16, the CUDA cores for fp32."""
+    body = "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
     with _launches_lock:
         wrapper.launches += 1
-        if body is not None:
-            wrapper.launches_by_body[body] += 1
+        wrapper.launches_by_body[body] += 1
 
 
 def flash_attn_fwd(q, k, v, key_mask=None, *, sm_scale: float, with_residuals: bool = False):
@@ -210,8 +211,7 @@ def flash_attn_fwd(q, k, v, key_mask=None, *, sm_scale: float, with_residuals: b
     its max score m and its sum l of ``exp(s - m)``, ``[B, h, T]`` fp32
     each. Counts each launch in ``flash_attn_fwd.launches``, and in
     ``flash_attn_fwd.launches_by_body`` under the body that ran it:
-    ``"tensor_cores"`` for bf16 without residuals, ``"cuda_cores"`` for
-    fp32 and for bf16 with residuals.
+    ``"tensor_cores"`` for bf16, ``"cuda_cores"`` for fp32.
     """
     mask_u8 = _check_kernel_inputs("flash_attn_fwd", {"q": q, "k": k, "v": v}, key_mask)
     B, T, h, hd = q.shape
@@ -222,8 +222,7 @@ def flash_attn_fwd(q, k, v, key_mask=None, *, sm_scale: float, with_residuals: b
         l = torch.empty((B, h, T), dtype=torch.float32, device=q.device)
     if out.numel() > 0:
         _launch("flash_attn_fwd", "flash_attn_fwd", q, (q, k, v, mask_u8, out, m, l), sm_scale)
-        tensor_cores = q.dtype == torch.bfloat16 and not with_residuals
-        _count(flash_attn_fwd, "tensor_cores" if tensor_cores else "cuda_cores")
+        _count(flash_attn_fwd, q.dtype)
     return (out, m, l) if with_residuals else out
 
 
@@ -238,35 +237,39 @@ def flash_attn_bwd_dkv(q, k, v, key_mask, do, m, l, di, *, sm_scale: float):
     ``[B, T, h, hd]`` in q's type, contiguous; m and l the forward's
     residuals and ``di = rowsum(o * do)``, ``[B, h, T]`` fp32 each. Returns
     (dk, dv), ``[B, T, h, hd]`` in q's type. Counts each launch in
-    ``flash_attn_bwd_dkv.launches``."""
+    ``flash_attn_bwd_dkv.launches`` and, by body as :func:`flash_attn_fwd`
+    does, in ``flash_attn_bwd_dkv.launches_by_body``."""
     mask_u8 = _check_kernel_inputs("flash_attn_bwd_dkv", {"q": q, "k": k, "v": v, "do": do},
                                    key_mask, {"m": m, "l": l, "di": di})
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() > 0:
         _launch("flash_attn_bwd_dkv", "flash_attn_bwd", q,
                 (q, k, v, mask_u8, do, m, l, di, dk, dv), sm_scale)
-        _count(flash_attn_bwd_dkv)
+        _count(flash_attn_bwd_dkv, q.dtype)
     return dk, dv
 
 
 flash_attn_bwd_dkv.launches = 0
+flash_attn_bwd_dkv.launches_by_body = {"tensor_cores": 0, "cuda_cores": 0}
 
 
 def flash_attn_bwd_dq(q, k, v, key_mask, do, m, l, di, *, sm_scale: float):
     """Launch the CUDA dq kernel on the current stream; arguments as
     :func:`flash_attn_bwd_dkv`. Returns dq, ``[B, T, h, hd]`` in q's type.
-    Counts each launch in ``flash_attn_bwd_dq.launches``."""
+    Counts each launch in ``flash_attn_bwd_dq.launches`` and
+    ``flash_attn_bwd_dq.launches_by_body``."""
     mask_u8 = _check_kernel_inputs("flash_attn_bwd_dq", {"q": q, "k": k, "v": v, "do": do},
                                    key_mask, {"m": m, "l": l, "di": di})
     dq = torch.empty_like(q)
     if dq.numel() > 0:
         _launch("flash_attn_bwd_dq", "flash_attn_bwd", q,
                 (q, k, v, mask_u8, do, m, l, di, dq), sm_scale)
-        _count(flash_attn_bwd_dq)
+        _count(flash_attn_bwd_dq, q.dtype)
     return dq
 
 
 flash_attn_bwd_dq.launches = 0
+flash_attn_bwd_dq.launches_by_body = {"tensor_cores": 0, "cuda_cores": 0}
 
 
 class FlashAttnFn(torch.autograd.Function):

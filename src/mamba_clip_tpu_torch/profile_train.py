@@ -59,13 +59,15 @@ TOTAL_STEPS = 1000  # the cosine schedule's horizon
 CLIP_TRAIN_ARGS = dict(TRAIN_ARGS, grad_clip_norm=1.0, siglip=False, lock_image=False,
                        lock_image_freeze_bn_stats=False)
 CLIP_TOTAL_STEPS = 10_000
-# The wrappers of the hand-written kernels, and the kernel names they launch.
+# The wrappers of the hand-written kernels, and the start of the names of the
+# kernels they launch.
 KERNEL_WRAPPERS = {
     "selective_scan_fwd": (selective_scan_fwd, "selective_scan_fwd_kernel"),
     "selective_scan_bwd": (selective_scan_bwd, "selective_scan_bwd_kernel"),
-    "flash_attn_fwd": (flash_attn_fwd, "flash_attn_fwd_kernel"),
-    "flash_attn_bwd_dkv": (flash_attn_bwd_dkv, "flash_attn_bwd_dkv_kernel"),
-    "flash_attn_bwd_dq": (flash_attn_bwd_dq, "flash_attn_bwd_dq_kernel"),
+    # both bodies: flash_attn_fwd_kernel (fp32) and flash_attn_fwd_bf16_kernel
+    "flash_attn_fwd": (flash_attn_fwd, "flash_attn_fwd_"),
+    "flash_attn_bwd_dkv": (flash_attn_bwd_dkv, "flash_attn_bwd_dkv_"),
+    "flash_attn_bwd_dq": (flash_attn_bwd_dq, "flash_attn_bwd_dq_"),
 }
 
 
@@ -102,16 +104,18 @@ def medmamba_train_setup(batch: int, device="cuda", scan_impl=None, seed: int = 
 
 def clip_train_setup(batch: int, device="cuda", model_name: str = "biomedclip",
                      attn_impl: str = "flash", seed: int = 0, model_state=None,
-                     grad_checkpointing: bool = False, **arg_overrides):
-    """A full-width CLIP (``amp``) with its contrastive train step, through
-    ``build_clip``, ``create_schedule``, ``build_optimizer``,
-    ``create_train_state`` and ``make_clip_train_step``; weights from
+                     grad_checkpointing: bool = False, precision: str = "amp",
+                     **arg_overrides):
+    """A full-width CLIP (``precision``: ``amp`` unless asked) with its
+    contrastive train step, through ``build_clip``, ``create_schedule``,
+    ``build_optimizer``, ``create_train_state`` and
+    ``make_clip_train_step``; weights from
     ``seed`` (or ``model_state``); two batches of uint8 images and of
     HashTokenizer tokens of report-like text (context 256, so the key masks
     are real) made from a numpy seed and put on ``device``.
     ``arg_overrides`` replace entries of ``CLIP_TRAIN_ARGS``. Returns
     (state, step_fn, batches)."""
-    policy = get_policy("amp")
+    policy = get_policy(precision)
     args = SimpleNamespace(**{**CLIP_TRAIN_ARGS, **arg_overrides})
     tcfg = get_transform_config(None, 224, is_train=True)
     model = build_clip(model_name, image_size=224, dtype=policy.compute_dtype,

@@ -225,3 +225,41 @@ def test_backward_wrappers_refuse_what_the_kernels_do_not_take(wrapper):
     with pytest.raises(ValueError, match="do has shape"):
         wrapper(q, k, v, km, do[:, :8].contiguous(), m, l, di, sm_scale=0.125)
     assert wrapper.launches == 0 and tfa.flash_attn_fwd.launches == 0
+    assert wrapper.launches_by_body == {"tensor_cores": 0, "cuda_cores": 0}
+
+
+def _refused(case):
+    """The arguments of one case the kernels do not take, and the message."""
+    q, k, v, km, do, m, l, di = _bwd_args()
+    if case == "device":       # a CPU tensor: the kernels run on the card only
+        return (q, k, v, km, do, m, l, di), "expected the CUDA device"
+    if case == "dtype":        # fp16, or two types at once
+        half = [t.half() for t in (q, k, v, do)]
+        return (*half[:3], km, half[3], m, l, di), "one type"
+    if case == "dtype_mixed":
+        return (q, k, v, km, do.bfloat16(), m, l, di), "one type"
+    if case == "head_dim":     # no instance outside 32, 64, 128
+        return _bwd_args(hd=96), "head dim 96"
+    if case == "layout":       # [B, h, T, hd] made to look like [B, T, h, hd]
+        return (q, k, v, km, do.transpose(1, 2).contiguous().transpose(1, 2), m, l, di), \
+            "do is not contiguous"
+    if case == "stats":
+        return (q, k, v, km, do, m.transpose(1, 2).contiguous(), l, di), \
+            r"m must be \[B, h, T\] float32"
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["device", "dtype", "dtype_mixed", "head_dim", "layout",
+                                  "stats"])
+@pytest.mark.parametrize("wrapper", [tfa.flash_attn_bwd_dkv, tfa.flash_attn_bwd_dq],
+                         ids=["dkv", "dq"])
+def test_backward_wrapper_refuses_and_counts_no_launch(wrapper, case):
+    """Each backward wrapper counts its launches by body, as the forward's
+    does (the tensor cores run bf16, the CUDA cores fp32), and a refused
+    call, as every call on the CPU is, leaves both counts as they were."""
+    assert set(wrapper.launches_by_body) == {"tensor_cores", "cuda_cores"}
+    before = (wrapper.launches, dict(wrapper.launches_by_body))
+    args, message = _refused(case)
+    with pytest.raises(ValueError, match=message):
+        wrapper(*args, sm_scale=0.125)
+    assert (wrapper.launches, dict(wrapper.launches_by_body)) == before
