@@ -11,13 +11,17 @@ on failure:
    TF32 off for matmuls and convolutions;
 2. build: compiles the five CUDA sources from ``csrc/``, one
    nvcc each, started together (always anew: an earlier run's libraries
-   are removed first), and prints ptxas' registers and spills;
+   are removed first), and prints ptxas' registers and spills; each scan
+   kernel's instances (fp32, bf16) with their registers, spills, shared
+   memory a block and the ``SHFL`` and ``MUFU`` instructions in their SASS;
 3. kernel against plain: ``selective_scan_fwd`` against the plain loop on
-   the card at the medmamba stage shapes (batch 2), a ragged shape, fp32
-   and bf16, softplus on and off; gate: max|y_k - y_p| / max|y_p| <= 5e-4,
-   and the same gate on the chunk-entry states ``hck`` the forward writes
-   for training. Then both are timed at the serving batch 64 beside the
-   kernel's bound;
+   the card at the medmamba stage shapes (batch 2) and two ragged ones
+   (DG 24, below a block's 64 channels, and DG 80, above them and not a
+   multiple), fp32 and bf16, softplus on and off; gate:
+   max|y_k - y_p| / max|y_p| <= 5e-4, and the same gate on the chunk-entry
+   states ``hck`` the forward writes for training; a second run of the
+   kernel must give y and ``hck`` bit for bit. Then both are timed at the
+   serving batch 64 beside the kernel's bound;
 4. serving: the full-width medmamba ``classify`` (image 224, staging 256,
    bf16 compute, random weights from seed 0) answers 16 concurrent requests
    through ``MicroBatcher``; the answers are checked, the launch counters
@@ -27,9 +31,9 @@ on failure:
    loop on its own inputs; then classify is timed at batch 64;
 5. backward kernel against plain: ``selective_scan_bwd`` against
    ``_scan_tm_plain_bwd`` at the shapes of phase 3; gate: each of the 7
-   gradients at max|g_k - g_p| / max|g_p| <= 5e-4. Then the forward (with
-   ``hck``) and the backward are timed at batch 64, bf16, beside the
-   backward's bound;
+   gradients at max|g_k - g_p| / max|g_p| <= 5e-4, and a second run must
+   give all 7 bit for bit (no atomics). Then the forward (with ``hck``) and
+   the backward are timed at batch 64, bf16, beside the backward's bound;
 6. training: the stage-2 CE train step of full-width medmamba (``amp``,
    AdamW at the config defaults, cosine schedule) on device-resident uint8
    batches: 2 warm-up and 5 timed steps at batch 64 with finite loss and
@@ -177,7 +181,8 @@ on failure:
    version and the library's, with its bound from the data sheet and from
    the ceilings phase 11 measured, its shares of both, and its instances;
    the forward's tensor-core entry is serving's pair, its training launches
-   under ``training``), then the device line last.
+   under ``training``; each scan entry with its instances), then the
+   device line last.
 
 Phases 1-10 run at the depth and iteration counts they had before phases
 11-13 were added.
@@ -219,6 +224,8 @@ CLIP_TRAIN_REL = 2.0**-7  # kernel vs plain interiors, CLIP train step loss and 
 GRAD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
 STAGES = [(3136, 64), (784, 128), (196, 256), (49, 512)]  # (L, DG) per medmamba stage
 BLOCKS_PER_STAGE = [2, 2, 8, 2]
+# DG below a kernel block's 64 channels, and above them and not a multiple
+RAGGED = [(300, 24), (300, 80)]
 REPORTS = [
     "Dermoscopy of a pigmented lesion on the upper back of a 45 year old male.",
     "Lesion: left forearm, diameter 6.2 mm; border irregular, two colours, asymmetric. "
@@ -445,7 +452,7 @@ def main(argv=None) -> None:
         flash_attn_bwd_dq, flash_attn_fwd)
     from mamba_clip_tpu_torch.profile_embed import report_tokens
     from mamba_clip_tpu_torch.ops.selective_scan import (
-        _scan_tm_plain, _scan_tm_plain_bwd, selective_scan_bwd, selective_scan_fwd,
+        CHUNK, _scan_tm_plain, _scan_tm_plain_bwd, selective_scan_bwd, selective_scan_fwd,
         selective_scan_tm)
     from mamba_clip_tpu_torch.serve import MicroBatcher
     from mamba_clip_tpu_torch.serving import make_serving_fns
@@ -502,6 +509,31 @@ def main(argv=None) -> None:
         for line in cuda_build.build_logs.get(k, "").splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {k}: {line.strip()}")
+    # each scan instance: ptxas' registers and spills, its shared memory a
+    # block (the backward's static B/C buffers and its dynamic rest), and the
+    # shuffles and special-function instructions in its SASS
+    bwd_dyn_smem = cuda_build.load("selective_scan_bwd").selective_scan_bwd_smem_bytes()
+    scan_instances = {}
+    for k in ("selective_scan_fwd", "selective_scan_bwd"):
+        scan_instances[k] = {}
+        sass = {op: cuda_build.sass_counts(cuda_build.library_path(k), op)
+                for op in ("SHFL", "MUFU")}
+        for mangled, rep in cuda_build.ptxas_report(cuda_build.build_logs.get(k, "")).items():
+            inst = re.search(rf"{k}_kernelI(f|13__nv_bfloat16)E", mangled)
+            if inst is None:
+                continue
+            name = f"{k} {'fp32' if inst.group(1) == 'f' else 'bf16'}"
+            scan_instances[k][name] = {
+                "registers": rep["registers"], "spill_stores": rep["spill_stores"],
+                "spill_loads": rep["spill_loads"],
+                "smem_bytes": rep["static_smem"] + (bwd_dyn_smem if k.endswith("bwd") else 0),
+                "shfl": sass["SHFL"].get(mangled, 0), "mufu": sass["MUFU"].get(mangled, 0)}
+        for name, inst in sorted(scan_instances[k].items()):
+            say(f"{name}: {inst['registers']} registers, spills {inst['spill_stores']}/"
+                f"{inst['spill_loads']} bytes, {inst['smem_bytes']} B shared memory a block, "
+                f"{inst['shfl']} SHFL and {inst['mufu']} MUFU in its SASS")
+        if len(scan_instances[k]) != 2:
+            fail(f"{k}: expected 2 instances (fp32, bf16), got {sorted(scan_instances[k])}")
 
     # 3. kernel against plain
     def compare(Bsz, L, DG, dtype, softplus, iters_k, iters_p, seed=0):
@@ -520,28 +552,32 @@ def main(argv=None) -> None:
         with torch.enable_grad():  # the training forward: y and hck
             full = [t if t is not None else torch.zeros(args[2].shape[0], device="cuda")
                     for t in args]
-            _, hck_k = selective_scan_fwd(*full, softplus, with_hck=True)
+            y_h, hck_k = selective_scan_fwd(*full, softplus, with_hck=True)
+            y_h2, hck_k2 = selective_scan_fwd(*full, softplus, with_hck=True)
             _, hck_p = _scan_tm_plain(*full, softplus, return_hck=True)
             torch.cuda.synchronize()
         (rel_h, abs_h), = rel_errs([hck_k], [hck_p])
+        same = torch.equal(y_h, y_h2) and torch.equal(hck_k, hck_k2)
         name = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
-        ok = rel <= GATE_REL and rel_h <= GATE_REL
+        ok = rel <= GATE_REL and rel_h <= GATE_REL and same
         say(f"scan B={Bsz} G=4 L={L} DG={DG} {name} softplus={softplus}: "
             f"rel_err {rel:.3e} abs_err {abs_err:.3e} hck rel_err {rel_h:.3e} "
+            f"{'bit-identical' if same else 'two runs DIFFER'} "
             f"kernel {ms_k:.4f} ms plain {ms_p:.3f} ms {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"selective_scan_fwd disagrees with the plain scan: rel err {rel:.3e}, "
-                 f"hck rel err {rel_h:.3e}")
+                 f"hck rel err {rel_h:.3e}, two runs bit-identical: {same}")
         return max(rel, rel_h), max(abs_err, abs_h), ms_k, ms_p
 
     worst_rel = worst_abs = 0.0
-    for L, DG in STAGES + [(300, 24)]:
+    for L, DG in STAGES + RAGGED:
         for dtype in (torch.float32, torch.bfloat16):
             rel, abs_err, _, _ = compare(2, L, DG, dtype, True, 20, 2)
             worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
-    for dtype in (torch.float32, torch.bfloat16):
-        rel, abs_err, _, _ = compare(2, 300, 24, dtype, False, 20, 2)
-        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
+    for L, DG in RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            rel, abs_err, _, _ = compare(2, L, DG, dtype, False, 20, 2)
+            worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, abs_err)
 
     # at the serving batch (64) and type (bf16): one forward = 14 launches
     fwd_k = fwd_p = fwd_bound = 0.0
@@ -681,27 +717,31 @@ def main(argv=None) -> None:
         args, dy = bwd_args(Bsz, L, DG, dtype, softplus, seed)
         _, hck = selective_scan_fwd(*args, softplus, with_hck=True)
         g_k = selective_scan_bwd(*args, softplus, dy, hck)
+        g_k2 = selective_scan_bwd(*args, softplus, dy, hck)
         _, hck_p = _scan_tm_plain(*args, softplus, return_hck=True)
         g_p = _scan_tm_plain_bwd(*args, softplus, dy, hck_p)
         torch.cuda.synchronize()
         errs = rel_errs(g_k, g_p)
+        same = all(torch.equal(a, b) for a, b in zip(g_k, g_k2))
         name = {torch.float32: "fp32", torch.bfloat16: "bf16"}[dtype]
-        ok = all(r <= GATE_REL for r, _ in errs)
+        ok = all(r <= GATE_REL for r, _ in errs) and same
         say(f"scan bwd B={Bsz} G=4 L={L} DG={DG} {name} softplus={softplus}: "
             + " ".join(f"{n} {r:.2e}" for n, (r, _) in zip(GRAD_NAMES, errs))
-            + (" ok" if ok else " FAIL"))
+            + (" bit-identical" if same else " two runs DIFFER") + (" ok" if ok else " FAIL"))
         if not ok:
-            fail("selective_scan_bwd disagrees with the plain backward")
+            fail("selective_scan_bwd disagrees with the plain backward, or with itself "
+                 f"(two runs bit-identical: {same})")
         return max(r for r, _ in errs), max(a for _, a in errs)
 
     bwd_rel = bwd_abs = 0.0
-    for L, DG in STAGES + [(300, 24)]:
+    for L, DG in STAGES + RAGGED:
         for dtype in (torch.float32, torch.bfloat16):
             r, a = compare_bwd(2, L, DG, dtype, True)
             bwd_rel, bwd_abs = max(bwd_rel, r), max(bwd_abs, a)
-    for dtype in (torch.float32, torch.bfloat16):
-        r, a = compare_bwd(2, 300, 24, dtype, False)
-        bwd_rel, bwd_abs = max(bwd_rel, r), max(bwd_abs, a)
+    for L, DG in RAGGED:
+        for dtype in (torch.float32, torch.bfloat16):
+            r, a = compare_bwd(2, L, DG, dtype, False)
+            bwd_rel, bwd_abs = max(bwd_rel, r), max(bwd_abs, a)
 
     # at the training batch (64) and type (bf16): one step = 14 launches each
     fwd_hck_step = bwd_k_step = bwd_p_step = bwd_bound_step = 0.0
@@ -721,7 +761,7 @@ def main(argv=None) -> None:
         bwd_terms[bound["bound_by"]] += nblk * bound["bound_ms"]
         bwd_shapes.append({"B": 64, "G": 4, "L": L, "DG": DG, "dtype": "bf16",
                            "launches_per_step": nblk, "fwd_with_hck_ms": ms_f,
-                           "hck_bytes": 64 * 4 * (-(-L // 16)) * DG * 16 * 4,
+                           "hck_bytes": 64 * 4 * (-(-L // CHUNK)) * DG * 16 * 4,
                            "ms": ms_b, "plain_ms": ms_bp, **bound})
         say(f"scan bwd B=64 L={L} DG={DG} bf16: kernel {ms_b:.4f} ms, forward with hck "
             f"{ms_f:.4f} ms, plain backward {ms_bp:.2f} ms, bound {bound['bound_ms']:.4f} ms "
@@ -1991,6 +2031,7 @@ def main(argv=None) -> None:
         "bound_ms": fwd_bound,
         "bound_by": max(bound_terms, key=bound_terms.get),
         "library_ms": None,
+        "instances": scan_instances["selective_scan_fwd"],
     }, {
         "name": "selective_scan_bwd",
         "route": "cuda",
@@ -2005,6 +2046,7 @@ def main(argv=None) -> None:
         "bound_ms": bwd_bound_step,
         "bound_by": max(bwd_terms, key=bwd_terms.get),
         "library_ms": None,
+        "instances": scan_instances["selective_scan_bwd"],
     }] + attn_entries + [{
         "name": "vpu_chain",
         "route": "cuda",

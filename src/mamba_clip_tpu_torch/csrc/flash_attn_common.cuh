@@ -25,6 +25,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace fa {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -70,25 +72,6 @@ __device__ __forceinline__ float reduce_row(float part) {
 }
 
 // ---- tensor-core helpers (the bf16 bodies) -------------------------------
-
-// 16 bytes global -> shared without the registers; src_bytes 0 reads nothing
-// and fills the 16 bytes with zeros.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Four 8x8 b16 matrices from shared memory: lanes 8i..8i+7 give the row
 // addresses of matrix i, which lands in r[i]; lane l holds row l/4, columns

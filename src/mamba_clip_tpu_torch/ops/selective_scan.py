@@ -36,6 +36,7 @@ import torch
 from . import cuda_build
 
 __all__ = [
+    "BLOCK_CHANNELS",
     "CHUNK",
     "SelectiveScanFn",
     "selective_scan",
@@ -45,11 +46,14 @@ __all__ = [
     "selective_scan_bwd",
 ]
 
-_KERNEL_N = 16  # the kernels keep one state entry per lane of a half-warp
+_KERNEL_N = 16  # the kernels' state size: 4 lanes a channel, 4 entries a lane
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# T: the steps between two saved chunk-entry states. The kernels stage 16
-# steps at a time; the backward keeps a chunk's h_t and a_t in registers.
+# T: the steps between two saved chunk-entry states. The kernels stage B and
+# C 16 steps at a time; the backward keeps a chunk's h_t in registers.
 CHUNK = 16
+# Channels a kernel block owns: the backward leaves dB and dC as one partial
+# sum per block of a group, ceil(DG / BLOCK_CHANNELS) of them.
+BLOCK_CHANNELS = 64
 
 
 def _n_chunks(L: int) -> int:
@@ -166,6 +170,15 @@ def _check_kernel_inputs(who, tensors, dev):
     for name in ("A", "D", "delta_bias", "dy", "hck"):
         if name in tensors and tensors[name][0].dtype != torch.float32:
             raise ValueError(f"{who}: {name} must be float32")
+    for name in ("B", "C", "hck"):  # read by 16-byte copies
+        if name in tensors and tensors[name][0].data_ptr() % 16:
+            raise ValueError(f"{who}: {name} is not 16-byte aligned")
+
+
+def _aligned(t):
+    """``t``, or a copy of it where its data is not 16-byte aligned (a view
+    at an odd offset): the kernels stage B and C by 16-byte copies."""
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def _scan_shapes(u):
@@ -219,9 +232,10 @@ def selective_scan_bwd(u, delta, A, Bmat, Cmat, D, bias, softplus: bool, dy, hck
     Takes the forward's inputs (as :func:`selective_scan_fwd` takes them),
     dy (batch, G, L, DG) float32 and the forward's hck, all contiguous on
     one CUDA device. Returns the float32 gradients (du, ddelta, dA, dB, dC,
-    dD, dbias) in the primal shapes: the kernel's per-block dB/dC partials
-    and per-sample dA/dD/dbias are summed here with ``torch.sum``. Counts
-    each launch in ``selective_scan_bwd.launches``.
+    dD, dbias) in the primal shapes: the kernel's dB/dC partials (one per
+    block of ``BLOCK_CHANNELS`` channels) and per-sample dA/dD/dbias are
+    summed here with ``torch.sum``. Counts each launch in
+    ``selective_scan_bwd.launches``.
     """
     shapes = _scan_shapes(u)
     Bsz, G, L, DG = u.shape
@@ -231,7 +245,7 @@ def selective_scan_bwd(u, delta, A, Bmat, Cmat, D, bias, softplus: bool, dy, hck
     _check_kernel_inputs("selective_scan_bwd",
                          {k: (t, shapes[k]) for k, t in zip(shapes, args)}, u.device)
     f32, dev = torch.float32, u.device
-    n_tiles = -(-DG // 16)
+    n_tiles = -(-DG // BLOCK_CHANNELS)
     ddelta = torch.empty((Bsz, G, L, DG), dtype=f32, device=dev)
     du = torch.empty((Bsz, G, L, DG), dtype=f32, device=dev)
     dB_part = torch.empty((n_tiles, Bsz, G, L, N), dtype=f32, device=dev)
@@ -347,7 +361,7 @@ def selective_scan_tm(
         if u.dtype == torch.float16:
             u, delta, B, C = (t.to(torch.float32) for t in (u, delta, B, C))
         args = (u.contiguous(), delta.contiguous(), A.float().contiguous(),
-                B.contiguous(), C.contiguous(), D.float().contiguous(),
+                _aligned(B.contiguous()), _aligned(C.contiguous()), D.float().contiguous(),
                 delta_bias.float().contiguous())
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
         return SelectiveScanFn.apply(*args, delta_softplus, impl)

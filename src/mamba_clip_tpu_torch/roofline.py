@@ -10,7 +10,7 @@ kernels' padded-element counts are the TPU kernels' own and do not apply).
 
 from __future__ import annotations
 
-from .ops.selective_scan import selective_scan_flops
+from .ops.selective_scan import CHUNK, selective_scan_flops
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
@@ -43,15 +43,15 @@ def bound_of(terms, sfu_rate, hbm_rate=HBM_BYTES_PER_S, fp32_rate=FP32_FLOPS):
 
 def scan_bwd_bound(Bsz, L, DG, itemsize, sfu_rate, G=4, N=16, **rates):
     """Least time for one backward scan. Bytes: u, delta, B, C read in
-    their type, dy and hck (the state at every 16th step) in fp32, A, D and
-    bias; ddelta, du, dB, dC, dA, dD and dbias written once in fp32. FLOPs
-    per channel-step and state: 18 (recompute a and h: 4; dC: 1; g and its
-    carry: 3; dB: 1; ddu: 2; the dA and ddt terms: 7), plus 10 per
-    channel-step. Exps: a per state, and softplus (exp, log) and sigmoid
-    once per channel-step."""
+    their type, dy and hck (the state at every ``CHUNK``-th step) in fp32,
+    A, D and bias; ddelta, du, dB, dC, dA, dD and dbias written once in
+    fp32. FLOPs per channel-step and state: 18 (recompute a and h: 4; dC:
+    1; g and its carry: 3; dB: 1; ddu: 2; the dA and ddt terms: 7), plus
+    10 per channel-step. Exps: a per state, and softplus (exp, log) and
+    sigmoid once per channel-step."""
     E = Bsz * G * L * DG
     BC = Bsz * G * L * N
-    hck = Bsz * G * (-(-L // 16)) * DG * N
+    hck = Bsz * G * (-(-L // CHUNK)) * DG * N
     return bound_of({
         "bytes": (2 * E * itemsize + 2 * BC * itemsize + 4 * E + 4 * hck
                   + G * DG * (N + 2) * 4

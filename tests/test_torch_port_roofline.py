@@ -158,6 +158,26 @@ def test_bounds_against_numbers_worked_by_hand():
     assert m["bytes"] == 6 * 64 * 256 * 768 * 2 + 3 * 64 * 12 * 256 * 4 + 64 * 256 == 153370624
 
 
+@pytest.mark.parametrize("L, DG, nbytes, bwd_ms, fwd_ms", [
+    (3136, 64, 1181782016, 0.35277075104477607, 0.19658794000612181),
+    (784, 128, 552411136, 0.1648988465671642, 0.09829397000306091),
+    (196, 256, 269828096, 0.08054570029850747, 0.049146985001530454),
+    (49, 512, 139018240, 0.041497982089552236, 0.024573492500765227),
+    (300, 80, 137999360, 0.04119383880597015, 0.023507805325987143),
+])
+def test_scan_bounds_at_chunk_16_unchanged(L, DG, nbytes, bwd_ms, fwd_ms):
+    """The backward's bound counts hck at the package's ``CHUNK``; at 16 it
+    gives, to the digit, the numbers it gave when the 16 was a literal
+    (batch 64, bf16, the data sheet's rates, the exp peak of 132 SMs at
+    1980 MHz)."""
+    from mamba_clip_tpu_torch.ops.selective_scan import CHUNK
+
+    assert CHUNK == 16
+    b = roofline.scan_bwd_bound(64, L, DG, 2, 4.18176e12)
+    assert b["bytes"] == nbytes and b["bound_ms"] == bwd_ms and b["bound_by"] == "bytes"
+    assert roofline.scan_bound(64, L, DG, 2, 4.18176e12)["bound_ms"] == fwd_ms
+
+
 def test_chip_smoke_shares_the_package_count():
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
