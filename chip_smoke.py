@@ -197,13 +197,46 @@ on failure:
    message for message and no launch. Prints a ``cli`` JSON line (each
    run's wall seconds, the loop's ms a step, pairs/s or img/s, eval rows/s,
    save seconds, beside phases 12 and 13's ms a step);
-15. prints the kernels line (nine entries: the two scan kernels, the
+15. serving artifacts and the HTTP host, every count set to 0 just before
+   each call and read just after: (a) full-width BiomedCLIP (seed 0,
+   ``amp``, ``attn_impl="flash"``) exported with ``export_serving`` raw and
+   with ``compress_weights``, and full-width medmamba ``classify`` raw,
+   into ``tempfile.mkdtemp()``; each artifact's bytes and its export and
+   ``load_serving(..., device="cuda")`` seconds; (b) the loaded
+   ``image_embed``, ``text_embed`` and ``classify`` of a batch of 64 bit
+   for bit equal to ``make_serving_fns`` in this process on the same
+   weights, 12 flash forward launches a call on the tensor cores (14 scan
+   forward launches for ``classify``) and no other; the compressed
+   artifact's int8 values and scales equal to ``compress_params`` of the
+   raw weights, its outputs bit for bit those of the in-process model given
+   the decompressed weights, its lowest cosine to the raw artifact's
+   embeddings above 0.999; (c) ``serve_http.make_server`` over each raw
+   artifact, ``serve_forever`` in a thread: ``/healthz``; 16 JPEG bodies
+   (PIL-encoded, of distinct kinds) for ``/embed_image`` and ``/classify``
+   and 16 JSON texts of distinct openings for ``/embed_text``, each row's
+   answer computed directly at every batch shape the batcher dispatches (1,
+   2, 4, 8, 16); gates: no two rows share an answer, and the shapes move an
+   answer at most 5e-3 (embeddings) or 2e-2 (probabilities); with
+   ``max_batch=1`` every answer bit for bit the direct call of its row; with
+   the MicroBatcher (``max_batch=16``), closed-loop clients at concurrency
+   1, 4 and 16 for 2 s each, every answer a 200, bit for bit its own row's
+   answer at one of those shapes (so that an answer taken from another row
+   fails) and within that bound of its direct call, 12 (or 14) launches
+   times the batcher's batches; an unknown path gives JAX's 404 message, a
+   malformed body (bad JSON, a truncated JPEG) a 400; the servers shut
+   down and the directories removed; (d) prints a ``serving_http`` JSON
+   line (per endpoint: the batch shapes' largest move, the closest rows'
+   distance, and per concurrency p50, p95 and p99 ms, requests/s, requests
+   and padded rows a batch and the largest distance to the direct call;
+   the artifacts' bytes and seconds; whether ``fastimage`` builds here and
+   PIL imports, the host's two JPEG decoders);
+16. prints the kernels line (nine entries: the two scan kernels, the
    roofline's chain kernel, and each flash kernel as two entries, one a
    body: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
    from the main path, and ``..._cuda_cores``, fp32, whose launches come
-   from phase 10's fp32 step; the main path's launches include phase
-   14's; a body launched no time fails. Each flash
+   from phase 10's fp32 step; the main path's launches include phases
+   14 and 15's; a body launched no time fails. Each flash
    entry is timed at the towers' shapes in its type beside the plain
    version and the library's, with its bound from the data sheet and from
    the ceilings phase 11 measured, its shares of both, and its instances;
@@ -220,6 +253,7 @@ from __future__ import annotations
 import argparse
 import functools
 import gc
+import importlib.util
 import json
 import logging
 import math
@@ -239,6 +273,11 @@ SRC = ROOT / "src"
 
 GATE_REL = 5e-4          # the gate bench.py put on the Pallas kernel
 PROBS_ATOL = 2e-2        # kernel vs plain scan, end to end, bf16 activations
+# a batched HTTP answer against the direct call of its row: a batch shape of
+# its own moves bf16 sums. An L2-normalised 512-d embedding's elements are
+# about 0.04; 5e-3 is three times phase 8's flash-against-einsum distance
+# (1.6e-3 and 1.8e-3 on the H100), a larger change than a batch shape.
+SERVE_BATCHED_ATOL = {"image_embed": 5e-3, "text_embed": 5e-3, "classify": PROBS_ATOL}
 TRAIN_REL = 2.0**-8      # kernel vs plain scan, train step loss and grad norm: one bf16 ulp
 # flash kernel vs plain interior: fp32 as GATE_REL; bf16 also covers the plain
 # interior rounding the scores and the normalized probabilities to bf16
@@ -728,6 +767,403 @@ def cli_phase(card, reset_counts, read_counts, flash_bodies):
             "resume": {**summary(rs, "img_per_s"), "diff_to_stage2_row": resume_diff},
             "medmamba": summary(mm, "img_per_s"), "probes": probes, "launches": launches}
     return line, launches, bodies
+
+
+def http_request(srv, method, path, body=None):
+    """(status, body) of one request to ``srv`` over loopback."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1], timeout=120)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def http_load(srv, path, bodies, cands, clients, seconds, tol, exact_buckets):
+    """Closed-loop clients on ``srv`` for ``seconds``, each with one request
+    outstanding, client j posting ``bodies[(j + k) % n]`` as its k-th.
+    ``cands[i]`` maps a batch shape to body i's answer when the entry point
+    is called on its row repeated to that shape. Every answer must be a 200,
+    bit for bit ``cands[i][b]`` for some ``b`` in ``exact_buckets`` (so that
+    an answer taken from another row cannot pass, the rows' candidates being
+    pairwise different) and within ``tol`` of ``cands[i][1]``, the direct
+    call of its row, or the phase fails. Returns the latency percentiles,
+    requests, requests/s and the largest distance to the direct call."""
+    import http.client
+
+    import numpy as np
+
+    key = {"/embed_image": "embedding", "/embed_text": "embeddings", "/classify": "probs"}[path]
+    lats, bad, errs = [], [], [0.0]
+    deadline = time.monotonic() + seconds
+
+    def client(j):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.server_address[1], timeout=120)
+        k = 0
+        try:
+            while time.monotonic() < deadline:
+                i = (j + k) % len(bodies)
+                k += 1
+                t0 = time.perf_counter()
+                conn.request("POST", path, body=bodies[i])
+                resp = conn.getresponse()
+                body = resp.read()
+                dt = time.perf_counter() - t0
+                if resp.status != 200:
+                    bad.append(f"{resp.status}: {body[:300]!r}")
+                    continue
+                direct = cands[i][1]
+                got = np.asarray(json.loads(body)[key], np.float32).reshape(direct.shape)
+                err = float(np.abs(got - direct).max())
+                errs.append(err)
+                if not err <= tol:
+                    bad.append(f"body {i}: off its direct call by {err:.3e} (bound {tol:g})")
+                if not any(np.array_equal(got, cands[i][b]) for b in exact_buckets):
+                    bad.append(f"body {i}: not bit for bit its row's answer at any batch "
+                               f"shape of {list(exact_buckets)} (off the direct call by "
+                               f"{err:.3e})")
+                lats.append(dt)
+        except Exception as e:  # reported below; the phase fails
+            bad.append(f"client {j}: {e!r}")
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(j,)) for j in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=seconds + 150)
+    wall = time.perf_counter() - t0
+    if bad or any(t.is_alive() for t in threads) or not lats:
+        fail(f"http {path} at concurrency {clients}: {len(bad)} bad answers, first "
+             f"{bad[:3]}, {len(lats)} good; largest distance to the direct call "
+             f"{max(errs):.3e}")
+    ms = 1e3 * np.asarray(lats)
+    return {"clients": clients, "requests": len(lats), "wall_s": wall,
+            "req_per_s": len(lats) / wall, "p50_ms": float(np.percentile(ms, 50)),
+            "p95_ms": float(np.percentile(ms, 95)), "p99_ms": float(np.percentile(ms, 99)),
+            "max_abs_err_to_direct": max(errs)}
+
+
+def jpeg_rows(n, size, seed):
+    """``n`` JPEG bodies (PIL, quality 90) of ``size``-square images that
+    differ in kind as well as colour: a flat colour, stripes of a period of
+    their own, noise of an amplitude of its own around a colour, a disc of
+    a radius of its own. A random-weight model maps noise squares to nearly
+    one answer; these keep the rows' answers apart."""
+    import io
+
+    import numpy as np
+
+    try:
+        from PIL import Image
+    except ImportError:
+        fail("phase 15 posts JPEG bodies, and PIL, which encodes them, does not import")
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size]
+    bodies = []
+    for i in range(n):
+        c = rs.randint(0, 256, 3)
+        kind = i % 4
+        if kind == 0:
+            img = np.broadcast_to(c, (size, size, 3))
+        elif kind == 1:
+            m = ((xx // (2 + 3 * i)) % 2)[..., None]
+            img = c * m + (255 - c) * (1 - m)
+        elif kind == 2:
+            img = c + rs.normal(0, 10 + 10 * i, (size, size, 3))
+        else:
+            r = size * (0.1 + 0.05 * i)
+            m = (((xx - size / 2) ** 2 + (yy - size / 2) ** 2) < r * r)[..., None]
+            img = c * m + (255 - c) * (1 - m)
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(buf, format="JPEG",
+                                                                     quality=90)
+        bodies.append(buf.getvalue())
+    return bodies
+
+
+def serving_phase(card, reset_counts, read_counts, flash_bodies):
+    """Phase 15: export and load serving artifacts, then serve them over
+    HTTP, each gate as the module docstring says. Every count is set to 0
+    just before each call of a loaded artifact (directly or through a
+    server) and read just after. Returns (the ``serving_http`` line's
+    fields, those calls' launches by counter, their flash launches by
+    body)."""
+    import numpy as np
+    import torch
+
+    from mamba_clip_tpu_torch.data import fastimage
+    from mamba_clip_tpu_torch.data.tokenizer import HashTokenizer
+    from mamba_clip_tpu_torch.serve import MicroBatcher, _bucket
+    from mamba_clip_tpu_torch.serve_http import make_server, warm_buckets
+    from mamba_clip_tpu_torch.serving import (compress_params, decompress_params,
+                                              export_serving, load_serving, make_serving_fns)
+
+    total = {k: 0 for k in read_counts()}
+    total_bodies = {k: {"tensor_cores": 0, "cuda_cores": 0} for k in ("fwd", "dkv", "dq")}
+
+    def counted(fn):
+        """``fn()`` with every count set to 0 just before and read just after."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, read_counts(), flash_bodies()
+
+    def check(what, entry, n, counts, bodies):
+        """``n`` dispatches of ``entry``: 12 flash forwards each on the tensor
+        cores (14 scan forwards for ``classify``) and nothing else. Adds the
+        counts to the phase's."""
+        want = {k: 0 for k in counts}
+        want["scan_fwd" if entry == "classify" else "fwd"] = (
+            (14 if entry == "classify" else 12) * n)
+        want_bodies = {k: {"tensor_cores": want[k], "cuda_cores": 0} for k in total_bodies}
+        if counts != want or bodies != want_bodies:
+            fail(f"serving {what}: launches {counts}, by body {bodies}; expected {want} "
+                 f"for {n} dispatches of {entry}")
+        for k in total:
+            total[k] += counts[k]
+        for k, by in bodies.items():
+            for body, c in by.items():
+                total_bodies[k][body] += c
+
+    def call(what, entry, fn):
+        out, counts, bodies = counted(fn)
+        check(what, entry, 1, counts, bodies)
+        return out
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    servers = []
+    try:
+        clip_kw = dict(is_clip=True, precision="amp")  # an artifact runs the flash interior
+        clip, cfns, cmeta = make_serving_fns(
+            "biomedclip", device="cuda", generator=torch.Generator().manual_seed(0),
+            attn_impl="flash", **clip_kw)
+        mm, mfns, mmeta = make_serving_fns(
+            "medmamba", precision="amp", device="cuda", generator=torch.Generator().manual_seed(0))
+        inproc = {"image_embed": lambda x: cfns["image_embed"](clip, x),
+                  "text_embed": lambda x: cfns["text_embed"](clip, x),
+                  "classify": lambda x: mfns["classify"](mm, x)}
+
+        # (a) export and load
+        arts = {}
+        for name, model_name, model, kw, compress in (
+                ("clip_raw", "biomedclip", clip, clip_kw, False),
+                ("clip_int8", "biomedclip", clip, clip_kw, True),
+                ("medmamba_raw", "medmamba", mm, dict(precision="amp"), False)):
+            out = os.path.join(work, name)
+            t0 = time.perf_counter()
+            man = export_serving(out, model_name, variables=model.state_dict(),
+                                 compress_weights=compress, **kw)
+            export_s = time.perf_counter() - t0
+            nbytes = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out)
+                         if os.path.isfile(os.path.join(out, f)))
+            t0 = time.perf_counter()
+            served = load_serving(out, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            arts[name] = {"dir": out, "served": served, "bytes": nbytes,
+                          "params_bytes": os.path.getsize(os.path.join(out, "params.pt")),
+                          "export_s": export_s, "load_s": load_s, "weights": man["weights"],
+                          "parameters": sum(p.numel() for p in model.parameters())}
+            say(f"serving artifact {name}: {nbytes} B ({arts[name]['params_bytes']} B of "
+                f"weights, {man['weights']}), exported in {export_s:.3f} s, loaded onto the "
+                f"card in {load_s:.3f} s; entry points {sorted(man['entry_points'])}")
+
+        # (b) loaded against in-process, batch 64
+        rs = np.random.RandomState(10)
+        S, Sm = cmeta["staging_size"], mmeta["staging_size"]
+        texts = [REPORTS[i % len(REPORTS)] * (1 + i % 5) for i in range(64)]
+        inputs = {
+            "image_embed": torch.from_numpy(
+                rs.randint(0, 256, (64, S, S, 3), dtype=np.uint8)).cuda(),
+            "text_embed": torch.from_numpy(
+                HashTokenizer(context_length=cmeta["context_length"])(texts)).cuda(),
+            "classify": torch.from_numpy(
+                rs.randint(0, 256, (64, Sm, Sm, 3), dtype=np.uint8)).cuda()}
+        for name, x in inputs.items():  # first calls: cuBLAS set-up, not counted
+            inproc[name](x)
+        raw_out = {}
+        for art, names in (("clip_raw", ("image_embed", "text_embed")),
+                           ("medmamba_raw", ("classify",))):
+            for name in names:
+                got = call(f"{art} {name}", name,
+                           lambda: arts[art]["served"][name](inputs[name]))
+                want = inproc[name](inputs[name])
+                if not torch.equal(got, want):
+                    fail(f"{art} {name}: the loaded artifact differs from make_serving_fns "
+                         f"by {float((got - want).abs().max()):.3e}")
+                if not torch.isfinite(got).all() or got.shape[0] != 64:
+                    fail(f"{art} {name}: bad output {tuple(got.shape)}")
+                raw_out[name] = got
+        stored = torch.load(os.path.join(arts["clip_int8"]["dir"], "params.pt"),
+                            weights_only=True)
+        again = compress_params(clip.state_dict(), clip)
+        if stored.keys() != again.keys() or not all(torch.equal(stored[k], again[k].cpu())
+                                                     for k in stored):
+            fail("the compressed artifact's tensors differ from compress_params of the "
+                 "raw weights")
+        n_int8 = sum(1 for k in stored if k.endswith(".__int8_cols__"))
+        clip.load_state_dict(decompress_params(stored))  # the in-process model, decompressed
+        cos = {}
+        for name in ("image_embed", "text_embed"):
+            got = call(f"clip_int8 {name}", name,
+                       lambda: arts["clip_int8"]["served"][name](inputs[name]))
+            want = inproc[name](inputs[name])
+            if not torch.equal(got, want):
+                fail(f"clip_int8 {name}: differs from the in-process model given the "
+                     f"decompressed weights by {float((got - want).abs().max()):.3e}")
+            cos[name] = float((got * raw_out[name]).sum(-1).min())
+        say(f"serving: the loaded artifacts bit for bit equal to make_serving_fns "
+            f"(image_embed, text_embed, classify at batch 64); {n_int8} int8 tensors equal "
+            f"to compress_params; lowest cosine compressed to raw {cos} (bound 0.999)")
+        if not all(c > 0.999 for c in cos.values()):
+            fail(f"the compressed artifact's embeddings: lowest cosine {cos}, bound 0.999")
+        del clip, mm, cfns, mfns, inproc, stored, again, raw_out, inputs
+        for a in arts.values():
+            a.pop("served")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) the HTTP host over each raw artifact: one request a device
+        # call, and the MicroBatcher at its default max_batch
+        hosts = {}
+        for art in ("clip_raw", "medmamba_raw"):
+            for max_batch in (1, 16):
+                srv = make_server(arts[art]["dir"], port=0, host="127.0.0.1",
+                                  max_batch=max_batch, device="cuda")
+                threading.Thread(target=srv.serve_forever, daemon=True).start()
+                servers.append(srv)
+                hosts[art, max_batch] = srv
+                status, body = http_request(srv, "GET", "/healthz")
+                health = json.loads(body) if status == 200 else {}
+                if health.get("status") != "ok" or health["manifest"]["weights"] != "raw":
+                    fail(f"/healthz of {art} (max_batch {max_batch}): {status} {body[:300]!r}")
+        # 16 JPEG bodies an image endpoint, 16 texts of distinct openings
+        pools = {"image_embed": jpeg_rows(16, S, 11), "classify": jpeg_rows(16, Sm, 12),
+                 "text_embed": [json.dumps({"texts": [f"Case {i}. {t}"]}).encode()
+                                for i, t in enumerate(texts[:16])]}
+        shapes = sorted({_bucket(1 << k) for k in range(5)})  # the batcher's, up to 16
+        endpoints = {}
+        for name, path, art in (("image_embed", "/embed_image", "clip_raw"),
+                                ("text_embed", "/embed_text", "clip_raw"),
+                                ("classify", "/classify", "medmamba_raw")):
+            one, many = hosts[art, 1], hosts[art, 16]
+            tol = SERVE_BATCHED_ATOL[name]
+
+            def row_of(body, srv=one, name=name):
+                """The entry point's input row of one request body, as the host makes it."""
+                if name == "text_embed":
+                    return np.asarray(srv.served["tokenize"](json.loads(body)["texts"]))
+                return srv.decode(body)[None]
+
+            # each body's answer at every batch shape the batcher dispatches:
+            # its row repeated to that shape, the first row's answer kept
+            cands = []
+            for body in pools[name]:
+                x = row_of(body)
+                by_shape = {}
+                for b in shapes:
+                    out = call(f"{name} direct call at batch {b}", name,
+                               lambda x=x, b=b: one.served[name](np.repeat(x, b, axis=0)))
+                    by_shape[b] = out[:1].cpu().numpy()
+                    if name != "text_embed":  # an image's answer is its row; texts' a list
+                        by_shape[b] = by_shape[b][0]
+                cands.append(by_shape)
+            shape_noise = max(float(np.abs(c[b] - c[1]).max()) for c in cands for b in shapes)
+            apart = min(float(np.abs(ci[1] - cj[1]).max())
+                        for i, ci in enumerate(cands) for cj in cands[:i])
+            shared = [(i, j) for i, ci in enumerate(cands) for j, cj in enumerate(cands[:i])
+                      if any(np.array_equal(ci[b], cj[c]) for b in shapes for c in shapes)]
+            say(f"http {path}: 16 rows; their answers at batch {shapes} lie within "
+                f"{shape_noise:.3e} of the direct call (bound {tol:g}); the closest two rows' "
+                f"direct answers {apart:.3e} apart; rows sharing an answer: {shared}")
+            if shared or not shape_noise <= tol:
+                fail(f"http {path}: rows {shared} share an answer, or the batch shapes move an "
+                     f"answer by {shape_noise:.3e} (bound {tol:g}): a request answered from "
+                     "another row could pass")
+            # one request a device call: bit for bit the direct call of its row
+            r, counts, bodies = counted(
+                lambda: http_load(one, path, pools[name], cands, 1, 1.0, 0.0, (1,)))
+            check(f"{name} max_batch=1", name, r["requests"], counts, bodies)
+            res = {"max_batch_1": r, "batch_shape_noise": shape_noise,
+                   "closest_rows_apart": apart}
+            # the MicroBatcher: each bucket shape once, then 1, 4 and 16 clients
+            mb = many.batchers[name]
+            warm = ([json.loads(pools[name][0])["texts"][0]] if name == "text_embed"
+                    else pools[name][0])
+            n_shapes, counts, bodies = counted(lambda: warm_buckets(many, name, warm, 16))
+            check(f"{name} warm_buckets", name, n_shapes, counts, bodies)
+            for clients in (1, 4, 16):
+                r0, b0, k0 = mb.requests, mb.batches, len(mb.batch_rows)
+                r, counts, bodies = counted(lambda: http_load(
+                    many, path, pools[name], cands, clients, 2.0, tol, shapes))
+                n_batches = mb.batches - b0
+                check(f"{name} at concurrency {clients}", name, n_batches, counts, bodies)
+                if mb.requests - r0 != r["requests"]:
+                    fail(f"{name}: the batcher answered {mb.requests - r0} requests, the "
+                         f"clients counted {r['requests']}")
+                r.update(batches=n_batches, requests_per_batch=r["requests"] / n_batches,
+                         padded_rows_per_batch=float(np.mean(mb.batch_rows[k0:])))
+                res[f"c{clients}"] = r
+                say(f"http {path} clients={clients}: {r['req_per_s']:.1f} req/s, p50 "
+                    f"{r['p50_ms']:.2f} p95 {r['p95_ms']:.2f} p99 {r['p99_ms']:.2f} ms, "
+                    f"{r['requests_per_batch']:.2f} requests a batch ({n_batches} batches); "
+                    f"every answer a 200, bit for bit its row's at a batch shape, at most "
+                    f"{r['max_abs_err_to_direct']:.3e} off its direct call (bound {tol:g})")
+            say(f"http {path} max_batch=1: {res['max_batch_1']['requests']} requests, p50 "
+                f"{res['max_batch_1']['p50_ms']:.2f} ms, each bit for bit its direct call")
+            endpoints[name] = res
+
+        # JAX's 404 message for an unknown path; a malformed body is a 400
+        srv = hosts["clip_raw", 16]
+        probes = {}
+        for what, method, path, body, code, want in (
+                ("unknown POST", "POST", "/classify", pools["image_embed"][0], 404,
+                 "no handler for POST /classify (entry points: ['image_embed', "
+                 "'text_embed'])"),
+                ("unknown GET", "GET", "/nope", None, 404, "no handler for GET /nope"),
+                ("malformed JSON", "POST", "/embed_text", b"not json", 400, None),
+                ("truncated JPEG", "POST", "/embed_image", pools["image_embed"][0][:200],
+                 400, None)):
+            (status, out), counts, bodies = counted(
+                lambda: http_request(srv, method, path, body))
+            check(what, "image_embed", 0, counts, bodies)
+            err = json.loads(out).get("error", "")
+            if status != code or (want is not None and err != want) or not err:
+                fail(f"http {what}: {status} {out[:300]!r}, expected {code} {want!r}")
+            probes[what] = f"{status} {err}"
+        say(f"http probes: {probes}")
+
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        stuck = [name for srv in servers for name, b in srv.batchers.items()
+                 if isinstance(b, MicroBatcher) and (b._thread.is_alive()
+                                                     or b._completer.is_alive())]
+        servers = []
+        if stuck:
+            fail(f"the batchers of {stuck} still run after server_close")
+    finally:
+        for srv in servers:
+            srv.shutdown()
+            srv.server_close()
+        shutil.rmtree(work, ignore_errors=True)
+
+    line = {"card": card,
+            "artifacts": {name: {k: a[k] for k in ("bytes", "params_bytes", "weights",
+                                                   "parameters", "export_s", "load_s")}
+                          for name, a in arts.items()},
+            "int8_tensors": n_int8, "lowest_cosine_int8_to_raw": cos,
+            "fastimage_available": fastimage.available(),
+            "pil_available": importlib.util.find_spec("PIL") is not None, "payload": "jpeg",
+            "max_batch": 16, "max_delay_ms": 5.0, "endpoints": endpoints, "probes": probes,
+            "launches": total}
+    return line, total, total_bodies
 
 
 def main(argv=None) -> None:
@@ -2259,7 +2695,15 @@ def main(argv=None) -> None:
                     phase13_ms_per_step=1e3 * m2["batch_time_last"])
     say(json.dumps({"cli": cli_line}))
 
-    # 15. kernels line, then the device line. Each attention kernel as two
+    # 15. serving artifacts and the HTTP host: export, load and serve over
+    # loopback through mamba_clip_tpu_torch.serve_http
+    gc.collect()
+    torch.cuda.empty_cache()
+    http_line, http_launches, http_bodies = serving_phase(card, reset_counts, read_counts,
+                                                          flash_bodies)
+    say(json.dumps({"serving_http": http_line}))
+
+    # 16. kernels line, then the device line. Each attention kernel as two
     # entries, one a body: the tensor cores (bf16: what serving and training
     # under amp run, its launches from the main path) and the CUDA cores
     # (fp32, its launches from phase 10's fp32 step), each timed at the
@@ -2276,8 +2720,9 @@ def main(argv=None) -> None:
                    "medmamba_clip_text_embed": mm_bodies["text_embed"],
                    "clip_train_accum2_checkpointed": accum_bodies,
                    "medmamba_clip_train": mm_train_bodies, "clip_train_fp32": fp32_bodies,
-                   "cli": cli_bodies}
-    main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2", "cli"),
+                   "cli": cli_bodies, "serving_http": http_bodies}
+    main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2", "cli",
+                          "serving_http"),
                   "dkv": ("clip_train", "epoch_stage1", "cli"),
                   "dq": ("clip_train", "epoch_stage1", "cli")}
     flash_launches = {key: {"tensor_cores": sum(flash_paths[p][key]["tensor_cores"]
@@ -2356,10 +2801,11 @@ def main(argv=None) -> None:
         "route": "cuda",
         "source": "src/mamba_clip_tpu_torch/csrc/selective_scan_fwd.cu",
         "replaces": "src/mamba_clip_tpu/ops/selective_scan.py:194",
-        "launches": launches + train_fwd + cli_launches["scan_fwd"],
+        "launches": launches + train_fwd + cli_launches["scan_fwd"] + http_launches["scan_fwd"],
         "launches_by_path": {"serve": launches, "train": train_fwd, "clip_serve": clip_scans,
                              "medmamba_clip_image_embed": mm_launches["image_embed"]["scan"],
-                             "cli": cli_launches["scan_fwd"]},
+                             "cli": cli_launches["scan_fwd"],
+                             "serving_http": http_launches["scan_fwd"]},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": fwd_k,
@@ -2375,7 +2821,8 @@ def main(argv=None) -> None:
         "replaces": "src/mamba_clip_tpu/ops/selective_scan.py:243",
         "launches": train_bwd + cli_launches["scan_bwd"],
         "launches_by_path": {"serve": serve_bwd, "train": train_bwd,
-                             "cli": cli_launches["scan_bwd"]},
+                             "cli": cli_launches["scan_bwd"],
+                             "serving_http": http_launches["scan_bwd"]},
         "max_abs_err": bwd_abs,
         "max_rel_err": bwd_rel,
         "ms": bwd_k_step,

@@ -237,6 +237,17 @@ def _flax_leaves(module: nn.Module):
             yield "/".join(path + [name]), name, t
 
 
+def flax_leaf_names(module: nn.Module) -> Dict[str, str]:
+    """The Flax leaf name (``kernel``, ``embedding``, ``scale``, ``bias`` or a
+    raw name) of each parameter of ``module``, by its state-dict key."""
+    out = {}
+    for mod_name, mod in module.named_modules():
+        for leaf, _ in mod.named_parameters(recurse=False):
+            key = f"{mod_name}.{leaf}" if mod_name else leaf
+            out[key] = _flax_leaf_name(mod, leaf, key)
+    return out
+
+
 def flax_shapes(module: nn.Module) -> Dict[str, Tuple[int, ...]]:
     """The Flax shape of each parameter of ``module``, by Flax path."""
     return {key: _flax_value(name, np.empty(tuple(t.shape), np.bool_)).shape

@@ -12,9 +12,10 @@ Item contract: ``dict(image=uint8 (S, S, 3), tokens=int32 (context,),
 target=int32)``; the host stage makes the square staging array only, all
 augmentation runs on the device (``ops/preprocess.py``).
 
-The real-data readers (``IsicChallengeDataset`` over HDF5 or JPEG files,
-``StagingCache``, the native JPEG decoder) need pandas, PIL, h5py and
-libjpeg and are not ported (ROADMAP.md).
+``_decode_to_square`` (PIL, imported inside) decodes a JPEG for the HTTP
+host where the native decoder (``fastimage.py``) is unavailable. The
+real-data readers (``IsicChallengeDataset`` over HDF5 or JPEG files,
+``StagingCache``) need pandas and h5py and are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -24,6 +25,22 @@ from typing import Dict, Mapping
 import numpy as np
 
 from .report_gen import generate_report
+
+
+def _decode_to_square(img, staging: int) -> np.ndarray:
+    """PIL image -> RGB uint8 (staging, staging, 3): keep-ratio resize of the
+    shorter side then center crop."""
+    from PIL import Image
+
+    img = img.convert("RGB")
+    w, h = img.size
+    scale = staging / min(w, h)
+    nw, nh = max(int(round(w * scale)), staging), max(int(round(h * scale)), staging)
+    img = img.resize((nw, nh), Image.BILINEAR)
+    left = (nw - staging) // 2
+    top = (nh - staging) // 2
+    img = img.crop((left, top, left + staging, top + staging))
+    return np.asarray(img, dtype=np.uint8)
 
 
 class ColumnTable:

@@ -1,0 +1,86 @@
+"""Export a trained model as a serving artifact.
+
+Counterpart of ``tools/export_serving.py``, with the same flags: load the
+weights from a checkpoint of the port (as the training pipeline writes
+it), then write the artifact (``serving.export_serving``: the state dict,
+the manifest and the tokenizer) for ``serving.load_serving`` and the HTTP
+host (``serve_http.py``).
+
+Usage:
+    python -m mamba_clip_tpu_torch.export_serving --out DIR \\
+        [--model biomedclip|medmamba|mambavision] [--clip] \\
+        [--checkpoint <checkpoint dir, e.g. .../stage_1_epoch_latest>] \\
+        [--num-classes 2] [--image-size 224] [--compress-weights] \\
+        [--tokenizer <vocab.txt or tokenizer dir>]
+
+Without ``--checkpoint`` it exports a fresh init (seed 0).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--out", required=True)
+    p.add_argument("--model", default="biomedclip")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint dir of this package to load params from")
+    p.add_argument("--quant", default=None,
+                   help="the int8 modes are not ported (ROADMAP.md, Queue 1, item 7): "
+                        "any value raises")
+    p.add_argument("--num-classes", type=int, default=2)
+    p.add_argument("--image-size", type=int, default=224)
+    p.add_argument("--context-length", type=int, default=256)
+    p.add_argument("--precision", default="amp")
+    p.add_argument("--platforms", nargs="*", default=None,
+                   help="recorded in the manifest only: the artifact is a state dict "
+                        "that the module code runs on any device, so nothing is "
+                        "lowered for a target (default: this process's platform)")
+    p.add_argument("--data-shards", type=int, default=1,
+                   help="data-parallel artifacts are not ported (ROADMAP.md, Queue 1, "
+                        "item 8): above 1 raises")
+    p.add_argument("--tokenizer", default=None,
+                   help="local tokenizer dir/vocab.txt to ship with the "
+                        "artifact (text serving needs it host-side)")
+    p.add_argument("--compress-weights", action="store_true",
+                   help="store large 2-D kernels and embedding tables as int8 "
+                        "with one fp32 scale a row (about 4x smaller)")
+    p.add_argument("--scan-impl", default=None,
+                   help="selective-scan impl for VSSM exports: default "
+                        "(the kernel on the card, the plain loop on the CPU), "
+                        "cuda or plain")
+    p.add_argument("--clip", action="store_true",
+                   help="export CLIP tower entry points (image_embed/"
+                        "text_embed) for mamba-family names, which "
+                        "otherwise resolve to the classifier zoo")
+    a = p.parse_args(argv)
+
+    from .serving import export_serving, make_serving_fns
+
+    kw = dict(quant=a.quant, num_classes=a.num_classes,
+              image_size=a.image_size, context_length=a.context_length,
+              precision=a.precision, scan_impl=a.scan_impl, is_clip=a.clip)
+
+    variables = None
+    if a.checkpoint:
+        from .checkpoint import load_params_only
+
+        model, _, _ = make_serving_fns(a.model, device="cpu", **kw)
+        variables = load_params_only(os.path.abspath(a.checkpoint), model).state_dict()
+
+    manifest = export_serving(
+        a.out, a.model, variables=variables, data_shards=a.data_shards,
+        tokenizer=a.tokenizer, compress_weights=a.compress_weights,
+        platforms=tuple(a.platforms) if a.platforms else None, **kw)
+    total = sum(os.path.getsize(os.path.join(a.out, f))
+                for f in os.listdir(a.out) if os.path.isfile(os.path.join(a.out, f)))
+    print(f"exported {sorted(manifest['entry_points'])} for "
+          f"{manifest['platforms']} to {a.out} ({total / 1e6:.1f} MB)")
+    return manifest
+
+
+if __name__ == "__main__":
+    main()

@@ -84,7 +84,8 @@ class TextBert(nn.Module):
         self.pad_id = pad_id
         self.grad_checkpointing = grad_checkpointing
         self.dtype = dtype
-        self.tok_emb = nn.Embedding(vocab_size, width, device="meta").to_empty(device="cpu")
+        self.tok_emb = nn.Embedding(vocab_size, width, device="meta").to_empty(
+            device=torch.get_default_device())
         with torch.no_grad():
             self.tok_emb.weight.normal_(0.0, 0.02, generator=g)
         self.pos_emb = _normal_param((1, context_length, width), 0.02, g)

@@ -53,8 +53,10 @@ def remat(fn, *args, **kwargs):
 
 def _dense(d_in: int, d_out: int, generator, bias: bool = True) -> nn.Linear:
     """``nn.Dense``: lecun_normal kernel, zero bias (made without
-    ``nn.Linear``'s own init, which would be drawn and thrown away)."""
-    layer = nn.Linear(d_in, d_out, bias=bias, device="meta").to_empty(device="cpu")
+    ``nn.Linear``'s own init, which would be drawn and thrown away), on the
+    default device: the CPU, or no storage under ``torch.device("meta")``."""
+    layer = nn.Linear(d_in, d_out, bias=bias, device="meta").to_empty(
+        device=torch.get_default_device())
     _lecun_normal_(layer.weight, generator)
     if bias:
         nn.init.zeros_(layer.bias)

@@ -2,8 +2,8 @@
 
 A copy of ``_bucket`` and ``MicroBatcher`` from ``tools/serve_http.py``:
 concurrent requests are coalesced into one device call, padded to a power
-of two, and the results fanned back out. The HTTP handler and its JPEG
-decode are not ported yet (ROADMAP.md).
+of two, and the results fanned back out. The HTTP host over them, with its
+JPEG decode, is ``serve_http.py``.
 """
 
 from __future__ import annotations
