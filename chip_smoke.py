@@ -230,13 +230,35 @@ on failure:
    and padded rows a batch and the largest distance to the direct call;
    the artifacts' bytes and seconds; whether ``fastimage`` builds here and
    PIL imports, the host's two JPEG decoders);
-16. prints the kernels line (nine entries: the two scan kernels, the
+16. the recipe on real files: behind a ``find_spec("PIL")`` check (without
+   PIL the phase says what it skipped and fails), writes an ISIC-2024
+   layout in a temp dir (``train-metadata.csv``: ``synthetic_metadata(640,
+   16)``; a label-free ``test-metadata.csv`` of 64 rows; 704 1024-px JPEGs
+   in ``train-image/image``; both CSVs with the csv module) and runs the
+   CLI's main() over it with phase 14's flags less ``--synthetic-data``,
+   ``--attn-impl flash`` and ``--workers 4`` at batch 64: (a) stage 1 with
+   ``--undersample 320 --add-remaining-samples --cache-staging``, 2
+   epochs; (b) stage 2 from it, 1 epoch; (c) ``--is-test --stage 2
+   --resume latest`` on (b)'s run. Gates: the flash launches of phase 14 a
+   step and a batch (24 + 24 + 24 a stage-1 step, 24 a stage-2 step, 24 an
+   eval batch), all on the tensor cores; finite losses; the splits each
+   run built equal to what ``get_metadata`` -> ``undersample_data`` give
+   for the CSV (64 rows for the test split); every square read from the
+   staging cache (stage 1's epoch 2 and second evaluation, all of stage 2)
+   bit for bit the decode of the same id, and stage 2 decoding none;
+   ``submission.csv`` the 64 test ids in order with probabilities in [0,
+   1]. Prints a ``real_data`` JSON line: each run's wall seconds, the
+   loop's ``data:`` and ``batch:`` meters and ms a step for each epoch
+   (JPEG decode, then the cache) beside phases 12-14's synthetic ones,
+   decodes and cache reads, eval rows/s, ``get_metadata`` seconds, and the
+   train loader alone's ms a batch decoding JPEGs and from the cache;
+17. prints the kernels line (nine entries: the two scan kernels, the
    roofline's chain kernel, and each flash kernel as two entries, one a
    body: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
    from the main path, and ``..._cuda_cores``, fp32, whose launches come
    from phase 10's fp32 step; the main path's launches include phases
-   14 and 15's; a body launched no time fails. Each flash
+   14, 15 and 16's; a body launched no time fails. Each flash
    entry is timed at the towers' shapes in its type beside the plain
    version and the library's, with its bound from the data sheet and from
    the ceilings phase 11 measured, its shares of both, and its instances;
@@ -559,6 +581,67 @@ def observe_cli(pipeline_mod, read_counts, read_bodies):
     return rec, undo
 
 
+def run_cli(counters, what, argv, raises=None):
+    """``cli.main.main(argv)`` with every count set to 0 just before and read
+    just after, observed by ``observe_cli``; with ``raises``, the exception
+    it must raise. ``counters``: (reset_counts, read_counts, flash_bodies)."""
+    import torch
+
+    from mamba_clip_tpu_torch import pipeline as port_pipeline
+    from mamba_clip_tpu_torch.cli.main import main as cli_main
+
+    reset_counts, read_counts, flash_bodies = counters
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_counts()
+    rec, undo = observe_cli(port_pipeline, read_counts, flash_bodies)
+    t0 = time.perf_counter()
+    try:
+        rec["metrics"] = cli_main(argv)
+        if raises is not None:
+            fail(f"cli {what}: returned {rec['metrics']} where it must raise {raises}")
+    except Exception as e:  # a probe's exception is its result; any other fails
+        if raises is None or not isinstance(e, raises):
+            fail(f"cli {what}: {type(e).__name__}: {e}")
+        rec["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["total"], rec["total_bodies"] = read_counts(), flash_bodies()
+    rec["lines"] = rec["lines"].lines
+    say(f"cli {what}: {rec['wall_s']:.1f} s, {len(rec['steps'])} steps, launches a "
+        f"step {[st['launches'] for st in rec['steps']]}, evaluations "
+        f"{[ev['launches'] for ev in rec['evals']]}, in all {rec['total']}; saves "
+        f"{[round(x, 2) for x in rec['saves']]} s; "
+        f"{rec.get('metrics', rec.get('error'))}")
+    return rec
+
+
+def check_cli_steps(rec, what, n, want_step, want_eval, eval_batches):
+    """The gates on a CLI run's launches: ``n`` train steps, each launching
+    exactly ``want_step``; every evaluation ``eval_batches`` batches of
+    ``want_eval``; every flash launch on the tensor cores; finite losses."""
+    import numpy as np
+
+    no_launch = {k: 0 for k in rec["total"]}
+    steps = [st["launches"] for st in rec["steps"]]
+    if len(steps) != n or any(st != {**no_launch, **want_step} for st in steps):
+        fail(f"cli {what}: launches a step {steps}, expected {n} x {want_step}")
+    if not rec["evals"]:
+        fail(f"cli {what}: no evaluation")
+    want = {**no_launch, **{k: v * eval_batches for k, v in want_eval.items()}}
+    for ev in rec["evals"]:
+        if ev["launches"] != want:
+            fail(f"cli {what}: an evaluation launched {ev['launches']}, expected "
+                 f"{eval_batches} x {want_eval}")
+    tc = [st["bodies"] for st in rec["steps"]] + [ev["bodies"] for ev in rec["evals"]]
+    if any(b["cuda_cores"] for by in tc for b in by.values()):
+        fail(f"cli {what}: a flash launch on the CUDA cores: {tc}")
+    if not all(np.isfinite(st["loss"]) for st in rec["steps"]):
+        fail(f"cli {what}: losses {[st['loss'] for st in rec['steps']]}")
+
+
 def cli_phase(card, reset_counts, read_counts, flash_bodies):
     """Phase 14: the CLI's main() drives (a) a converted checkpoint written
     and loaded, (b) stage 1 from it, (c) stage 2 finding (b)'s run, (d) (c)
@@ -569,14 +652,13 @@ def cli_phase(card, reset_counts, read_counts, flash_bodies):
     import numpy as np
     import torch
 
-    from mamba_clip_tpu_torch import pipeline as port_pipeline
     from mamba_clip_tpu_torch.checkpoint import load_torch_clip
-    from mamba_clip_tpu_torch.cli.main import main as cli_main
     from mamba_clip_tpu_torch.convert import write_converted_npz
     from mamba_clip_tpu_torch.serving import make_serving_fns
     from mamba_clip_tpu_torch.utils.precision import _POLICIES
 
     no_launch = {k: 0 for k in read_counts()}
+    counters = (reset_counts, read_counts, flash_bodies)
     cli_work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         logs = os.path.join(cli_work, "logs")
@@ -586,53 +668,15 @@ def cli_phase(card, reset_counts, read_counts, flash_bodies):
                  "--grad-clip-norm", "1.0", "--attn-impl", "flash", "--logs", logs]
 
         def cli_run(what, argv, raises=None):
-            """``cli_main(argv)`` with every count set to 0 just before and
-            read just after; with ``raises``, the exception it must raise."""
-            gc.collect()
-            torch.cuda.empty_cache()
-            reset_counts()
-            rec, undo = observe_cli(port_pipeline, read_counts, flash_bodies)
-            t0 = time.perf_counter()
-            try:
-                rec["metrics"] = cli_main(argv)
-                if raises is not None:
-                    fail(f"cli {what}: returned {rec['metrics']} where it must raise {raises}")
-            except Exception as e:  # a probe's exception is its result; any other fails
-                if raises is None or not isinstance(e, raises):
-                    fail(f"cli {what}: {type(e).__name__}: {e}")
-                rec["error"] = f"{type(e).__name__}: {e}"
-            finally:
-                undo()
-            torch.cuda.synchronize()
-            rec["wall_s"] = time.perf_counter() - t0
-            rec["total"], rec["total_bodies"] = read_counts(), flash_bodies()
-            rec["lines"] = rec["lines"].lines
-            say(f"cli {what}: {rec['wall_s']:.1f} s, {len(rec['steps'])} steps, launches a "
-                f"step {[st['launches'] for st in rec['steps']]}, evaluations "
-                f"{[ev['launches'] for ev in rec['evals']]}, in all {rec['total']}; saves "
-                f"{[round(x, 2) for x in rec['saves']]} s; "
-                f"{rec.get('metrics', rec.get('error'))}")
-            return rec
+            return run_cli(counters, what, argv, raises)
 
         def has_line(rec, line, what):
             if line not in rec["lines"]:
                 fail(f"cli {what}: no log line {line!r} among {rec['lines'][:40]}")
 
         def check_steps(rec, what, n, want_step, want_eval):
-            steps = [st["launches"] for st in rec["steps"]]
-            if len(steps) != n or any(st != {**no_launch, **want_step} for st in steps):
-                fail(f"cli {what}: launches a step {steps}, expected {n} x {want_step}")
-            if not rec["evals"]:
-                fail(f"cli {what}: no evaluation")
-            for ev in rec["evals"]:  # 64 validation samples: one batch of 64
-                if ev["launches"] != {**no_launch, **want_eval}:
-                    fail(f"cli {what}: an evaluation launched {ev['launches']}, expected "
-                         f"{want_eval}")
-            tc = [st["bodies"] for st in rec["steps"]] + [ev["bodies"] for ev in rec["evals"]]
-            if any(b["cuda_cores"] for by in tc for b in by.values()):
-                fail(f"cli {what}: a flash launch on the CUDA cores: {tc}")
-            if not all(np.isfinite(st["loss"]) for st in rec["steps"]):
-                fail(f"cli {what}: losses {[st['loss'] for st in rec['steps']]}")
+            # 64 validation samples: one batch of 64
+            check_cli_steps(rec, what, n, want_step, want_eval, eval_batches=1)
 
         # (a) a converted checkpoint: full-width BiomedCLIP from seed 1 written as the
         # .npz of tools/convert_weights.py with numpy alone, loaded into seed 2's model
@@ -1164,6 +1208,244 @@ def serving_phase(card, reset_counts, read_counts, flash_bodies):
             "max_batch": 16, "max_delay_ms": 5.0, "endpoints": endpoints, "probes": probes,
             "launches": total}
     return line, total, total_bodies
+
+
+def write_isic_layout(data_dir, n_train, n_test, side, seed):
+    """An ISIC-2024 layout under ``data_dir``: ``train-metadata.csv``
+    (``synthetic_metadata(n_train, seed)``), a label-free
+    ``test-metadata.csv`` of ``n_test`` rows with ids of their own, and
+    ``train-image/image/<isic_id>.jpg`` for every id: ``side``-square JPEGs
+    (PIL, quality 92) of a smooth field, bicubic from a 4 x 4 grid, with
+    noise of +-3 levels, written by 8 threads. Both CSVs are written with
+    the csv module (``write_csv``, pandas' ``to_csv`` text). Returns (the
+    test ids, the JPEGs' sizes in bytes)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from mamba_clip_tpu_torch.data.dataset import ColumnTable, synthetic_metadata
+    from mamba_clip_tpu_torch.data.metadata import write_csv
+
+    img_dir = os.path.join(data_dir, "train-image", "image")
+    os.makedirs(img_dir)
+    train = synthetic_metadata(n_train, seed)
+    write_csv(train, os.path.join(data_dir, "train-metadata.csv"))
+    rows = synthetic_metadata(n_test, seed + 1)
+    test_ids = [f"ISIC_9{i:06d}" for i in range(n_test)]
+    write_csv(ColumnTable({"isic_id": test_ids, **{
+        c: rows[c] for c in rows.columns if c not in ("isic_id", "target")}}),
+        os.path.join(data_dir, "test-metadata.csv"))
+    ids = list(train["isic_id"]) + test_ids
+
+    def write(k):
+        rng = np.random.default_rng((seed, k))
+        grid = Image.fromarray(rng.integers(0, 256, (4, 4, 3), dtype=np.uint8))
+        field = np.asarray(grid.resize((side, side), Image.BICUBIC), np.int16)
+        noisy = field + rng.integers(-3, 4, (side, side, 3), dtype=np.int16)
+        buf = io.BytesIO()
+        Image.fromarray(np.clip(noisy, 0, 255).astype(np.uint8)).save(buf, format="JPEG",
+                                                                       quality=92)
+        with open(os.path.join(img_dir, f"{ids[k]}.jpg"), "wb") as f:
+            f.write(buf.getvalue())
+        return len(buf.getvalue())
+
+    with ThreadPoolExecutor(8) as pool:
+        sizes = list(pool.map(write, range(len(ids))))
+    return test_ids, sizes
+
+
+def real_data_phase(card, reset_counts, read_counts, flash_bodies, synthetic):
+    """Phase 16: the README's recipe on files in the ISIC-2024 layout
+    (``write_isic_layout``: 640 train rows, 64 label-free test rows, 1024-px
+    JPEGs) through the CLI's main(), full-width BiomedCLIP under
+    ``--attn-impl flash`` at batch 64, ``--workers 4``: (a) stage 1,
+    ``--undersample 320 --add-remaining-samples --cache-staging``, 2 epochs
+    (the first decodes the JPEGs, the second reads the staging cache);
+    (b) stage 2 from (a)'s run, 1 epoch; (c) ``--is-test --stage 2
+    --resume latest`` on (b)'s run, which writes ``submission.csv``. Gates
+    as the module docstring says. ``synthetic``: phases 12-14's figures,
+    printed beside this phase's. Returns (the ``real_data`` line's fields,
+    the runs' launches by counter, their flash launches by body)."""
+    import csv
+    import hashlib
+
+    import numpy as np
+
+    from mamba_clip_tpu_torch import pipeline as port_pipeline
+    from mamba_clip_tpu_torch.config import parse_args
+    from mamba_clip_tpu_torch.data.dataset import IsicChallengeDataset
+    from mamba_clip_tpu_torch.data.loader import get_data
+    from mamba_clip_tpu_torch.data.metadata import get_metadata, undersample_data
+    from mamba_clip_tpu_torch.data.tokenizer import HashTokenizer
+
+    if importlib.util.find_spec("PIL") is None:
+        say("real data: SKIPPED: phase 16 writes and decodes JPEGs with PIL, which is not "
+            "installed; the ISIC recipe did not run")
+        fail("phase 16 (the recipe on real files) cannot run without PIL")
+    counters = (reset_counts, read_counts, flash_bodies)
+    work = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    try:
+        data_dir = os.path.join(work, "isic")
+        t0 = time.perf_counter()
+        test_ids, sizes = write_isic_layout(data_dir, 640, 64, 1024, seed=16)
+        write_s = time.perf_counter() - t0
+        say(f"real data: wrote {len(sizes)} 1024-px JPEGs (quality 92), mean "
+            f"{np.mean(sizes):.0f} bytes (min {min(sizes)}, max {max(sizes)}), and both "
+            f"CSVs in {write_s:.1f} s")
+        base = ["--data-path", f"{data_dir}/", "--batch-size", "64", "--workers", "4",
+                "--warmup", "2", "--lr", "1e-4", "--precision", "amp", "--save-most-recent",
+                "--save-frequency", "0", "--log-every-n-steps", "1", "--grad-clip-norm", "1.0",
+                "--attn-impl", "flash", "--tokenizer", "hash", "--undersample", "320",
+                "--add-remaining-samples", "--cache-staging", os.path.join(work, "cache"),
+                "--logs", os.path.join(work, "logs")]
+        argv = {"stage1": base + ["--stage", "1", "--epochs", "2"],
+                "stage2": base + ["--stage", "2", "--epochs", "1", "--name", "s2"],
+                "is_test": base + ["--stage", "2", "--epochs", "1", "--name", "s2",
+                                   "--is-test", "--resume", "latest"]}
+        # the splits the port's metadata layer gives for these flags
+        args = parse_args(argv["stage1"])
+        train_md, val_md, _ = get_metadata(args)
+        train_md, val_md = undersample_data(args, train_md, val_md)
+        want_sizes = {"train": len(train_md), "val": len(val_md)}
+
+        # observers, as observe_cli's: get_metadata's seconds, the splits
+        # get_data made, and each staging square decoded or read from the cache
+        seen = {"metadata_s": [], "splits": [], "decoded": {}, "hits": [], "decode_s": []}
+        lock = threading.Lock()
+        orig = {"get_metadata": port_pipeline.get_metadata, "get_data": port_pipeline.get_data,
+                "load": IsicChallengeDataset._load_image}
+
+        def timed_metadata(*a, **k):
+            t0 = time.perf_counter()
+            out = orig["get_metadata"](*a, **k)
+            seen["metadata_s"].append(time.perf_counter() - t0)
+            return out
+
+        def sized_data(*a, **k):
+            out = orig["get_data"](*a, **k)
+            seen["splits"].append({s: len(d.loader.dataset) for s, d in out.items()})
+            return out
+
+        def load(self, isic_id, idx=None):
+            hit = self.cache is not None and idx is not None and bool(self.cache.done[idx])
+            t0 = time.perf_counter()
+            out = orig["load"](self, isic_id, idx)
+            dt = time.perf_counter() - t0
+            digest = hashlib.sha1(np.ascontiguousarray(out)).hexdigest()
+            with lock:
+                if hit:
+                    seen["hits"].append(((self.is_train, isic_id), digest))
+                else:
+                    seen["decoded"][(self.is_train, isic_id)] = digest
+                    seen["decode_s"].append(dt)
+            return out
+
+        port_pipeline.get_metadata, port_pipeline.get_data = timed_metadata, sized_data
+        IsicChallengeDataset._load_image = load
+        runs = {}
+        try:
+            for name in ("stage1", "stage2", "is_test"):
+                n_hits, n_dec = len(seen["hits"]), len(seen["decode_s"])
+                runs[name] = run_cli(counters, f"real data {name}", argv[name])
+                hits = seen["hits"][n_hits:]
+                runs[name]["hits"] = {"train": sum(1 for (tr, _), _ in hits if tr),
+                                      "eval": sum(1 for (tr, _), _ in hits if not tr)}
+                runs[name]["decodes"] = len(seen["decode_s"]) - n_dec
+                runs[name]["decode_ms"] = 1e3 * float(np.mean(seen["decode_s"][n_dec:] or [0]))
+        finally:
+            port_pipeline.get_metadata, port_pipeline.get_data = (orig["get_metadata"],
+                                                                  orig["get_data"])
+            IsicChallengeDataset._load_image = orig["load"]
+
+        # gates: the launches of phase 14 a step and a batch, on the tensor cores
+        n_val_batches = -(-want_sizes["val"] // 64)
+        check_cli_steps(runs["stage1"], "real data stage 1", 2 * (want_sizes["train"] // 64),
+                        {"fwd": 24, "dkv": 24, "dq": 24}, {"fwd": 24}, n_val_batches)
+        check_cli_steps(runs["stage2"], "real data stage 2", want_sizes["train"] // 64,
+                        {"fwd": 24}, {"fwd": 24}, n_val_batches)
+        check_cli_steps(runs["is_test"], "real data --is-test", 0, {}, {"fwd": 24}, 1)
+        # the splits each run built
+        splits = seen["splits"]
+        if splits != [want_sizes, want_sizes, {"test": 64}]:
+            fail(f"real data: the runs built splits {splits}; get_metadata -> "
+                 f"undersample_data give {want_sizes} and the test CSV 64 rows")
+        # epoch 2 (and stage 2) read the squares epoch 1 decoded, bit for bit.
+        # Each epoch draws (train // 64) * 64 of the train rows, so at least
+        # twice that less the split's size were drawn in both epochs; the
+        # second evaluation reads every validation square from the cache.
+        wrong = [key for key, d in seen["hits"] if seen["decoded"].get(key) != d]
+        hits1 = runs["stage1"]["hits"]
+        drawn = (want_sizes["train"] // 64) * 64
+        if (wrong or hits1["train"] < 2 * drawn - want_sizes["train"]
+                or hits1["eval"] != want_sizes["val"] or runs["stage2"]["decodes"]):
+            fail(f"real data: {len(wrong)} cached squares differ from (or were never) their "
+                 f"decodes, e.g. {wrong[:3]}; stage 1 read {hits1} from the cache (at least "
+                 f"{2 * drawn - want_sizes['train']} train, {want_sizes['val']} eval); stage 2 "
+                 f"decoded {runs['stage2']['decodes']} again")
+        # submission.csv: the 64 test ids in order, probabilities in [0, 1]
+        sub_path = os.path.join(work, "logs", "s2", "checkpoints", "submission.csv")
+        with open(sub_path, newline="") as f:
+            sub = list(csv.reader(f))
+        probs = [float(p) for _, p in sub[1:]]
+        if (sub[0] != ["isic_id", "target"] or [r[0] for r in sub[1:]] != test_ids
+                or not all(0.0 <= p <= 1.0 for p in probs)):
+            fail(f"real data: submission.csv holds {len(sub) - 1} rows, header {sub[0]}, "
+                 f"first {sub[1:3]}; expected the 64 test ids in order with probabilities "
+                 "in [0, 1]")
+        if runs["is_test"]["metrics"].get("num_samples") != 64:
+            fail(f"real data --is-test: metrics {runs['is_test']['metrics']}")
+
+        # the train loader alone, as stage 1 builds it, over one epoch's
+        # batches twice: decoding the JPEGs (and filling a new cache), then
+        # reading that cache
+        info = get_data(args.replace(cache_staging=os.path.join(work, "cache_alone")),
+                        train_metadata=train_md, val_metadata=val_md,
+                        tokenizer=HashTokenizer(), staging_size=256)["train"]
+        loader_ms = {}
+        for source in ("jpeg_decode", "staging_cache"):
+            info.set_epoch(0)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in info.loader)
+            loader_ms[source] = 1e3 * (time.perf_counter() - t0) / n
+        say(f"real data: the train loader alone, {n} batches of 64 at --workers 4: "
+            f"{loader_ms['jpeg_decode']:.1f} ms a batch decoding JPEGs, "
+            f"{loader_ms['staging_cache']:.1f} ms from the staging cache")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    def meters(rec):
+        """The loop's meters by epoch: the batch meter of each step, the
+        data meter (the epoch's mean wait for a batch) at its last step."""
+        out = {}
+        for line in rec["lines"]:
+            m = re.match(r"Train Epoch: (\d+) .* data: ([0-9.]+)s batch: ([0-9.]+)s", line)
+            if m:
+                ep = out.setdefault(int(m.group(1)), {"batch_ms_by_step": []})
+                ep["batch_ms_by_step"].append(1e3 * float(m.group(3)))
+                ep["data_s"] = float(m.group(2))
+        for ep in out.values():
+            ms = ep["batch_ms_by_step"]
+            ep.update(ms_per_step=ms[-1], ms_per_step_after_first=float(np.mean(ms[1:] or ms)))
+        return out
+
+    rows = {"stage1": want_sizes["val"], "stage2": want_sizes["val"], "is_test": 64}
+    line = {"card": card, "jpeg_bytes_mean": float(np.mean(sizes)), "jpegs": len(sizes),
+            "write_s": write_s, "splits": want_sizes, "get_metadata_s": seen["metadata_s"],
+            "loader_alone_ms_per_batch": loader_ms, "synthetic": synthetic}
+    for name, rec in runs.items():
+        line[name] = {
+            "wall_s": rec["wall_s"], "steps": len(rec["steps"]),
+            "epochs": meters(rec), "decodes": rec["decodes"], "cache_reads": rec["hits"],
+            "decode_ms_per_img_in_loop": rec["decode_ms"],
+            "eval_s": [ev["s"] for ev in rec["evals"]],
+            "eval_rows_per_s": [rows[name] / ev["s"] for ev in rec["evals"]],
+            "save_s": rec["saves"], "metrics": rec["metrics"],
+            "losses": [st["loss"] for st in rec["steps"]]}
+    launches = {k: sum(r["total"][k] for r in runs.values()) for k in runs["stage1"]["total"]}
+    bodies = {k: {b: sum(r["total_bodies"][k][b] for r in runs.values())
+                  for b in ("tensor_cores", "cuda_cores")} for k in ("fwd", "dkv", "dq")}
+    return line, launches, bodies
 
 
 def main(argv=None) -> None:
@@ -2703,7 +2985,21 @@ def main(argv=None) -> None:
                                                           flash_bodies)
     say(json.dumps({"serving_http": http_line}))
 
-    # 16. kernels line, then the device line. Each attention kernel as two
+    # 16. the recipe on files in the ISIC-2024 layout: JPEG decode, the
+    # staging cache and submission.csv, beside phases 12-14's synthetic loops
+    gc.collect()
+    torch.cuda.empty_cache()
+    synthetic = {"phase12_ms_per_step": 1e3 * m1["batch_time_last"],
+                 "phase12_data_s": m1["data_time_avg"],
+                 "phase13_ms_per_step": 1e3 * m2["batch_time_last"],
+                 "phase13_data_s": m2["data_time_avg"],
+                 "phase14_stage1_ms_per_step": cli_line["stage1"].get("ms_per_step"),
+                 "phase14_stage2_ms_per_step": cli_line["stage2"].get("ms_per_step")}
+    real_line, _, real_bodies = real_data_phase(card, reset_counts, read_counts, flash_bodies,
+                                                synthetic)
+    say(json.dumps({"real_data": real_line}))
+
+    # 17. kernels line, then the device line. Each attention kernel as two
     # entries, one a body: the tensor cores (bf16: what serving and training
     # under amp run, its launches from the main path) and the CUDA cores
     # (fp32, its launches from phase 10's fp32 step), each timed at the
@@ -2720,11 +3016,11 @@ def main(argv=None) -> None:
                    "medmamba_clip_text_embed": mm_bodies["text_embed"],
                    "clip_train_accum2_checkpointed": accum_bodies,
                    "medmamba_clip_train": mm_train_bodies, "clip_train_fp32": fp32_bodies,
-                   "cli": cli_bodies, "serving_http": http_bodies}
+                   "cli": cli_bodies, "serving_http": http_bodies, "real_data": real_bodies}
     main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2", "cli",
-                          "serving_http"),
-                  "dkv": ("clip_train", "epoch_stage1", "cli"),
-                  "dq": ("clip_train", "epoch_stage1", "cli")}
+                          "serving_http", "real_data"),
+                  "dkv": ("clip_train", "epoch_stage1", "cli", "real_data"),
+                  "dq": ("clip_train", "epoch_stage1", "cli", "real_data")}
     flash_launches = {key: {"tensor_cores": sum(flash_paths[p][key]["tensor_cores"]
                                                 for p in paths),
                             "cuda_cores": fp32_bodies[key]["cuda_cores"]}

@@ -5,10 +5,9 @@ over an exported artifact, drives it with N concurrent closed-loop clients
 posting one image (or one text) a request for a fixed duration, and
 reports per concurrency the throughput, the latency percentiles and the
 MicroBatcher's batch formation (requests per device call against
-``--max-batch``). The image payload is a JPEG where PIL is importable,
-else the ``.npy`` staging square (``serve_http``'s one wire addition); the
-output says which was sent. Prints one line per concurrency, then the
-result as one JSON line (also written to ``--json``).
+``--max-batch``). The image payload is a JPEG, encoded with PIL, which an
+image endpoint needs. Prints one line per concurrency, then the result as
+one JSON line (also written to ``--json``).
 
 Usage:
     python -m mamba_clip_tpu_torch.bench_serving --artifact DIR \\
@@ -41,30 +40,17 @@ TEXT = "a clinical photo of a skin lesion"
 
 
 def _make_jpeg(size: int = 256, seed: int = 0) -> bytes:
-    from PIL import Image
-
+    """A random ``size``-square JPEG body (PIL, quality 90)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(f"bench_serving posts JPEG bodies, which it encodes with PIL, "
+                          f"and PIL does not import ({e})") from e
     rng = np.random.default_rng(seed)
     img = Image.fromarray(rng.integers(0, 256, (size, size, 3), dtype=np.uint8))
     buf = io.BytesIO()
     img.save(buf, format="JPEG", quality=90)
     return buf.getvalue()
-
-
-def make_npy(staging: int, seed: int = 0) -> bytes:
-    """A random uint8 (staging, staging, 3) square as a ``.npy`` body."""
-    rng = np.random.default_rng(seed)
-    buf = io.BytesIO()
-    np.save(buf, rng.integers(0, 256, (staging, staging, 3), dtype=np.uint8))
-    return buf.getvalue()
-
-
-def image_payload(jpeg_size: int, staging: int, seed: int = 0):
-    """(body, content type, kind): a JPEG where PIL is importable, else the
-    ``.npy`` staging square."""
-    try:
-        return _make_jpeg(jpeg_size, seed), "image/jpeg", "jpeg"
-    except ImportError:
-        return make_npy(staging, seed), "application/octet-stream", "npy"
 
 
 def _client_loop(host, port, path, payload, headers, deadline, lats, errs):
@@ -203,8 +189,9 @@ def main(argv=None):
             headers = {"Content-Type": "application/json"}
             kind = "json"
         else:
-            payload, ctype, kind = image_payload(a.jpeg_size, server.staging)
-            headers = {"Content-Type": ctype}
+            payload = _make_jpeg(a.jpeg_size)
+            headers = {"Content-Type": "image/jpeg"}
+            kind = "jpeg"
 
         # every power-of-two bucket shape the batcher can dispatch once, then
         # one end-to-end HTTP request, outside the timed windows

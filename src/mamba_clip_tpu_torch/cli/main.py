@@ -5,6 +5,7 @@ is generated from the ``Args`` dataclass (``config.py``), the same as the
 JAX package's. Run on the card (the default ``--device auto``) or, with
 ``--device cpu``, on the CPU:
 
+    python -m mamba_clip_tpu_torch.cli.main --data-path data/isic-2024-challenge/ --stage 1 ...
     python -m mamba_clip_tpu_torch.cli.main --synthetic-data --stage 1 ...
 
 ``--hyperparameter-tuning`` (the optuna, ray and ASHA searches) is not

@@ -1,7 +1,8 @@
 """Batch pipeline: fixed-shape numpy batches, threaded prefetch, device feed.
 
 Counterpart of ``mamba_clip_tpu/data/loader.py``: ``BatchLoader``,
-``DataInfo``, ``get_data`` (the synthetic branch) and ``device_prefetch``.
+``DataInfo``, ``get_data`` (over the ISIC files or ``--synthetic-data``)
+and ``device_prefetch``.
 
 - Train batches have a fixed size (``drop_last``); eval loaders keep
   ``drop_last=False`` and yield a natural-size final batch, so every sample
@@ -20,6 +21,7 @@ same dataset, seed and epoch.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from collections import deque
@@ -286,17 +288,15 @@ def get_data(
     rank: int = 0,
     world_size: int = 1,
 ) -> Dict[str, DataInfo]:
-    """Build the train/val ``DataInfo`` of ``--synthetic-data`` runs. The
-    real-data branch raises: it waits for ``IsicChallengeDataset`` and
-    ``get_metadata`` (pandas, PIL, h5py, the ISIC files; ROADMAP.md)."""
-    from .dataset import SyntheticIsicDataset
+    """Build the train/val/test ``DataInfo``: ``IsicChallengeDataset`` over
+    each split's metadata (images from ``<data_path>/train-image.hdf5``,
+    ``test-image.hdf5`` under ``--is-test``, else the JPEG directory
+    ``<data_path>/train-image/image``), or ``SyntheticIsicDataset`` under
+    ``--synthetic-data``."""
+    from .dataset import IsicChallengeDataset, SyntheticIsicDataset
     from .metadata import balanced_class_weights
 
-    if not getattr(args, "synthetic_data", False):
-        raise NotImplementedError(
-            "get_data: only --synthetic-data is ported; the real ISIC data path "
-            "(IsicChallengeDataset, get_metadata: pandas, PIL, h5py and the "
-            "dataset's files) is not (ROADMAP.md, Queue 1, item 4 'The real data path')")
+    synthetic = getattr(args, "synthetic_data", False)
     is_test = getattr(args, "is_test", False)
     data = {}
 
@@ -310,16 +310,30 @@ def get_data(
             else args.val_num_samples if split == "val"
             else None
         )
-        n = len(meta) if meta is not None else (
-            args.train_num_samples or 2048 if is_train
-            else args.val_num_samples or 512
-        )
-        if cap:
-            n = min(int(n), int(cap))
-        ds = SyntheticIsicDataset(
-            n=int(n), tokenizer=tokenizer, staging_size=staging_size,
-            is_train=is_train, include_target=include_target, seed=args.seed,
-        )
+        if synthetic:
+            n = len(meta) if meta is not None else (
+                args.train_num_samples or 2048 if is_train
+                else args.val_num_samples or 512
+            )
+            if cap:
+                n = min(int(n), int(cap))
+            ds = SyntheticIsicDataset(
+                n=int(n), tokenizer=tokenizer, staging_size=staging_size,
+                is_train=is_train, include_target=include_target, seed=args.seed,
+            )
+        else:
+            hdf5 = os.path.join(
+                args.data_path, "train-image.hdf5" if not is_test else "test-image.hdf5")
+            img_dir = os.path.join(args.data_path, "train-image", "image")
+            path = hdf5 if os.path.exists(hdf5) else img_dir
+            if cap and meta is not None and len(meta) > int(cap):
+                meta = meta.take(np.arange(int(cap)))
+            ds = IsicChallengeDataset(
+                path, meta, tokenizer=tokenizer, staging_size=staging_size,
+                is_train=is_train, include_target=include_target,
+                small_test=args.small_test, seed=args.seed,
+                cache_dir=getattr(args, "cache_staging", None),
+            )
         loader = BatchLoader(
             ds,
             batch_size=args.batch_size,
@@ -333,12 +347,16 @@ def get_data(
             shuffle=is_train,
             drop_last=is_train,  # eval covers the full split
         )
-        cw = balanced_class_weights(ds.targets) if is_train else None
-        return DataInfo(loader=loader, targets=ds.targets, class_weights=cw)
+        targets = getattr(ds, "targets", None)  # None for the label-free test split
+        cw = balanced_class_weights(targets) if is_train and targets is not None else None
+        return DataInfo(loader=loader, targets=targets, class_weights=cw)
 
-    if not is_test:
-        data["train"] = make(train_metadata, is_train=True, split="train")
-        data["val"] = make(val_metadata, is_train=False, split="val")
+    if train_metadata is not None or synthetic:
+        if not is_test:
+            data["train"] = make(train_metadata, is_train=True, split="train")
+    if val_metadata is not None or synthetic:
+        if not is_test:
+            data["val"] = make(val_metadata, is_train=False, split="val")
     if test_metadata is not None:
         data["test"] = make(test_metadata, is_train=False, split="test")
     return data

@@ -6,7 +6,11 @@ Counterpart of ``mamba_clip_tpu/eval.py``:
   mean;
 - stage 2: CE + softmax probabilities, then **pAUC above 80% TPR** by the
   complement-flip trick, the ISIC-2024 competition metric;
-- gated by ``--val-frequency``; metrics appended to ``results.jsonl``.
+- gated by ``--val-frequency``; metrics appended to ``results.jsonl``;
+- on the test split of a run with a checkpoint directory,
+  ``submission.csv``: ``isic_id,target``, one row per evaluated sample,
+  the bytes ``pd.DataFrame.to_csv(index=False)`` writes
+  (``data.metadata.write_csv``).
 
 :func:`partial_auc` runs on numpy alone: its own ROC curve with
 scikit-learn's handling of ties (one point per distinct score) and of the
@@ -16,22 +20,24 @@ the two curve points around it. One eval step runs under
 targets accumulate on the host as numpy.
 
 One process only: the ``world > 1`` gather of per-host shards waits for the
-parallel layers, and ``submission.csv`` of the unlabeled test split for
-the real data path (ROADMAP.md).
+parallel layers (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import os
 import warnings
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from .data.dataset import ColumnTable
 from .data.loader import device_prefetch
+from .data.metadata import write_csv
 from .losses import clip_loss, cross_entropy_loss
 from .ops.preprocess import eval_preprocess
-from .utils.logging import get_logger, warning_once
+from .utils.logging import get_logger
 
 logger = get_logger(__name__)
 
@@ -213,8 +219,13 @@ def evaluate(
         if targets is not None:  # a label-free test split has no pAUC
             metrics["partial_auc"] = partial_auc(targets, probs[:, 1])
         if split == "test" and getattr(run_state, "checkpoint_path", None):
-            warning_once(logger, "evaluate: submission.csv of the test split is not ported "
-                                 "yet (it waits for the real data path)")
+            # per-sample malignancy probabilities for a challenge submission;
+            # eval order is sequential, so ids align with the probability rows
+            ids = list(getattr(loader.dataset, "ids", range(len(probs))))
+            sub = ColumnTable({"isic_id": ids[: len(probs)], "target": probs[:, 1]})
+            sub_path = os.path.join(run_state.checkpoint_path, "submission.csv")
+            write_csv(sub, sub_path)
+            logger.info(f"wrote {len(sub)} predictions to {sub_path}")
     metrics.update({"epoch": epoch, "num_samples": num_samples})
 
     logger.info(

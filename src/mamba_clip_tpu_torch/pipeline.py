@@ -34,6 +34,7 @@ from .checkpoint import (StepCheckpointer, delete_previous_checkpoint, get_lates
                          save_checkpoint, validate_step_resume, wait_for_checkpoints)
 from .config import Args, RunState, warn_ignored_flags
 from .data.loader import get_data
+from .data.metadata import get_metadata, undersample_data
 from .data.preprocess_cfg import get_transform_config
 from .data.tokenizer import get_tokenizer
 from .eval import evaluate, make_eval_step
@@ -81,9 +82,6 @@ def check_ported(args: Args) -> None:
     if args.hyperparameter_tuning:
         raise _not_ported("--hyperparameter-tuning", 9,
                           "HPO, integrations and the remaining utilities")
-    if not args.synthetic_data:
-        raise _not_ported("the real ISIC data path (a run without --synthetic-data)", 4,
-                          "The real data path")
 
 
 def resolve_device(device: str) -> str:
@@ -388,21 +386,42 @@ def step(
 
 def _build_data(args: Args, run: RunState, tokenizer, tcfg_train, tcfg_val,
                 model_context: int = 256) -> Dict[str, Any]:
-    """The splits of a ``--synthetic-data`` run, the ``--text-context``
-    trim measured on the distribution the synthetic dataset draws."""
-    if tokenizer is not None and args.text_context:
+    """The splits of a run: the ISIC files' metadata (``get_metadata``, then
+    ``undersample_data`` under ``--undersample``), or ``--synthetic-data``.
+    The ``--text-context`` trim is measured on the splits' metadata (the
+    distribution the synthetic dataset draws for a synthetic run)."""
+
+    def resolve_ctx(mds):
+        # train/val reports carry the diagnosis sentence at stage 1, the
+        # test split never does (as in get_data)
+        if tokenizer is None or not args.text_context:
+            return
         from .data.tokenizer import resolve_text_context
 
-        splits = []
+        s1 = getattr(args, "stage", 1) == 1
+        splits = [(md, s1 and split != "test") for md, split in mds if md is not None]
+        resolve_text_context(args.text_context, tokenizer, splits,
+                             model_context=model_context, logger=logger)
+
+    if args.synthetic_data:
         if str(args.text_context).lower() == "auto":
             from .data.dataset import synthetic_metadata
 
             n = min(int(args.train_num_samples or 2048), 2048)
-            splits = [(synthetic_metadata(n, args.seed), args.stage == 1)]
-        resolve_text_context(args.text_context, tokenizer, splits,
-                             model_context=model_context, logger=logger)
-    data = get_data(args, tokenizer=tokenizer, staging_size=tcfg_train.staging_size,
-                    rank=run.rank, world_size=run.world_size)
+            resolve_ctx([(synthetic_metadata(n, args.seed), "train")])
+        else:
+            resolve_ctx([])
+        data = get_data(args, tokenizer=tokenizer, staging_size=tcfg_train.staging_size,
+                        rank=run.rank, world_size=run.world_size)
+    else:
+        train_md, val_md, test_md = get_metadata(args)
+        if args.undersample and train_md is not None:
+            train_md, val_md = undersample_data(args, train_md, val_md)
+        resolve_ctx([(train_md, "train"), (val_md, "val"), (test_md, "test")])
+        data = get_data(args, train_metadata=train_md, val_metadata=val_md,
+                        test_metadata=test_md, tokenizer=tokenizer,
+                        staging_size=tcfg_train.staging_size,
+                        rank=run.rank, world_size=run.world_size)
     data["tcfg_train"] = tcfg_train
     data["tcfg_val"] = tcfg_val
     return data

@@ -16,11 +16,8 @@ Endpoints (per the artifact's entry points):
 
 A JPEG decodes through the native libjpeg path (``data/fastimage.py``),
 else PIL, into the staging square the artifact's on-device eval preprocess
-expects. One addition to JAX's wire format: a body that starts with the
-``.npy`` magic (``b"\\x93NUMPY"``) is read with ``np.load`` and must be a
-uint8 ``(staging, staging, 3)`` array, taken as the decoded square (JAX's
-host answers such a body with a 400). Any failure in a request is answered
-with a 400 that names it.
+expects. Any failure in a request is answered with a 400 that names it, as
+JAX's host answers it.
 
 Concurrent requests are coalesced into one device call per entry point by
 ``serve.MicroBatcher`` (up to ``--max-batch`` rows, waiting at most
@@ -46,16 +43,7 @@ import torch
 
 from .serve import MicroBatcher, _bucket, _to_numpy
 
-NPY_MAGIC = b"\x93NUMPY"
 _ENTRY_POINTS = ("image_embed", "text_embed", "classify")
-
-
-def _npy_square(blob: bytes, staging: int) -> np.ndarray:
-    arr = np.load(io.BytesIO(blob), allow_pickle=False)
-    if arr.dtype != np.uint8 or arr.shape != (staging, staging, 3):
-        raise ValueError(f".npy body must be uint8 {(staging, staging, 3)}, got "
-                         f"{arr.dtype} {arr.shape}")
-    return arr
 
 
 def make_server(artifact: str, port: int = 0, host: str = "127.0.0.1",
@@ -97,8 +85,6 @@ def make_server(artifact: str, port: int = 0, host: str = "127.0.0.1",
                     for name in _ENTRY_POINTS if name in served}
 
     def decode(blob: bytes) -> np.ndarray:
-        if blob[:len(NPY_MAGIC)] == NPY_MAGIC:
-            return _npy_square(blob, staging)
         out = fastimage.decode_resize(blob, staging)
         if out is None:
             try:
@@ -106,8 +92,7 @@ def make_server(artifact: str, port: int = 0, host: str = "127.0.0.1",
             except ImportError as e:
                 raise RuntimeError(
                     "cannot decode the JPEG body: the native decoder (fastimage, "
-                    "libjpeg) is unavailable and PIL is not installed; send the "
-                    "staging square as a .npy body") from e
+                    "libjpeg) is unavailable and PIL is not installed") from e
             out = _decode_to_square(Image.open(io.BytesIO(blob)), staging)
         return out
 
@@ -185,7 +170,7 @@ def warm_buckets(server, endpoint: str, payload, max_batch: int) -> int:
     ``endpoint`` (1, 2, 4, ... up to the bucket covering ``max_batch``)
     once, bypassing the queue, so that library set-up and allocator growth
     land outside a timed window. ``payload`` is a body for an image
-    endpoint (JPEG or ``.npy``) or a list[str] for text. Returns the number
+    endpoint (a JPEG) or a list[str] for text. Returns the number
     of shapes warmed."""
     if endpoint == "text_embed":
         row = np.asarray(server.served["tokenize"](list(payload)))[:1]

@@ -3,8 +3,8 @@
 A copy of ``mamba_clip_tpu/utils/logging.py`` (which imports no JAX) under
 the port's own root logger: verbosity from ``MAMBA_CLIP_VERBOSITY``
 (``debug|detail|info|warning|error|critical``; ``detail`` adds file:line),
-colour on a TTY, a rank prefix in multi-process runs, ``warning_once`` and
-the ``results.jsonl`` sink ``ResultsWriter``, and ``create_log_path``, the
+colour on a TTY, a rank prefix in multi-process runs, the
+``results.jsonl`` sink ``ResultsWriter``, and ``create_log_path``, the
 experiment-name scheme (stage 2 finds its stage-1 run with it).
 """
 
@@ -147,17 +147,6 @@ def logger_setup(
         fh.setFormatter(_build_formatter(use_color=False))
         root.addHandler(fh)
     return root
-
-
-def warning_once(logger: logging.Logger, msg: str) -> None:
-    """Emit a warning only the first time `msg` is seen (reference: utils/logging.py warning_once)."""
-    key = f"{logger.name}:{msg}"
-    if key not in _seen_warnings:
-        _seen_warnings.add(key)
-        logger.warning(msg)
-
-
-_seen_warnings: set = set()
 
 
 def create_log_path(args: Any, latest: bool = False,

@@ -14,7 +14,8 @@ draw different initial weights, so a run is not held number for number
   and trains nothing; ``params.txt`` byte for byte with JAX's ``Args``;
   ``results.jsonl`` rows with the JAX package's keys;
 - the schedule horizon under ``--accum-freq`` (``tests/test_e2e.py``);
-- the four error probes, type and message equal to JAX's ``pipeline``;
+- the error probes (a missing ``--data-path`` file among them), type and
+  message equal to JAX's ``pipeline``;
 - each flag whose feature is not ported fails first, naming its item;
 - no card and ``--device auto``/``cuda``: an error, not a fall-back;
 - ``--is-test`` on ``--synthetic-data``: the outcome of JAX's ``pipeline``.
@@ -171,13 +172,14 @@ PROBES = {
     "precision_bogus": ("--stage", "1", "--precision", "bogus"),
     "reused_name": ("--stage", "1", "--name", "taken"),
     "stage2_nothing_to_start_from": ("--stage", "2", "--resume", "latest", "--name", "orphan"),
+    "missing_data_path": ("--stage", "1", "--data-path", "/nowhere/"),
 }
 
 
 @pytest.mark.parametrize("probe", sorted(PROBES))
 def test_error_probes_say_what_jax_says(tiny, tmp_path, probe):
     os.makedirs(tmp_path / "taken" / "checkpoints")
-    argv = _argv(tmp_path, *PROBES[probe])
+    argv = _argv(tmp_path, *PROBES[probe], synthetic="--data-path" not in PROBES[probe])
     with pytest.raises(Exception) as j_err:
         jpipe.pipeline(jcfg.parse_args(argv))
     with pytest.raises(Exception) as t_err:
@@ -186,8 +188,9 @@ def test_error_probes_say_what_jax_says(tiny, tmp_path, probe):
     assert str(t_err.value) == str(j_err.value)
     assert {"precision_bogus": "unknown precision 'bogus'",
             "reused_name": "Experiment taken already exists",
-            "stage2_nothing_to_start_from": "stage 2 has nothing to start from"}[probe] \
-        in str(t_err.value)
+            "stage2_nothing_to_start_from": "stage 2 has nothing to start from",
+            "missing_data_path": "No such file or directory: '/nowhere/train-metadata.csv'",
+            }[probe] in str(t_err.value)
 
 
 def test_resume_latest_in_an_empty_logs_dir_starts_fresh(tiny, tmp_path):
@@ -212,14 +215,13 @@ UNPORTED = {
     "remote_sync": (["--remote-sync", "/nowhere"], 9),
     "report_to_wandb": (["--report-to", "tensorboard,wandb"], 9),
     "hyperparameter_tuning": (["--hyperparameter-tuning"], 9),
-    "real_data": (["--data-path", "/nowhere/"], 4),
 }
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED))
 def test_an_unported_flag_fails_first_naming_its_item(tmp_path, flag):
     extra, item = UNPORTED[flag]
-    argv = _argv(tmp_path, "--stage", "1", *extra, synthetic=flag != "real_data")
+    argv = _argv(tmp_path, "--stage", "1", *extra)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1, item {item} "):
         main(argv)
     assert os.listdir(tmp_path) == []

@@ -235,8 +235,10 @@ def test_class_weights_and_get_data_equal_jax():
     assert np.array_equal(got["train"].class_weights, want["train"].class_weights)
     a, b = next(iter(want["val"].loader)), next(iter(got["val"].loader))
     assert all(np.array_equal(a[k], b[k]) for k in a)
-    with pytest.raises(NotImplementedError, match="IsicChallengeDataset"):
-        tloader.get_data(Args(synthetic_data=False, batch_size=8, epochs=1))
+    # the real branch with no metadata builds no split, as JAX's does
+    # (tests/test_torch_port_dataset_io.py holds it over files)
+    real = Args(synthetic_data=False, batch_size=8, epochs=1)
+    assert tloader.get_data(real) == jloader.get_data(real) == {}
 
 
 def test_device_prefetch_keeps_order_and_values_on_the_cpu():

@@ -5,15 +5,15 @@
   ``_decode_to_square`` against JAX's, bit for bit, on JPEGs written here.
 - The host: JAX's ``make_server`` is run over the same port artifact with
   ``load_serving`` swapped for the port's, so both hosts serve the same
-  functions. Every answer (the 200s, the 404 and 400 bodies, ``/healthz``)
-  must be byte for byte JAX's, except the one wire addition: a ``.npy``
-  body is the staging square on the port's host and a 400 on JAX's.
-- A JPEG body and a ``.npy`` body answer as the loaded function does on the
-  decoded square; concurrent requests coalesce (``/healthz`` batching
-  stats); ``warm_buckets`` counts as JAX's; the sharded-artifact check
-  gives JAX's message.
+  functions. Every answer (the 200s, the 404 and 400 bodies, a ``.npy``
+  body's included, ``/healthz``) must be byte for byte JAX's.
+- JPEG bodies answer as the loaded function does on the decoded square;
+  concurrent requests coalesce (``/healthz`` batching stats);
+  ``warm_buckets`` counts as JAX's; the sharded-artifact check gives JAX's
+  message.
 - ``bench_serving --tiny`` (0.5 s, clients 1,2) and ``bench_infer
-  --artifact`` print their JSON lines.
+  --artifact`` print their JSON lines; without PIL ``bench_serving``
+  raises an error that names it.
 
 Artifacts: full-width BiomedCLIP at image 32 and context 16 with the hash
 tokenizer's vocabulary (the one full-width case), and medmamba at image
@@ -135,19 +135,15 @@ def test_decoders_equal_jax():
 
 
 def test_bodies_answer_as_the_loaded_functions(hosts):
-    """A JPEG body and a ``.npy`` body answer as the loaded function does on
-    the decoded square, bit for bit; texts through the artifact's
-    tokenizer."""
+    """JPEG bodies answer as the loaded function does on the decoded
+    square, bit for bit; texts through the artifact's tokenizer."""
     for name, path, key, fn in (("clip", "/embed_image", "embedding", "image_embed"),
                                 ("mm", "/classify", "probs", "classify")):
         srv = hosts[name][0]
-        jpeg = _jpeg(48, 72, seed=5)
-        square = srv.decode(jpeg)
-        np.testing.assert_array_equal(square, tfast.decode_resize(jpeg, srv.staging))
-        other = np.random.default_rng(6).integers(
-            0, 256, (srv.staging, srv.staging, 3), dtype=np.uint8)
-        for body, x in ((jpeg, square), (_npy(other), other)):
-            status, out = _request(srv, "POST", path, body)
+        for jpeg in (_jpeg(48, 72, seed=5), _jpeg(80, 64, seed=6, mode="L")):
+            x = srv.decode(jpeg)
+            np.testing.assert_array_equal(x, tfast.decode_resize(jpeg, srv.staging))
+            status, out = _request(srv, "POST", path, jpeg)
             assert status == 200, out
             got = np.asarray(json.loads(out)[key], np.float32)
             want = srv.served[fn](x[None])[0].numpy()
@@ -162,8 +158,8 @@ def test_bodies_answer_as_the_loaded_functions(hosts):
 
 
 def test_answers_equal_jax_host(hosts):
-    """Byte for byte JAX's answers: 200s, 404s, 400s and /healthz; a
-    ``.npy`` body is the one difference."""
+    """Byte for byte JAX's answers: 200s, 404s, 400s (a ``.npy`` body's
+    among them) and /healthz."""
     jpeg = _jpeg(40, 56, seed=7)
     address = re.compile(rb"0x[0-9a-f]+")
     cases = {
@@ -173,7 +169,8 @@ def test_answers_equal_jax_host(hosts):
                  ("POST", "/classify", jpeg), ("POST", "/nope", b""),
                  ("POST", "/embed_text", b"not json"),
                  ("POST", "/embed_text", json.dumps({"text": TEXTS}).encode()),
-                 ("POST", "/embed_image", b"not a jpeg")],
+                 ("POST", "/embed_image", b"not a jpeg"),
+                 ("POST", "/embed_image", _npy(np.zeros((64, 64, 3), np.uint8)))],
         "mm": [("GET", "/healthz", None), ("POST", "/classify", jpeg),
                ("POST", "/embed_image", jpeg), ("POST", "/embed_text", b"{}"),
                ("POST", "/classify", b"\xff\xd8 truncated")],
@@ -192,13 +189,12 @@ def test_answers_equal_jax_host(hosts):
     health = json.loads(_request(hosts["clip"][0], "GET", "/healthz")[1])
     assert health["status"] == "ok" and health["batching"] == {}
     assert set(health["manifest"]["entry_points"]) == {"image_embed", "text_embed"}
-    # the wire addition
-    square = _npy(np.zeros((64, 64, 3), np.uint8))
-    assert _request(hosts["clip"][0], "POST", "/embed_image", square)[0] == 200
-    assert _request(hosts["clip"][1], "POST", "/embed_image", square)[0] == 400
-    for bad in (np.zeros((64, 64, 3), np.float32), np.zeros((32, 32, 3), np.uint8)):
-        status, out = _request(hosts["clip"][0], "POST", "/embed_image", _npy(bad))
-        assert status == 400 and b".npy body must be uint8 (64, 64, 3)" in out
+    # a .npy body is no image to either host
+    for bad in (np.zeros((64, 64, 3), np.uint8), np.zeros((32, 32, 3), np.float32)):
+        got = _request(hosts["mm"][0], "POST", "/classify", _npy(bad))
+        want = _request(hosts["mm"][1], "POST", "/classify", _npy(bad))
+        assert got[0] == 400 and b"UnidentifiedImageError" in got[1]
+        assert (got[0], address.sub(b"", got[1])) == (want[0], address.sub(b"", want[1]))
 
 
 def test_no_decoder_is_a_400_that_names_them(hosts, monkeypatch):
@@ -218,14 +214,14 @@ def test_concurrent_requests_coalesce(arts):
     srv = _start(serve_http.make_server(arts["mm"], port=0, max_batch=8,
                                         max_delay_ms=300.0, device="cpu"))
     try:
-        rng = np.random.default_rng(8)
-        squares = rng.integers(0, 256, (8, srv.staging, srv.staging, 3), dtype=np.uint8)
+        jpegs = [_jpeg(40 + 8 * i, 56, seed=8 + i) for i in range(8)]
+        squares = np.stack([srv.decode(j) for j in jpegs])
         answers = [None] * 8
         barrier = threading.Barrier(8)
 
         def client(i):
             barrier.wait(timeout=30)
-            answers[i] = _request(srv, "POST", "/classify", _npy(squares[i]))
+            answers[i] = _request(srv, "POST", "/classify", jpegs[i])
 
         threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
         for t in threads:
@@ -290,12 +286,11 @@ def test_bench_serving_prints_its_json(arts, capsys, monkeypatch):
         assert r["requests"] > 0 and r["errors"] == 0 and r["req_per_s"] > 0
         assert r["p50_ms"] <= r["p95_ms"] <= r["p99_ms"]
         assert r["mean_batch_fill"] >= 1.0
-    # without PIL the payload is the .npy square
+    # without PIL there is no JPEG to post: an error that names PIL
     monkeypatch.setitem(sys.modules, "PIL", None)
-    out = bench_serving.main(["--artifact", arts["mm"], "--endpoint", "classify",
-                              "--device", "cpu", "--clients", "2", "--duration", "0.5"])
-    assert out["payload"] == "npy" and out["rows"][0]["requests"] > 0
-    assert out["rows"][0]["errors"] == 0
+    with pytest.raises(ImportError, match="encodes with PIL, and PIL does not import"):
+        bench_serving.main(["--artifact", arts["mm"], "--endpoint", "classify",
+                            "--device", "cpu", "--clients", "2", "--duration", "0.5"])
 
 
 def test_bench_infer_artifact_mode(arts, capsys, monkeypatch):
