@@ -252,13 +252,44 @@ on failure:
    (JPEG decode, then the cache) beside phases 12-14's synthetic ones,
    decodes and cache reads, eval rows/s, ``get_metadata`` seconds, and the
    train loader alone's ms a batch decoding JPEGs and from the cache;
-17. prints the kernels line (nine entries: the two scan kernels, the
+17. the native int8 modes (``--quant``), every count set to 0 just before
+   each driven call and read just after: (a) the seven int8 dots of
+   ``ops/qdot.py`` on the same fp32 inputs on the card and on the CPU, at
+   the contrastive step's shapes (the ViT's qkv Dense, 64 x 197 rows of
+   768 -> 2304; its attention, 64 x 12 heads, T 197, hd 64): the int8
+   operands and int32 accumulators equal bit for bit, the outputs and
+   gradients within rel 1e-6 (the serve dot's gradients, fp32 GEMMs over
+   dequantized operands, 1e-5); (b) full-width medmamba ``classify``
+   under ``int8_serve`` at batch 64 (14 scan forward launches a call),
+   its probabilities within 2e-2 of the unquantized bf16 model's on the
+   same weights and not equal to them, and both timed; (c) the
+   contrastive step of full-width BiomedCLIP at batch 64 under
+   ``int8_fast`` and ``int8_delayed`` with ``attn_impl="flash"`` (24 + 24
+   + 24 flash launches a step, all on the tensor cores; the delayed mode
+   first ``calibrate_quant``, 24 forward launches) and
+   ``int8_fast_attn`` and ``int8_delayed_attn`` with the einsum interior
+   (no flash launch): 2 + 3 steps each, finite losses (the first within
+   [3, 6]), the delayed state moved by the steps and not by an eval
+   forward, ms a step beside phase 10's amp steps; (d) the medmamba
+   classifier step under ``int8_delayed`` through ``train_one_epoch``
+   over three batches: ``calibrate_quant`` once, at step 0, 14 x 4 scan
+   forward and 14 x 3 backward launches, then one step with every int32
+   accumulator's largest magnitude recorded; (e) ``export_serving --quant
+   int8_serve --compress-weights`` of medmamba, then ``load_serving``: the
+   stored int8 values and scales the int8_serve dot's quantization of
+   the weights on the card, ``classify`` of 64 images bit for bit
+   ``make_serving_fns``'s; (f) the CLI's ``main()`` with phase 14's flags
+   and ``--model-stage-1 medmamba --quant int8_delayed``: 14 scan forward
+   launches for the init batch, 14 for ``calibrate_quant``, 2 steps of 14
+   + 14, an eval batch of 14, and 62 delayed scales in the checkpoint.
+   Prints a ``quant`` JSON line;
+18. prints the kernels line (nine entries: the two scan kernels, the
    roofline's chain kernel, and each flash kernel as two entries, one a
    body: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
    from the main path, and ``..._cuda_cores``, fp32, whose launches come
    from phase 10's fp32 step; the main path's launches include phases
-   14, 15 and 16's; a body launched no time fails. Each flash
+   14, 15, 16 and 17's; a body launched no time fails. Each flash
    entry is timed at the towers' shapes in its type beside the plain
    version and the library's, with its bound from the data sheet and from
    the ceilings phase 11 measured, its shares of both, and its instances;
@@ -310,6 +341,12 @@ KERNELS = ("selective_scan_fwd", "selective_scan_bwd", "flash_attn_fwd", "flash_
 CHAIN_GATE = 1e-5        # the chain kernel vs its plain version, of the largest entry
 CHAIN_UNFUSED_GATE = 2e-4  # fmaf vs a multiply and an add that round apart, 1024 steps
 CLIP_TRAIN_REL = 2.0**-7  # kernel vs plain interiors, CLIP train step loss and grad norm
+# phase 17: an int8 dot on the card against the CPU on the same inputs (its
+# int8 operands and int32 accumulators equal); the serve dot's gradients are
+# fp32 GEMMs over dequantized operands whose sums run in another order on
+# each device (2.4e-6 measured on the H100 at the step's shapes)
+DOT_REL = 1e-6
+SERVE_GRAD_REL = 1e-5
 GRAD_NAMES = ("du", "ddelta", "dA", "dB", "dC", "dD", "dbias")
 STAGES = [(3136, 64), (784, 128), (196, 256), (49, 512)]  # (L, DG) per medmamba stage
 BLOCKS_PER_STAGE = [2, 2, 8, 2]
@@ -555,6 +592,7 @@ def observe_cli(pipeline_mod, read_counts, read_bodies):
                 out = counted(lambda: fn(state, batch, seed), rec["steps"])
                 rec["steps"][-1]["loss"] = float(out[1]["loss"])
                 return out
+            step.calibrate_quant = fn.calibrate_quant  # the loop's first-batch hook
             return step
         return made
 
@@ -1446,6 +1484,384 @@ def real_data_phase(card, reset_counts, read_counts, flash_bodies, synthetic):
     bodies = {k: {b: sum(r["total_bodies"][k][b] for r in runs.values())
                   for b in ("tensor_cores", "cuda_cores")} for k in ("fwd", "dkv", "dq")}
     return line, launches, bodies
+
+
+def _dot_internals(name, xs, g):
+    """The int8 operands and int32 accumulators of the dot ``name`` on the
+    inputs ``xs`` and the cotangent ``g``, by the port's own helpers, on
+    their device: {what: tensor}."""
+    from mamba_clip_tpu_torch.ops import qdot as q
+
+    out = {}
+    if name in ("dense", "delayed", "serve"):
+        lhs, rhs = xs[0], xs[1]
+        if name == "dense":
+            sl, sr = q._absmax_scale(lhs), q._absmax_scale(rhs)
+        elif name == "delayed":
+            sl, sr = xs[2], xs[3]
+        else:
+            sl, sr = q._absmax_scale(lhs), q._absmax_scale_cols(rhs)
+        ql, qr = q._quantize(lhs, sl), q._quantize(rhs, sr)
+        out.update(lhs8=ql, rhs8=qr, lhs_scale=sl, rhs_scale=sr, acc=q._dense_acc(ql, qr))
+        if name != "serve":
+            qg = q._quantize(g, q._absmax_scale(g))
+            out.update(g8=qg, dlhs_acc=q._dense_dlhs_acc(qg, qr),
+                       drhs_acc=q._dense_drhs_acc(ql, qg))
+        return out
+    if name in ("qk", "qk_delayed"):
+        if name == "qk":
+            (a8, _), (b8, _) = q._q8_bh(xs[0], 2), q._q8_bh(xs[1], 2)
+        else:
+            a8, b8 = q._quantize(xs[0], xs[2]), q._quantize(xs[1], xs[3])
+        g8, _ = q._q8_bh(g, 1)
+        out.update(acc=q._ei32("bqhd,bkhd->bhqk", a8, b8),
+                   dq_acc=q._ei32("bhqk,bkhd->bqhd", g8, b8),
+                   dk_acc=q._ei32("bhqk,bqhd->bkhd", g8, a8))
+    else:
+        if name == "pv":
+            (a8, _), (b8, _) = q._q8_bh(xs[0], 1), q._q8_bh(xs[1], 2)
+        else:
+            a8, b8 = q._quantize_probs(xs[0]), q._quantize(xs[1], xs[2])
+        g8, _ = q._q8_bh(g, 2)
+        out.update(acc=q._ei32("bhqk,bkhd->bqhd", a8, b8),
+                   dp_acc=q._ei32("bqhd,bkhd->bhqk", g8, b8),
+                   dv_acc=q._ei32("bhqk,bqhd->bkhd", a8, g8))
+    out.update(a8=a8, b8=b8, g8=g8)
+    return out
+
+
+def quant_phase(card, reset_counts, read_counts, flash_bodies, amp):
+    """Phase 17: the native int8 modes, each gate as the module docstring
+    says. ``amp``: the unquantized yardsticks of this run (phase 6's
+    medmamba step, phase 10's contrastive steps with flash and with the
+    einsum interior, in ms). Every count is set to 0 just before each
+    driven call and read just after. Returns (the ``quant`` line's fields,
+    those calls' launches by counter, their flash launches by body)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+
+    from mamba_clip_tpu_torch import export_serving as export_cli
+    from mamba_clip_tpu_torch.ops import qdot
+    from mamba_clip_tpu_torch.profile_train import clip_train_setup, medmamba_train_setup
+    from mamba_clip_tpu_torch.serving import load_serving, make_serving_fns, serve_kernels
+    from mamba_clip_tpu_torch.train import train_one_epoch
+
+    total = {k: 0 for k in read_counts()}
+    total_bodies = {k: {"tensor_cores": 0, "cuda_cores": 0} for k in ("fwd", "dkv", "dq")}
+    line = {"card": card}
+
+    def counted(what, fn, want):
+        """``fn()`` with every count set to 0 just before and read just after;
+        fails unless the launches are ``want`` (the flash ones all on the
+        tensor cores); adds them to the phase's."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts, bodies = read_counts(), flash_bodies()
+        full = {k: want.get(k, 0) for k in counts}
+        want_bodies = {k: {"tensor_cores": full[k], "cuda_cores": 0} for k in total_bodies}
+        if counts != full or bodies != want_bodies:
+            fail(f"quant {what}: launches {counts}, by body {bodies}; expected {full}")
+        for k in total:
+            total[k] += counts[k]
+        for k, by in bodies.items():
+            for body, c in by.items():
+                total_bodies[k][body] += c
+        return out
+
+    # (a) the seven dots, the same inputs on the card and on the CPU, at the
+    # contrastive step's shapes: the ViT's qkv Dense (64 x 197 rows of 768 ->
+    # 2304) and its attention (64 x 12 heads, T 197, hd 64), fp32
+    gen = torch.Generator().manual_seed(17)
+    B, T, H, HD, D = 64, 197, 12, 64, 768
+
+    def n(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen) * scale
+
+    def probs(*shape):
+        return torch.softmax(n(*shape, scale=2.0), dim=-1)
+
+    def stale(x, f, dims=None):
+        """A delayed scale: f times x's absmax (per head with ``dims``) / 127."""
+        a = x.abs().amax() if dims is None else x.abs().amax(dim=dims).reshape(1, 1, -1, 1)
+        return (f * a / 127.0).float()
+
+    q_, k_, v_ = n(B, T, H, HD), n(B, T, H, HD), n(B, T, H, HD)
+    lhs, rhs = n(B, T, D), n(D, 3 * D, scale=0.03)
+    cases = {
+        "int8_dense_dot": ("dense", qdot.int8_dense_dot, [lhs, rhs], n(B, T, 3 * D)),
+        "int8_delayed_dot": ("delayed", qdot.int8_delayed_dot,
+                             [lhs, rhs, stale(lhs, 0.8), stale(rhs, 1.2)], n(B, T, 3 * D)),
+        "int8_serve_dot": ("serve", qdot.int8_serve_dot, [lhs, rhs], n(B, T, 3 * D)),
+        "int8_qk_dot": ("qk", qdot.int8_qk_dot, [q_, k_], n(B, H, T, T)),
+        "int8_pv_dot": ("pv", qdot.int8_pv_dot, [probs(B, H, T, T), v_], n(B, T, H, HD)),
+        "int8_qk_dot_delayed": ("qk_delayed", qdot.int8_qk_dot_delayed,
+                                [q_, k_, stale(q_, 0.7, (0, 1, 3)), stale(k_, 1.1, (0, 1, 3))],
+                                n(B, H, T, T)),
+        "int8_pv_dot_delayed": ("pv_delayed", qdot.int8_pv_dot_delayed,
+                                [probs(B, H, T, T), v_, stale(v_, 0.9, (0, 1, 3))],
+                                n(B, T, H, HD)),
+    }
+    dots = {}
+    for fname, (kind, fn, xs, g) in cases.items():
+        res = {}
+        for dev in ("cpu", "cuda"):
+            args = [x.detach().to(dev).requires_grad_(i < 2) for i, x in enumerate(xs)]
+            out = fn(*args)
+            out.backward(g.to(dev))
+            with torch.no_grad():
+                ints = _dot_internals(kind, [a.detach() for a in args], g.to(dev))
+            res[dev] = ([out.detach().cpu(), args[0].grad.cpu(), args[1].grad.cpu()],
+                        {k: t.cpu() for k, t in ints.items()})
+        (f_c, i_c), (f_g, i_g) = res["cpu"], res["cuda"]
+        unequal = [k for k in i_c if not torch.equal(i_c[k], i_g[k])]
+        rels = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(f_g, f_c)]
+        # the serve dot's backward is two fp32 GEMMs over dequantized
+        # operands, summed in another order on each device
+        bounds = [DOT_REL] + [SERVE_GRAD_REL if kind == "serve" else DOT_REL] * 2
+        ok = not unequal and all(r <= b for r, b in zip(rels, bounds))
+        int_max = max(int(t.abs().max()) for k, t in i_c.items() if t.dtype == torch.int32)
+        dots[fname] = {"int8_and_int32_equal": not unequal, "rel_out": rels[0],
+                       "rel_grads": rels[1:], "max_abs_int32": int_max,
+                       "bit_equal": [torch.equal(a, b) for a, b in zip(f_g, f_c)]}
+        say(f"quant dot {fname}: int8 operands and int32 accumulators "
+            f"{'equal' if not unequal else 'DIFFER: ' + str(unequal)} ({sorted(i_c)}); out "
+            f"rel {rels[0]:.2e}, grads rel {rels[1]:.2e} {rels[2]:.2e} (bounds {bounds}); "
+            f"largest |int32| {int_max} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"quant dot {fname}: the card's result differs from the CPU's: int8/int32 "
+                 f"unequal {unequal}, rel errs {rels} against {bounds}")
+    line["dots"] = dots
+    del cases, q_, k_, v_, lhs, rhs
+
+    # (b) classify of full-width medmamba under int8_serve, against the
+    # unquantized model on the same weights
+    S = 256
+    rs = np.random.RandomState(17)
+    x64 = torch.from_numpy(rs.randint(0, 256, (64, S, S, 3), dtype=np.uint8)).cuda()
+    mq, fq, _ = make_serving_fns("medmamba", quant="int8_serve", precision="amp",
+                                 device="cuda", generator=torch.Generator().manual_seed(0))
+    mf, ff, _ = make_serving_fns("medmamba", precision="amp", device="cuda",
+                                 generator=torch.Generator().manual_seed(0))
+    fq["classify"](mq, x64)  # first calls: cuBLAS set-up, not counted
+    ff["classify"](mf, x64)
+    p_q = counted("classify int8_serve", lambda: fq["classify"](mq, x64), {"scan_fwd": 14})
+    p_f = counted("classify amp", lambda: ff["classify"](mf, x64), {"scan_fwd": 14})
+    diff = float((p_q - p_f).abs().max())
+    ms_q = cuda_ms(lambda: fq["classify"](mq, x64), 10)
+    ms_f = cuda_ms(lambda: ff["classify"](mf, x64), 10)
+    line["classify"] = {"batch": 64, "int8_serve_ms": ms_q, "amp_ms": ms_f,
+                        "ratio": ms_q / ms_f, "max_abs_probs_int8_vs_bf16": diff,
+                        "quantized_dots": sum(1 for m in mq.modules()
+                                              if qdot.injected(m) is not None)}
+    say(f"quant classify int8_serve: {ms_q:.3f} ms a call at batch 64 against {ms_f:.3f} ms "
+        f"unquantized ({ms_q / ms_f:.2f}x); probs within {diff:.3e} of the bf16 model's "
+        f"(bound {PROBS_ATOL:g}); 14 scan forward launches a call")
+    if not torch.isfinite(p_q).all() or not 0.0 < diff <= PROBS_ATOL:
+        fail(f"classify under int8_serve: probs {diff:.3e} from the unquantized model's "
+             f"(must be above 0 and at most {PROBS_ATOL:g})")
+    del mq, mf, fq, ff
+
+    # (c) the contrastive step of full-width BiomedCLIP: int8_fast and
+    # int8_delayed with the flash interior, the _attn modes with the einsum
+    # interior; 2 warm-up and 3 timed steps each
+    steps_line = {}
+    for quant, impl in (("int8_fast", "flash"), ("int8_delayed", "flash"),
+                        ("int8_fast_attn", "einsum"), ("int8_delayed_attn", "einsum")):
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, step_fn, batches = clip_train_setup(64, attn_impl=impl, quant=quant)
+        model = state.model
+        torch.cuda.reset_peak_memory_stats()
+        per = {"fwd": 24, "dkv": 24, "dq": 24} if impl == "flash" else {}
+        scales = qdot.delayed_scales(model)
+        if scales:  # the first batch of a fresh run (train_one_epoch's hook)
+            state = counted(f"{quant} calibrate_quant",
+                            lambda: step_fn.calibrate_quant(state, batches[0], 0),
+                            {"fwd": 24} if impl == "flash" else {})
+        metrics = []
+
+        def run(st, k):
+            for i in range(k):
+                st, m = step_fn(st, batches[i % 2], 0)
+                metrics.append(m)
+            return st
+
+        state = counted(f"{quant} 2 steps", lambda: run(state, 2),
+                        {k: 2 * c for k, c in per.items()})
+        before = {k: v.clone() for k, v in scales.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = counted(f"{quant} 3 timed steps", lambda: run(state, 3),
+                        {k: 3 * c for k, c in per.items()})
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        losses = [float(m["loss"]) for m in metrics]
+        if not all(np.isfinite(x) for x in losses) or not 3.0 <= losses[0] <= 6.0:
+            fail(f"{quant} steps: losses {losses} (the first within [3, 6])")
+        moved = sum(not torch.equal(v, before[k]) for k, v in scales.items())
+        if scales and moved == 0:
+            fail(f"{quant}: the steps moved no delayed scale")
+        if scales:
+            model.eval()
+            after = {k: v.clone() for k, v in scales.items()}
+
+            def eval_forward():
+                with torch.inference_mode():
+                    return model.encode_image(torch.zeros(4, 224, 224, 3, dtype=torch.bfloat16,
+                                                          device="cuda"))
+
+            counted(f"{quant} eval forward", eval_forward, {"fwd": 12} if impl == "flash" else {})
+            if any(not torch.equal(v, after[k]) for k, v in scales.items()):
+                fail(f"{quant}: an eval forward wrote a delayed scale")
+        ref = amp["clip_flash_ms"] if impl == "flash" else amp["clip_einsum_ms"]
+        steps_line[quant] = {"attn_impl": impl, "ms_per_step": ms, "amp_ms_per_step": ref,
+                             "ratio": ms / ref, "losses": losses,
+                             "delayed_scales": len(scales), "moved_by_the_steps": moved,
+                             "peak_bytes": torch.cuda.max_memory_allocated()}
+        say(f"quant clip step {quant} ({impl}): {ms:.2f} ms a step against amp {ref:.2f} "
+            f"({ms / ref:.2f}x); losses {[round(x, 5) for x in losses]}; "
+            f"{moved} of {len(scales)} delayed scales moved by the steps, none by an eval "
+            "forward")
+        del state, step_fn, batches, model, scales, metrics
+    line["clip_steps"] = steps_line
+
+    # (d) the medmamba classifier step under int8_delayed through
+    # train_one_epoch: calibrated once, on the first batch; then the largest
+    # |int32 accumulator| of one step's Dense dots
+    gc.collect()
+    torch.cuda.empty_cache()
+    state, step_fn, _ = medmamba_train_setup(64, quant="int8_delayed")
+    calib = []
+    real_calib = step_fn.calibrate_quant
+
+    def spy(st, b, seed):
+        calib.append(st.step)
+        return real_calib(st, b, seed)
+
+    step_fn.calibrate_quant = spy
+    rs = np.random.RandomState(18)
+    host_batches = [{"image": rs.randint(0, 256, (64, S, S, 3), dtype=np.uint8),
+                     "target": rs.randint(0, 2, (64,))} for _ in range(3)]
+
+    class Loader:
+        num_batches, num_samples, start_batch = 3, 192, 0
+
+        def __iter__(self):
+            return iter(host_batches)
+
+    data = {"train": SimpleNamespace(loader=Loader(), set_epoch=lambda e: None)}
+    loop = SimpleNamespace(checkpoint_steps=0, log_every_n_steps=1)
+    meters = {}
+    state = counted("medmamba int8_delayed epoch", lambda: train_one_epoch(
+        step_fn, state, data, 0, loop, 0, device="cuda", meters=meters),
+        {"scan_fwd": 14 * 4, "scan_bwd": 14 * 3})
+    if calib != [0]:
+        fail(f"calibrate_quant ran at steps {calib}, expected once, at step 0")
+    loss = meters["last_metrics"]["loss"]
+    if not np.isfinite(loss):
+        fail(f"medmamba int8_delayed: loss {loss}")
+    acc_max = {}
+    real_mm = qdot.int_mm
+
+    def probe(a8, b8):
+        acc = real_mm(a8, b8)
+        key = f"{tuple(a8.shape)}x{tuple(b8.shape)}"
+        acc_max[key] = max(acc_max.get(key, 0), int(acc.abs().max()))
+        return acc
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host_batches[0].items()}
+    qdot.int_mm = probe
+    try:
+        state = counted("medmamba int8_delayed probed step",
+                        lambda: step_fn(state, batch, 0)[0], {"scan_fwd": 14, "scan_bwd": 14})
+    finally:
+        qdot.int_mm = real_mm
+    largest = max(acc_max.values())
+    where = max(acc_max, key=acc_max.get)
+    line["medmamba_step"] = {"ms_per_step_loop": 1e3 * meters["batch_time_last"],
+                             "amp_ms_per_step": amp["medmamba_ms"],
+                             "calibrations": calib, "loss_last": loss,
+                             "largest_abs_int32": largest, "largest_at": where,
+                             "int32_limit": 2**31 - 1, "largest_abs_int32_by_shape": acc_max}
+    say(f"quant medmamba int8_delayed: calibrate_quant once, at step {calib[0]}; the loop's "
+        f"last step {1e3 * meters['batch_time_last']:.2f} ms (amp step {amp['medmamba_ms']:.2f}); "
+        f"largest |int32 accumulator| of a step's Dense products ({len(acc_max)} shapes) "
+        f"{largest} at {where} ({largest / 2**31:.2e} of 2^31)")
+    del state, step_fn, batch, host_batches
+
+    # (e) export_serving --quant int8_serve --compress-weights, load_serving:
+    # classify bit for bit make_serving_fns's on the card
+    work = tempfile.mkdtemp(prefix="chip_smoke_quant_")
+    try:
+        out = os.path.join(work, "medmamba_int8_serve")
+        man = export_cli.main(["--out", out, "--model", "medmamba", "--quant", "int8_serve",
+                               "--compress-weights"])
+        served = load_serving(out, device="cuda")
+        mq, fq, _ = make_serving_fns("medmamba", quant="int8_serve", precision="amp",
+                                     device="cuda", generator=torch.Generator().manual_seed(0))
+        stored = torch.load(os.path.join(out, "params.pt"), weights_only=True)
+        kernels = serve_kernels(mq)
+        n_int8 = sum(1 for k in stored if k.endswith(".__int8_cols__"))
+        # the loaded weights requantize on the card to the stored values
+        weights = dict(mq.named_parameters())
+        for key in kernels:
+            if f"{key}.__int8_cols__" in stored:
+                rhs = weights[key].detach().bfloat16().t()
+                sr = qdot._absmax_scale_cols(rhs)
+                if not (torch.equal(qdot._quantize(rhs, sr).t().cpu(),
+                                    stored[f"{key}.__int8_cols__"])
+                        and torch.equal(sr.cpu(), stored[f"{key}.__int8_cols__.scale"][:, 0])):
+                    fail(f"the int8_serve artifact's {key} is not the dot's quantization on "
+                         "the card")
+        fq["classify"](mq, x64)
+        got = counted("loaded int8_serve classify", lambda: served["classify"](x64),
+                      {"scan_fwd": 14})
+        want = counted("in-process int8_serve classify", lambda: fq["classify"](mq, x64),
+                       {"scan_fwd": 14})
+        if not torch.equal(got, want):
+            fail(f"the compressed int8_serve artifact's classify differs from "
+                 f"make_serving_fns by {float((got - want).abs().max()):.3e}")
+        line["artifact"] = {"manifest_quant": man["quant"], "weights": man["weights"],
+                            "int8_tensors": n_int8, "served_kernels": len(kernels),
+                            "bytes": os.path.getsize(os.path.join(out, "params.pt"))}
+        say(f"quant artifact: medmamba int8_serve compressed ({n_int8} int8 tensors, "
+            f"{len(kernels)} kernels of int8_serve dots); the stored values are the dot's "
+            "quantization on the card; classify of 64 images bit for bit make_serving_fns's")
+        del served, mq, fq, stored
+
+        # (f) the CLI: medmamba under --quant int8_delayed, phase 14's Drive
+        # flags: the init batch (14 scan forwards), calibrate_quant (14), 2
+        # steps of 14 + 14, one eval batch of 14; the checkpoint holds the
+        # delayed state
+        logs = os.path.join(work, "logs")
+        argv = ["--synthetic-data", "--train-num-samples", "128", "--val-num-samples", "64",
+                "--batch-size", "64", "--epochs", "1", "--warmup", "2", "--lr", "1e-4",
+                "--precision", "amp", "--save-most-recent", "--log-every-n-steps", "1",
+                "--grad-clip-norm", "1.0", "--logs", logs, "--model-stage-1", "medmamba",
+                "--name", "quant", "--quant", "int8_delayed"]
+        rec = run_cli((reset_counts, read_counts, flash_bodies), "medmamba --quant int8_delayed",
+                      argv)
+        check_cli_steps(rec, "medmamba --quant int8_delayed", 2,
+                        {"scan_fwd": 14, "scan_bwd": 14}, {"scan_fwd": 14}, eval_batches=1)
+        want = {k: 0 for k in rec["total"]}
+        want.update(scan_fwd=14 * 5, scan_bwd=14 * 2)
+        if rec["total"] != want:
+            fail(f"cli --quant int8_delayed: launches {rec['total']}, expected {want}")
+        for k in total:
+            total[k] += rec["total"][k]
+        saved = torch.load(os.path.join(logs, "quant", "checkpoints", "stage_1_epoch_latest",
+                                        "state.pt"), weights_only=True)
+        if len(saved.get("quant_stats", {})) != 62:  # 31 Denses x (lhs, rhs)
+            fail(f"cli --quant int8_delayed: the checkpoint holds "
+                 f"{len(saved.get('quant_stats', {}))} delayed scales, expected 62")
+        line["cli"] = {"wall_s": rec["wall_s"], "launches": rec["total"],
+                       "losses": [st["loss"] for st in rec["steps"]],
+                       "val_loss": rec["metrics"]["val_loss"], "quant_stats": 62}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return line, total, total_bodies
 
 
 def main(argv=None) -> None:
@@ -2999,7 +3415,17 @@ def main(argv=None) -> None:
                                                 synthetic)
     say(json.dumps({"real_data": real_line}))
 
-    # 17. kernels line, then the device line. Each attention kernel as two
+    # 17. the native int8 modes: the dots on the card against the CPU, then
+    # int8_serve classify, the contrastive and medmamba steps and an
+    # int8_serve artifact through the scan and flash kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    quant_line, quant_launches, quant_bodies = quant_phase(
+        card, reset_counts, read_counts, flash_bodies,
+        {"medmamba_ms": step_ms, "clip_flash_ms": clip_ms, "clip_einsum_ms": einsum_ms})
+    say(json.dumps({"quant": quant_line}))
+
+    # 18. kernels line, then the device line. Each attention kernel as two
     # entries, one a body: the tensor cores (bf16: what serving and training
     # under amp run, its launches from the main path) and the CUDA cores
     # (fp32, its launches from phase 10's fp32 step), each timed at the
@@ -3016,11 +3442,12 @@ def main(argv=None) -> None:
                    "medmamba_clip_text_embed": mm_bodies["text_embed"],
                    "clip_train_accum2_checkpointed": accum_bodies,
                    "medmamba_clip_train": mm_train_bodies, "clip_train_fp32": fp32_bodies,
-                   "cli": cli_bodies, "serving_http": http_bodies, "real_data": real_bodies}
+                   "cli": cli_bodies, "serving_http": http_bodies, "real_data": real_bodies,
+                   "quant": quant_bodies}
     main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2", "cli",
-                          "serving_http", "real_data"),
-                  "dkv": ("clip_train", "epoch_stage1", "cli", "real_data"),
-                  "dq": ("clip_train", "epoch_stage1", "cli", "real_data")}
+                          "serving_http", "real_data", "quant"),
+                  "dkv": ("clip_train", "epoch_stage1", "cli", "real_data", "quant"),
+                  "dq": ("clip_train", "epoch_stage1", "cli", "real_data", "quant")}
     flash_launches = {key: {"tensor_cores": sum(flash_paths[p][key]["tensor_cores"]
                                                 for p in paths),
                             "cuda_cores": fp32_bodies[key]["cuda_cores"]}
@@ -3097,11 +3524,13 @@ def main(argv=None) -> None:
         "route": "cuda",
         "source": "src/mamba_clip_tpu_torch/csrc/selective_scan_fwd.cu",
         "replaces": "src/mamba_clip_tpu/ops/selective_scan.py:194",
-        "launches": launches + train_fwd + cli_launches["scan_fwd"] + http_launches["scan_fwd"],
+        "launches": (launches + train_fwd + cli_launches["scan_fwd"]
+                     + http_launches["scan_fwd"] + quant_launches["scan_fwd"]),
         "launches_by_path": {"serve": launches, "train": train_fwd, "clip_serve": clip_scans,
                              "medmamba_clip_image_embed": mm_launches["image_embed"]["scan"],
                              "cli": cli_launches["scan_fwd"],
-                             "serving_http": http_launches["scan_fwd"]},
+                             "serving_http": http_launches["scan_fwd"],
+                             "quant": quant_launches["scan_fwd"]},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": fwd_k,
@@ -3115,10 +3544,11 @@ def main(argv=None) -> None:
         "route": "cuda",
         "source": "src/mamba_clip_tpu_torch/csrc/selective_scan_bwd.cu",
         "replaces": "src/mamba_clip_tpu/ops/selective_scan.py:243",
-        "launches": train_bwd + cli_launches["scan_bwd"],
+        "launches": train_bwd + cli_launches["scan_bwd"] + quant_launches["scan_bwd"],
         "launches_by_path": {"serve": serve_bwd, "train": train_bwd,
                              "cli": cli_launches["scan_bwd"],
-                             "serving_http": http_launches["scan_bwd"]},
+                             "serving_http": http_launches["scan_bwd"],
+                             "quant": quant_launches["scan_bwd"]},
         "max_abs_err": bwd_abs,
         "max_rel_err": bwd_rel,
         "ms": bwd_k_step,

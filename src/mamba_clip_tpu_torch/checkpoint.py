@@ -7,9 +7,12 @@ Counterpart of ``mamba_clip_tpu/checkpoint.py``: ``natural_key``,
 and ``wait_for_checkpoints``.
 
 The payload is the JAX package's: parameters, the Adam moments and count,
-batch statistics (the model's buffers), step, epoch and, for the fp16
-policies, the loss scale. The format is the port's own: a directory of the
-JAX package's name (``[<prefix>]epoch_<N>``, ``..._step_<m>``,
+batch statistics (the model's buffers but its delayed int8 scales), step,
+epoch, for the fp16 policies the loss scale and, under ``--quant
+int8_delayed*``, the delayed scales (``quant_stats``: a resume quantizes
+with the scales the interrupted run would have used). The format is the
+port's own: a directory of the JAX package's name
+(``[<prefix>]epoch_<N>``, ``..._step_<m>``,
 ``epoch_latest``), so discovery and the step names work unchanged, holding
 one ``state.pt`` (``torch.save`` of CPU tensors). A save writes into a
 temporary directory beside the target and renames it, so a reader sees a
@@ -42,6 +45,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .ops.qdot import delayed_scales
 from .optim import AdamState
 from .utils.logging import get_logger
 from .utils.precision import LossScaleState
@@ -130,8 +134,10 @@ def wait_for_checkpoints() -> None:
 
 
 def _buffers(model: nn.Module) -> Dict[str, torch.Tensor]:
-    params = {k for k, _ in model.named_parameters()}
-    return {k: v for k, v in model.state_dict().items() if k not in params}
+    """The batch statistics: every state-dict entry that is neither a
+    parameter nor a delayed int8 scale."""
+    skip = {k for k, _ in model.named_parameters()} | set(delayed_scales(model))
+    return {k: v for k, v in model.state_dict().items() if k not in skip}
 
 
 def _to_host(tree: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -166,6 +172,9 @@ def save_checkpoint(
         # again and skip steps until the back-off has converged
         payload["loss_scale"] = {"scale": float(state.loss_scale.scale),
                                  "growth_count": int(state.loss_scale.growth_count)}
+    quant = delayed_scales(model)
+    if quant:
+        payload["quant_stats"] = _to_host(quant)
     tmp = f"{path}.tmp-{os.getpid()}"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -237,16 +246,28 @@ def load_checkpoint(path: str, state, allow_partial: bool = False):
             f"({len(saved_opt['mu'])} saved moments, {len(fresh.mu)} expected); a training "
             "resume needs the same trainable mask")
     new_state = replace(state, step=int(restored["step"]), opt_state=opt_state)
+    # a checkpoint written without the optional parts (another precision or
+    # quant mode) restores the rest and keeps this run's fresh scaler and
+    # init-calibrated delayed scales
+    fresh_parts = False
     if getattr(state, "loss_scale", None) is not None:
         if "loss_scale" in restored:
             new_state = replace(new_state, loss_scale=LossScaleState(
                 scale=float(restored["loss_scale"]["scale"]),
                 growth_count=int(restored["loss_scale"]["growth_count"])))
         else:
-            logger.warning(
-                f"checkpoint {path} is missing loss-scale and/or quant "
-                "state; starting those fresh"
-            )
+            fresh_parts = True
+    quant = delayed_scales(model)
+    if quant:
+        if "quant_stats" in restored:
+            _copy_into(quant, restored["quant_stats"], "delayed scales", path)
+        else:
+            fresh_parts = True
+    if fresh_parts:
+        logger.warning(
+            f"checkpoint {path} is missing loss-scale and/or quant "
+            "state; starting those fresh"
+        )
     # the stored epoch is the completed one (1-based); the epoch loop is
     # 0-based, so it doubles as the next epoch index
     return new_state, int(restored["epoch"])

@@ -8,8 +8,11 @@ JAX package's. Run on the card (the default ``--device auto``) or, with
     python -m mamba_clip_tpu_torch.cli.main --data-path data/isic-2024-challenge/ --stage 1 ...
     python -m mamba_clip_tpu_torch.cli.main --synthetic-data --stage 1 ...
 
-``--hyperparameter-tuning`` (the optuna, ray and ASHA searches) is not
-ported yet: ``pipeline`` refuses it.
+``--quant`` takes the five native int8 modes (``int8_fast``,
+``int8_fast_attn``, ``int8_delayed``, ``int8_delayed_attn``,
+``int8_serve``); ``int8`` and ``int8_fwd`` (the aqt library's numerics)
+and ``--hyperparameter-tuning`` (the optuna, ray and ASHA searches) are
+not ported yet: ``pipeline`` refuses them.
 """
 
 from __future__ import annotations

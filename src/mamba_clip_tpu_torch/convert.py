@@ -1,8 +1,8 @@
 """Weights bridge: a Flax variable tree (VSSM classifier, ViT, BERT or
 CLIP) -> the port's state dict.
 
-The JAX package's variables are ``{"params": ..., "batch_stats": ...}``,
-nested dicts whose leaves are arrays (numpy, or anything ``np.asarray``
+The JAX package's variables are ``{"params": ..., "batch_stats": ...,
+"quant": ...}``, nested dicts whose leaves are arrays (numpy, or anything ``np.asarray``
 takes). The port's modules keep the Flax child names, except for Flax's
 auto-named children, so each leaf maps by its path:
 
@@ -14,6 +14,10 @@ auto-named children, so each leaf maps by its path:
 - Embed ``embedding`` (vocab, width) -> ``weight`` as it is;
 - LayerNorm/BatchNorm ``scale`` -> ``weight``, ``bias`` -> ``bias``;
 - BatchNorm ``mean``/``var`` (batch_stats) -> ``running_mean``/``running_var``;
+- the delayed int8 scales (the ``quant`` collection of ``--quant
+  int8_delayed*``): ``amax_lhs``/``amax_rhs`` of a Dense's
+  ``Int8DelayedDotGeneral_0`` and ``amax_q``/``amax_k``/``amax_v`` of an
+  attention module, as they are, under the same module names;
 - the raw SS2D parameters (``x_proj_weight``, ``dt_projs_weight``,
   ``dt_projs_bias``, ``A_logs``, ``Ds``) and the raw parameters of the
   towers and the CLIP wrapper (``cls_token``, ``pos_embed``, ``pos_emb``,
@@ -30,8 +34,9 @@ them as that file with numpy alone. A ``weight`` maps to ``kernel``,
 ``embedding`` or ``scale`` by the type of the module that owns it.
 :func:`train_state_from_jax` carries a whole JAX ``TrainState`` over:
 parameters, batch statistics, the Adam moments and count, the step and the
-loss scale. A ``ClipClassifier``'s leaves (``clip/...``, ``fc1``, ``fc2``)
-map by the same rules.
+loss scale and the delayed scales. :func:`quant_to_jax` gives a module's
+delayed scales back as the ``quant`` tree. A ``ClipClassifier``'s leaves
+(``clip/...``, ``fc1``, ``fc2``) map by the same rules.
 
 Every leaf must land on a parameter or buffer of the module and every
 parameter or buffer must be covered (BatchNorm's ``num_batches_tracked``
@@ -55,7 +60,8 @@ _RENAMES = (
     (re.compile(r"^BatchNorm_(\d+)$"), r"bn\1"),
     (re.compile(r"^Conv_(\d+)$"), r"conv\1"),
 )
-_COLLECTIONS = ("params", "batch_stats")
+_QUANT = {"amax_lhs", "amax_rhs", "amax_q", "amax_k", "amax_v"}
+_COLLECTIONS = ("params", "batch_stats", "quant")
 _FLAX_RENAMES = (
     (re.compile(r"^conv_branch$"), "ConvBranch_0"),
     (re.compile(r"^bn(\d+)$"), r"BatchNorm_\1"),
@@ -87,6 +93,10 @@ def _leaf_name(collection: str, path) -> str:
         if leaf not in names:
             raise KeyError(f"unmapped batch_stats leaf {where}")
         return names[leaf]
+    if collection == "quant":
+        if leaf not in _QUANT:
+            raise KeyError(f"unmapped quant leaf {where}")
+        return leaf
     if leaf in ("kernel", "scale", "embedding"):
         return "weight"
     if leaf == "bias" or leaf in _RAW:
@@ -156,11 +166,12 @@ def load_jax_variables(module: nn.Module, variables) -> nn.Module:
 
 
 def train_state_from_jax(model: nn.Module, tx, *, params, mu, nu, count, step,
-                         batch_stats=None, loss_scale=None):
+                         batch_stats=None, loss_scale=None, quant_stats=None):
     """The port's ``TrainState`` from the pieces of a JAX one, given as
-    trees of numpy arrays: ``params`` and ``batch_stats`` are loaded into
-    ``model`` in place; ``mu`` and ``nu`` (the two moment trees of optax's
-    ``ScaleByAdamState``, shaped like ``params``) become the ``AdamState`` of
+    trees of numpy arrays: ``params``, ``batch_stats`` and ``quant_stats``
+    (the delayed scales) are loaded into ``model`` in place; ``mu`` and
+    ``nu`` (the two moment trees of optax's ``ScaleByAdamState``, shaped
+    like ``params``) become the ``AdamState`` of
     ``tx`` with ``count``; ``step`` the step; ``loss_scale`` (a mapping with
     ``scale`` and ``growth_count``, the fp16 policies) the loss-scale state.
     The moments of leaves that ``tx``'s trainable mask freezes are dropped;
@@ -172,6 +183,8 @@ def train_state_from_jax(model: nn.Module, tx, *, params, mu, nu, count, step,
     variables = {"params": params}
     if batch_stats:
         variables["batch_stats"] = batch_stats
+    if quant_stats:
+        variables["quant"] = quant_stats
     load_jax_variables(model, variables)
     named = dict(model.named_parameters())
     fresh = tx.init(named)
@@ -194,6 +207,21 @@ def train_state_from_jax(model: nn.Module, tx, *, params, mu, nu, count, step,
     return TrainState(step=int(step), model=model,
                       opt_state=AdamState(count=int(count), mu=moments[0], nu=moments[1]),
                       loss_scale=ls)
+
+
+def quant_to_jax(module: nn.Module) -> Dict:
+    """``module``'s delayed int8 scales as the JAX package's ``quant``
+    collection: a nested dict of fp32 numpy arrays (empty without them)."""
+    from .ops.qdot import delayed_scales
+
+    tree: Dict = {}
+    for key, buf in delayed_scales(module).items():
+        *mods, leaf = key.split(".")
+        node = tree
+        for m in mods:
+            node = node.setdefault(_flax_module_name(m), {})
+        node[leaf] = buf.detach().to("cpu", torch.float32).numpy().copy()
+    return tree
 
 
 def _flax_module_name(name: str) -> str:

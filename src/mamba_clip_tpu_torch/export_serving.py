@@ -11,7 +11,7 @@ Usage:
         [--model biomedclip|medmamba|mambavision] [--clip] \\
         [--checkpoint <checkpoint dir, e.g. .../stage_1_epoch_latest>] \\
         [--num-classes 2] [--image-size 224] [--compress-weights] \\
-        [--tokenizer <vocab.txt or tokenizer dir>]
+        [--quant int8_serve] [--tokenizer <vocab.txt or tokenizer dir>]
 
 Without ``--checkpoint`` it exports a fresh init (seed 0).
 """
@@ -29,8 +29,9 @@ def main(argv=None):
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint dir of this package to load params from")
     p.add_argument("--quant", default=None,
-                   help="the int8 modes are not ported (ROADMAP.md, Queue 1, item 7): "
-                        "any value raises")
+                   help="int8_serve: per-channel int8 dots in the towers' Dense "
+                        "layers (int8_fast and int8_fast_attn export too; the "
+                        "int8_delayed modes are training modes and raise)")
     p.add_argument("--num-classes", type=int, default=2)
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--context-length", type=int, default=256)

@@ -60,22 +60,22 @@ def build_classifier(
     (medmamba) classifier; names containing ``mamba`` (e.g.
     ``mambavision``) -> :class:`MambaVisionClassifier` over a VSSM
     backbone. ``grad_checkpointing`` recomputes each block in the backward
-    (``VSSLayer(use_checkpoint=True)``). Parameters are made on the CPU
-    from ``generator``."""
-    if quant is not None:
-        raise NotImplementedError(
-            f"--quant {quant}: the int8 modes are not ported yet (ROADMAP.md, "
-            "Queue 1, item 7 'Quantized modes')")
+    (``VSSLayer(use_checkpoint=True)``). ``quant``: the ``--quant`` mode
+    whose int8 dot the VSSM's Dense layers take (``ops/quant.py``).
+    Parameters are made on the CPU from ``generator``."""
+    from ..ops.quant import make_dot_general_cls
+
+    dg_cls = make_dot_general_cls(quant)
     n = (name or "vssm").lower()
     if n in ("vssm", "medmamba"):
         return medmamba(num_classes=num_classes, dtype=dtype,
                         use_checkpoint=grad_checkpointing, scan_impl=scan_impl,
-                        generator=generator)
+                        generator=generator, dot_general_cls=dg_cls)
     if "mamba" in n:
         backbone = VSSM(
             depths=(2, 2, 8, 2), dims=(64, 128, 256, 512), num_classes=0,
             dtype=dtype, use_checkpoint=grad_checkpointing, scan_impl=scan_impl,
-            generator=generator,
+            generator=generator, dot_general_cls=dg_cls,
         )
         return MambaVisionClassifier(backbone=backbone, num_classes=num_classes,
                                      generator=generator)

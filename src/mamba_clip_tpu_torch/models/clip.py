@@ -224,33 +224,37 @@ def build_clip(
     """CLIP factory. ``biomedclip``/ViT names -> ViT-B/16 + PubMedBERT-shaped
     towers; ``medmamba``/``vssm`` -> the VSSM vision tower. Parameters are
     made on the CPU from ``generator``. ``attn_flash`` puts every attention
-    interior on the flash path (``--attn-impl flash``)."""
-    ai8, ai8d = quant == "int8_fast_attn", quant == "int8_delayed_attn"
+    interior on the flash path (``--attn-impl flash``). ``quant``: the
+    ``--quant`` mode (``ops/quant.py``): its int8 dot goes into the towers'
+    Dense layers, and the ``_attn`` modes also quantize the einsum interior,
+    which the flash interior would replace."""
+    from ..ops.quant import attn_int8, attn_int8_delayed, make_dot_general_cls
+
+    dg_cls = make_dot_general_cls(quant)
+    ai8, ai8d = attn_int8(quant), attn_int8_delayed(quant)
     if attn_flash and (ai8 or ai8d):
         raise ValueError(
             "--attn-impl flash replaces the attention interior the "
             f"int8 attention modes quantize; drop flash or use --quant "
             f"{quant!r} without the _attn suffix"
         )
-    if quant is not None:
-        raise NotImplementedError(
-            f"--quant {quant}: the int8 modes are not ported yet (ROADMAP.md, "
-            "Queue 1, item 7 'Quantized modes')")
     gelu_approx = resolve_gelu_approx(gelu, dtype)
     g = generator
     name = (model_name or "biomedclip").lower()
     if "medmamba" in name or "vssm" in name:
         vssm = VSSM(depths=(2, 2, 8, 2), dims=(64, 128, 256, 512), num_classes=0,
-                    dtype=dtype, scan_impl=scan_impl, generator=g)
+                    dtype=dtype, scan_impl=scan_impl, generator=g, dot_general_cls=dg_cls)
         visual = VssmTower(vssm, embed_dim=embed_dim, generator=g)
     else:
         visual = VisionTransformer(
             image_size=image_size, embed_dim=embed_dim, quick_gelu=quick_gelu,
             patch_dropout=patch_dropout, gelu_approx=gelu_approx,
             grad_checkpointing=grad_checkpointing, dtype=dtype, attn_remat=attn_remat,
-            attn_flash=attn_flash, generator=g)
+            attn_flash=attn_flash, generator=g, dot_general_cls=dg_cls, attn_int8=ai8,
+            attn_int8_delayed=ai8d)
     text = TextBert(
         vocab_size=vocab_size, context_length=context_length, embed_dim=embed_dim,
         grad_checkpointing=grad_checkpointing, dtype=dtype, gelu_approx=gelu_approx,
-        attn_remat=attn_remat, attn_flash=attn_flash, generator=g)
+        attn_remat=attn_remat, attn_flash=attn_flash, generator=g, dot_general_cls=dg_cls,
+        attn_int8=ai8, attn_int8_delayed=ai8d)
     return ClipModel(visual=visual, text=text, siglip=siglip)

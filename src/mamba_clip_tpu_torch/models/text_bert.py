@@ -4,7 +4,10 @@ Counterpart of ``mamba_clip_tpu/models/text_bert.py``: ``BertBlock``
 (post-LN, eps 1e-12) and ``TextBert`` (token, position and type
 embeddings, ``ln_emb``, the blocks, CLS pooling, then the ``mlp``,
 ``linear`` or ``none`` projection), with the Flax child names and
-parameter shapes. The key mask is ``input_ids != pad_id``. The projection
+parameter shapes. ``dot_general_cls``, ``attn_int8`` and
+``attn_int8_delayed`` are the ViT's (``vit.py``): the int8 dot goes into
+every block's ``qkv``, ``out``, ``fc1`` and ``fc2``, never into the fp32
+projection. The key mask is ``input_ids != pad_id``. The projection
 MLP's GELU is always the exact (erf) form; the blocks' follows
 ``gelu_approx``. The tower has no dropout, so training mode differs from
 eval only by ``grad_checkpointing`` (each block recomputed in the
@@ -19,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .vit import FusedAttention, _dense, _normal_param, gelu, not_ported, remat
+from .vit import FusedAttention, _dense, _normal_param, gelu, remat
 from .vssm import _layer_norm_f32, _linear
 
 
@@ -29,15 +32,20 @@ class BertBlock(nn.Module):
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32, gelu_approx: bool = False,
                  attn_flash: bool = False, attn_remat: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dot_general_cls=None,
+                 attn_int8: bool = False, attn_int8_delayed: bool = False):
         super().__init__()
         self.dtype = dtype
         self.gelu_approx = gelu_approx
         self.attn = FusedAttention(width, num_heads, dtype=dtype, flash_interior=attn_flash,
-                                   remat_probs=attn_remat, generator=generator)
+                                   remat_probs=attn_remat, generator=generator,
+                                   dot_general_cls=dot_general_cls, int8_interior=attn_int8,
+                                   int8_delayed_interior=attn_int8_delayed)
         self.ln_attn = nn.LayerNorm(width, eps=1e-12)
-        self.fc1 = _dense(width, int(width * mlp_ratio), generator)
-        self.fc2 = _dense(int(width * mlp_ratio), width, generator)
+        self.fc1 = _dense(width, int(width * mlp_ratio), generator,
+                          dot_general_cls=dot_general_cls)
+        self.fc2 = _dense(int(width * mlp_ratio), width, generator,
+                          dot_general_cls=dot_general_cls)
         self.ln_mlp = nn.LayerNorm(width, eps=1e-12)
 
     def forward(self, x, mask=None):
@@ -69,10 +77,9 @@ class TextBert(nn.Module):
         attn_int8_delayed: bool = False,
         attn_flash: bool = False,
         generator: Optional[torch.Generator] = None,
+        dot_general_cls=None,
     ):
         super().__init__()
-        if attn_int8 or attn_int8_delayed:
-            raise not_ported("the int8 attention interior")
         if proj_type not in ("mlp", "linear", "none"):
             raise ValueError(f"proj_type must be mlp|linear|none, got {proj_type!r}")
         g = generator
@@ -94,7 +101,9 @@ class TextBert(nn.Module):
         for i in range(depth):
             self.add_module(f"block{i}", BertBlock(
                 width, num_heads, mlp_ratio, dtype=dtype, gelu_approx=gelu_approx,
-                attn_flash=attn_flash, attn_remat=attn_remat, generator=g))
+                attn_flash=attn_flash, attn_remat=attn_remat, generator=g,
+                dot_general_cls=dot_general_cls, attn_int8=attn_int8,
+                attn_int8_delayed=attn_int8_delayed))
         if proj_type == "linear":
             self.proj = _dense(width, embed_dim, g, bias=False)
         elif proj_type == "mlp":

@@ -21,8 +21,14 @@ variable tree onto them leaf by leaf.
   (``torch.utils.checkpoint``, the counterpart of ``nn.remat``);
   ``attn_remat`` recomputes the einsum interior only, and changes nothing
   under the flash interior, which keeps no probabilities to recompute.
-- The quantized modes (the int8 interiors) are not ported: asked for, they
-  raise.
+- ``dot_general_cls`` (``ops/quant.py``) puts the int8 dot of a
+  ``--quant`` mode into ``patch_embed`` and every block's ``qkv``, ``out``,
+  ``fc1`` and ``fc2``; the fp32 projection stays unquantized. With
+  ``attn_int8`` (``int8_fast_attn``) the einsum interior runs its two dots
+  in int8 with scales calibrated on the call, with ``attn_int8_delayed``
+  (``int8_delayed_attn``) with delayed per-head q/k/v scales
+  (``amax_q``, ``amax_k``, ``amax_v`` of each ``attn``) and the static 1/127
+  scale of the probabilities. Neither goes with the flash interior.
 """
 
 from __future__ import annotations
@@ -34,14 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.flash_attn import attention_plain, flash_attention_interior
+from ..ops import qdot
+from ..ops.flash_attn import _MASKED, attention_plain, flash_attention_interior
 from .vssm import _apply_keep, _layer_norm_f32, _lecun_normal_, _linear, keep_mask
-
-_NOT_PORTED = "is a quantized mode, not ported yet (ROADMAP.md, Queue 1, item 7 'Quantized modes')"
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} {_NOT_PORTED}")
 
 
 def remat(fn, *args, **kwargs):
@@ -51,16 +52,18 @@ def remat(fn, *args, **kwargs):
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
-def _dense(d_in: int, d_out: int, generator, bias: bool = True) -> nn.Linear:
+def _dense(d_in: int, d_out: int, generator, bias: bool = True,
+           dot_general_cls=None) -> nn.Linear:
     """``nn.Dense``: lecun_normal kernel, zero bias (made without
     ``nn.Linear``'s own init, which would be drawn and thrown away), on the
-    default device: the CPU, or no storage under ``torch.device("meta")``."""
+    default device: the CPU, or no storage under ``torch.device("meta")``;
+    ``dot_general_cls``: the injected int8 dot."""
     layer = nn.Linear(d_in, d_out, bias=bias, device="meta").to_empty(
         device=torch.get_default_device())
     _lecun_normal_(layer.weight, generator)
     if bias:
         nn.init.zeros_(layer.bias)
-    return layer
+    return qdot.inject(layer, dot_general_cls)
 
 
 def _normal_param(shape, std: float, generator) -> nn.Parameter:
@@ -73,23 +76,56 @@ def gelu(x, approximate: bool):
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
+def _head_amax(t: torch.Tensor) -> torch.Tensor:
+    """The per-head absmax (h,) of a ``[B, T, h, hd]`` tensor, floored at
+    the dots' epsilon."""
+    return torch.clamp_min(t.detach().float().abs().amax(dim=(0, 1, 3)), qdot._EPS)
+
+
+def attention_int8(q, k, v, pad_mask=None, *, sm_scale: float, scales=None):
+    """The einsum interior with its two dots in int8: per-(batch, head)
+    scales calibrated on the call, or with ``scales`` (sq, sk, sv, each
+    (1, 1, h, 1)) the delayed dots. Returns ``[B, T, h*hd]`` in q's type."""
+    B, T, h, hd = q.shape
+    if scales is None:
+        s = qdot.int8_qk_dot(q, k) * sm_scale
+    else:
+        s = qdot.int8_qk_dot_delayed(q, k, scales[0], scales[1]) * sm_scale
+    s = s.float()
+    if pad_mask is not None:
+        s = s.masked_fill(~pad_mask, _MASKED)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    if scales is None:
+        return qdot.int8_pv_dot(p, v).reshape(B, T, h * hd)
+    return qdot.int8_pv_dot_delayed(p, v, scales[2]).reshape(B, T, h * hd)
+
+
 class FusedAttention(nn.Module):
     """Multi-head attention with a fused (d, 3d) ``qkv`` projection, split
     into contiguous thirds, and an ``out`` projection. ``pad_mask``
     ``[B, 1, 1, T]`` masks keys only. ``remat_probs`` recomputes the einsum
     interior in the backward, keeping q, k and v instead of the
-    ``[B, h, T, T]`` probabilities."""
+    ``[B, h, T, T]`` probabilities. ``int8_interior`` and
+    ``int8_delayed_interior`` run the einsum interior in int8
+    (:func:`attention_int8`); the delayed one keeps the per-head absmax of q,
+    k and v as ``amax_q``, ``amax_k`` and ``amax_v``."""
 
     def __init__(self, width: int, num_heads: int, dtype: torch.dtype = torch.float32,
                  flash_interior: bool = False, remat_probs: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dot_general_cls=None,
+                 int8_interior: bool = False, int8_delayed_interior: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.dtype = dtype
         self.flash_interior = flash_interior
         self.remat_probs = remat_probs
-        self.qkv = _dense(width, 3 * width, generator)
-        self.out = _dense(width, width, generator)
+        self.int8_interior = int8_interior
+        self.int8_delayed_interior = int8_delayed_interior
+        self.qkv = _dense(width, 3 * width, generator, dot_general_cls=dot_general_cls)
+        self.out = _dense(width, width, generator, dot_general_cls=dot_general_cls)
+        if int8_delayed_interior:
+            qdot.register_delayed(self, amax_q=(num_heads,), amax_k=(num_heads,),
+                                  amax_v=(num_heads,))
 
     def forward(self, x, pad_mask=None):
         B, T, d = x.shape
@@ -97,12 +133,24 @@ class FusedAttention(nn.Module):
         hd = d // h
         q, k, v = (t.reshape(B, T, h, hd)
                    for t in _linear(x, self.qkv, self.dtype).split(d, dim=-1))
+        sm = hd ** -0.5
         if self.flash_interior:
-            o = flash_attention_interior(q, k, v, pad_mask, sm_scale=hd ** -0.5)
-        elif self.remat_probs and torch.is_grad_enabled():
-            o = remat(attention_plain, q, k, v, pad_mask, sm_scale=hd ** -0.5)
+            return _linear(flash_attention_interior(q, k, v, pad_mask, sm_scale=sm),
+                           self.out, self.dtype)
+        kw = {"sm_scale": sm}
+        interior = attention_plain
+        if self.int8_delayed_interior:
+            kw["scales"] = tuple(
+                qdot._over_127(qdot.delayed_amax(self, name, _head_amax(t))).reshape(
+                    1, 1, h, 1)
+                for name, t in (("amax_q", q), ("amax_k", k), ("amax_v", v)))
+            interior = attention_int8
+        elif self.int8_interior:
+            interior = attention_int8
+        if self.remat_probs and torch.is_grad_enabled():
+            o = remat(interior, q, k, v, pad_mask, **kw)
         else:
-            o = attention_plain(q, k, v, pad_mask, sm_scale=hd ** -0.5)
+            o = interior(q, k, v, pad_mask, **kw)
         return _linear(o, self.out, self.dtype)
 
 
@@ -112,13 +160,14 @@ class MlpBlock(nn.Module):
 
     def __init__(self, width: int, hidden_dim: int, out_dim: int,
                  dtype: torch.dtype = torch.float32, quick_gelu: bool = False,
-                 gelu_approx: bool = False, generator: Optional[torch.Generator] = None):
+                 gelu_approx: bool = False, generator: Optional[torch.Generator] = None,
+                 dot_general_cls=None):
         super().__init__()
         self.dtype = dtype
         self.quick_gelu = quick_gelu
         self.gelu_approx = gelu_approx
-        self.fc1 = _dense(width, hidden_dim, generator)
-        self.fc2 = _dense(hidden_dim, out_dim, generator)
+        self.fc1 = _dense(width, hidden_dim, generator, dot_general_cls=dot_general_cls)
+        self.fc2 = _dense(hidden_dim, out_dim, generator, dot_general_cls=dot_general_cls)
 
     def forward(self, x):
         x = _linear(x, self.fc1, self.dtype)
@@ -135,16 +184,20 @@ class EncoderBlock(nn.Module):
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32, quick_gelu: bool = False,
                  gelu_approx: bool = False, attn_flash: bool = False,
-                 attn_remat: bool = False, generator: Optional[torch.Generator] = None):
+                 attn_remat: bool = False, generator: Optional[torch.Generator] = None,
+                 dot_general_cls=None, attn_int8: bool = False,
+                 attn_int8_delayed: bool = False):
         super().__init__()
         self.dtype = dtype
         self.norm1 = nn.LayerNorm(width, eps=1e-6)
         self.attn = FusedAttention(width, num_heads, dtype=dtype, flash_interior=attn_flash,
-                                   remat_probs=attn_remat, generator=generator)
+                                   remat_probs=attn_remat, generator=generator,
+                                   dot_general_cls=dot_general_cls, int8_interior=attn_int8,
+                                   int8_delayed_interior=attn_int8_delayed)
         self.norm2 = nn.LayerNorm(width, eps=1e-6)
         self.mlp = MlpBlock(width, int(width * mlp_ratio), width, dtype=dtype,
                             quick_gelu=quick_gelu, gelu_approx=gelu_approx,
-                            generator=generator)
+                            generator=generator, dot_general_cls=dot_general_cls)
 
     def forward(self, x):
         x = x + self.attn(_layer_norm_f32(x, self.norm1).to(self.dtype))
@@ -175,10 +228,9 @@ class VisionTransformer(nn.Module):
         attn_int8_delayed: bool = False,
         attn_flash: bool = False,
         generator: Optional[torch.Generator] = None,
+        dot_general_cls=None,
     ):
         super().__init__()
-        if attn_int8 or attn_int8_delayed:
-            raise not_ported("the int8 attention interior")
         g = generator
         self.patch_size = patch_size
         self.patch_dropout = patch_dropout
@@ -188,14 +240,16 @@ class VisionTransformer(nn.Module):
         self.embed_dim = embed_dim
         self.dtype = dtype
         n_patches = (image_size // patch_size) ** 2
-        self.patch_embed = _dense(patch_size * patch_size * 3, width, g)  # RGB patches
+        self.patch_embed = _dense(patch_size * patch_size * 3, width, g,  # RGB patches
+                                  dot_general_cls=dot_general_cls)
         self.cls_token = _normal_param((1, 1, width), 0.02, g)
         self.pos_embed = _normal_param((1, n_patches + 1, width), 0.02, g)
         for i in range(depth):
             self.add_module(f"block{i}", EncoderBlock(
                 width, num_heads, mlp_ratio, dtype=dtype, quick_gelu=quick_gelu,
                 gelu_approx=gelu_approx, attn_flash=attn_flash, attn_remat=attn_remat,
-                generator=g))
+                generator=g, dot_general_cls=dot_general_cls, attn_int8=attn_int8,
+                attn_int8_delayed=attn_int8_delayed))
         self.norm = nn.LayerNorm(width, eps=1e-6)
         self.proj = _dense(width, embed_dim, g, bias=False) if embed_dim is not None else None
 

@@ -27,6 +27,11 @@ them leaf by leaf.
   does not update the running statistics again.
 - Initialization draws the JAX inits' distributions from a
   ``torch.Generator`` on the CPU; values differ from JAX's at the same seed.
+- ``dot_general_cls`` (``ops/quant.py``'s ``make_dot_general_cls``) puts
+  the int8 dot of a ``--quant`` mode into the Dense layers the JAX package
+  injects it into: ``in_proj`` and ``out_proj`` of every SS2D and the
+  patch merges' ``reduction``. The per-direction einsum projections, the
+  scan, the convolutions and the fp32 ``head`` stay unquantized, as there.
 - The decoder parts belong to later work.
 """
 
@@ -40,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..ops.qdot import inject, injected
 from ..ops.selective_scan import selective_scan_tm
 
 # std of a standard normal truncated to [-2, 2]
@@ -71,8 +77,16 @@ def _lecun_normal_(w: torch.Tensor, generator) -> torch.Tensor:
 
 
 def _linear(x, layer: nn.Linear, dtype):
+    """``nn.Dense(dtype=dtype)``: x and the weight cast to ``dtype`` first,
+    then the dot (the int8 dot injected into ``layer``, if any, which
+    quantizes the cast values), then the bias."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    x, w = x.to(dtype), layer.weight.to(dtype)
+    dot = injected(layer)
+    if dot is None:
+        return F.linear(x, w, bias)
+    out = dot(x, w.t(), (((x.ndim - 1,), (0,)), ((), ())))
+    return out if bias is None else out + bias
 
 
 def _conv_nhwc(x, conv: nn.Conv2d, dtype):
@@ -170,6 +184,7 @@ class SS2D(nn.Module):
         dtype: torch.dtype = torch.float32,
         scan_impl: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
+        dot_general_cls=None,
     ):
         super().__init__()
         K = 4
@@ -181,7 +196,7 @@ class SS2D(nn.Module):
         self.scan_impl = scan_impl
         g = generator
 
-        self.in_proj = nn.Linear(d_model, d_inner * 2, bias=bias)
+        self.in_proj = inject(nn.Linear(d_model, d_inner * 2, bias=bias), dot_general_cls)
         _trunc_normal_(self.in_proj.weight, 0.02, g)
         self.conv2d = nn.Conv2d(d_inner, d_inner, d_conv, groups=d_inner,
                                 bias=conv_bias)
@@ -207,7 +222,7 @@ class SS2D(nn.Module):
         self.Ds = nn.Parameter(torch.ones(K * d_inner))
 
         self.out_norm = nn.LayerNorm(d_inner, eps=1e-5)
-        self.out_proj = nn.Linear(d_inner, d_model, bias=bias)
+        self.out_proj = inject(nn.Linear(d_inner, d_model, bias=bias), dot_general_cls)
         _trunc_normal_(self.out_proj.weight, 0.02, g)
         self.dropout = dropout
         for layer in (self.in_proj, self.conv2d, self.out_proj):
@@ -328,6 +343,7 @@ class SSConvSSM(nn.Module):
         dtype: torch.dtype = torch.float32,
         scan_impl: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
+        dot_general_cls=None,
     ):
         super().__init__()
         half = hidden_dim // 2
@@ -335,7 +351,7 @@ class SSConvSSM(nn.Module):
         self.ln_1 = nn.LayerNorm(half, eps=1e-6)
         self.self_attention = SS2D(
             d_model=half, d_state=d_state, dropout=attn_drop_rate, dtype=dtype,
-            scan_impl=scan_impl, generator=generator)
+            scan_impl=scan_impl, generator=generator, dot_general_cls=dot_general_cls)
         self.drop_path = DropPath(drop_path)
         self.conv_branch = ConvBranch(half, dtype=dtype, generator=generator)
 
@@ -388,11 +404,11 @@ class PatchMerging2D(nn.Module):
     """2x2 space-to-channel + LN + Linear 4C -> 2C."""
 
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dot_general_cls=None):
         super().__init__()
         self.dtype = dtype
         self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.reduction = inject(nn.Linear(4 * dim, 2 * dim, bias=False), dot_general_cls)
         _trunc_normal_(self.reduction.weight, 0.02, generator)
 
     def forward(self, x):
@@ -437,6 +453,7 @@ class VSSLayer(nn.Module):
         dtype: torch.dtype = torch.float32,
         scan_impl: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
+        dot_general_cls=None,
     ):
         super().__init__()
         self.depth = depth
@@ -446,9 +463,10 @@ class VSSLayer(nn.Module):
             self.add_module(f"block{i}", SSConvSSM(
                 hidden_dim=dim, drop_path=dp, attn_drop_rate=attn_drop,
                 d_state=d_state, dtype=dtype, scan_impl=scan_impl,
-                generator=generator))
+                generator=generator, dot_general_cls=dot_general_cls))
         self.downsample = (
-            PatchMerging2D(dim, dtype=dtype, generator=generator)
+            PatchMerging2D(dim, dtype=dtype, generator=generator,
+                           dot_general_cls=dot_general_cls)
             if downsample else None)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
@@ -485,6 +503,7 @@ class VSSM(nn.Module):
         dtype: torch.dtype = torch.float32,
         scan_impl: Optional[str] = None,
         generator: Optional[torch.Generator] = None,
+        dot_general_cls=None,
     ):
         super().__init__()
         self.depths = tuple(depths)
@@ -504,7 +523,7 @@ class VSSM(nn.Module):
                 attn_drop=attn_drop_rate,
                 drop_path=dpr[sum(depths[:i]): sum(depths[: i + 1])],
                 downsample=i < n - 1, use_checkpoint=use_checkpoint, dtype=dtype,
-                scan_impl=scan_impl, generator=g))
+                scan_impl=scan_impl, generator=g, dot_general_cls=dot_general_cls))
         if num_classes > 0:
             self.head = nn.Linear(dims[-1], num_classes)
             _trunc_normal_(self.head.weight, 0.02, g)

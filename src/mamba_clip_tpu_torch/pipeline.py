@@ -40,6 +40,7 @@ from .data.tokenizer import get_tokenizer
 from .eval import evaluate, make_eval_step
 from .models import ClipClassifier, build_classifier, build_clip, lock_mask
 from .ops.flash_attn import resolve_attn_flash
+from .ops.qdot import delayed_holders, init_delayed_scales
 from .optim import build_optimizer, freeze_submodule_mask, merge_masks
 from .schedules import create_schedule
 from .train import (TrainState, create_train_state, make_classifier_train_step,
@@ -52,7 +53,7 @@ logger = get_logger(__name__)
 LATEST_CHECKPOINT_NAME = "epoch_latest"
 
 __all__ = ["RunState", "init_run", "setup_paths", "parse_aug_cfg", "setup_train",
-           "prepare_params", "step", "pipeline", "load_params_only_into"]
+           "prepare_params", "init_quant_state", "step", "pipeline", "load_params_only_into"]
 
 
 def _not_ported(what: str, item: int, title: str) -> NotImplementedError:
@@ -62,8 +63,9 @@ def _not_ported(what: str, item: int, title: str) -> NotImplementedError:
 
 def check_ported(args: Args) -> None:
     """Raise for a flag whose feature the port does not have yet."""
-    if args.quant not in (None, "none"):
-        raise _not_ported(f"--quant {args.quant}", 7, "Quantized modes")
+    if args.quant in ("int8", "int8_fwd"):
+        raise _not_ported(f"--quant {args.quant} (the aqt library's numerics)", 7,
+                          "Quantized modes")
     policy = _POLICIES.get(args.precision)
     if policy is not None and policy.param_dtype != torch.float32:
         raise _not_ported(f"--precision {args.precision} (parameters kept in "
@@ -184,6 +186,24 @@ def _tb_writer(args: Args, run: RunState):
         return None
 
 
+def init_quant_state(model, image_size: int, policy, stage: int, takes_text: bool,
+                     device) -> None:
+    """The delayed int8 scales of ``--quant int8_delayed*`` from the JAX
+    package's init batch: two zero images at the train size in the compute
+    type and two all-pad token rows of the text tower's context. A model
+    without delayed scales is left as it is."""
+    if not delayed_holders(model):
+        return
+    img = torch.zeros((2, image_size, image_size, 3), dtype=policy.compute_dtype, device=device)
+    text_mod = getattr(model, "text", None) or getattr(getattr(model, "clip", None), "text", None)
+    tok = torch.zeros((2, getattr(text_mod, "context_length", 256)), dtype=torch.int64,
+                      device=device)
+    if stage == 1 and takes_text:
+        init_delayed_scales(model, image=img, text=tok)
+    else:
+        init_delayed_scales(model, *((img, tok) if takes_text else (img,)))
+
+
 def prepare_params(
     args: Args,
     model: torch.nn.Module,
@@ -196,19 +216,24 @@ def prepare_params(
 ) -> Dict[str, Any]:
     """Model, optimizer, schedule and state assembly on ``run.device``.
     ``init_params`` (a state dict) replaces the model's initial weights;
-    without it a stage-1 CLIP takes ``--pretrained``. Returns what ``step``
-    needs: ``state``, ``step_fn``, ``schedule``, ``policy``,
-    ``start_epoch``, ``start_batch``, ``writer``, ``mask``."""
+    without it the delayed int8 scales of ``--quant int8_delayed*`` are set
+    from the init batch (zero images and tokens, two of each, as the JAX
+    package's ``model.init`` sees) and a stage-1 CLIP then takes
+    ``--pretrained``. Returns what ``step`` needs: ``state``, ``step_fn``,
+    ``schedule``, ``policy``, ``start_epoch``, ``start_batch``, ``writer``,
+    ``mask``."""
     policy = get_policy(args.precision)
     tcfg_train = data.get("tcfg_train")
+    model = model.to(run.device)
     if init_params is not None:
         model.load_state_dict(init_params)
-    elif args.pretrained and "visual" in dict(model.named_children()):
-        from .checkpoint import load_torch_clip
+    else:
+        init_quant_state(model, tcfg_train.image_size, policy, stage, takes_text, run.device)
+        if args.pretrained and "visual" in dict(model.named_children()):
+            from .checkpoint import load_torch_clip
 
-        load_torch_clip(args.pretrained, model)
-        logger.info(f"Loaded pretrained CLIP weights from {args.pretrained}")
-    model = model.to(run.device)
+            load_torch_clip(args.pretrained, model)
+            logger.info(f"Loaded pretrained CLIP weights from {args.pretrained}")
     # bf16/pure_bf16/pure_fp16 keep the parameters (and so the optimizer
     # moments) in the low-precision type; amp keeps fp32 masters
     if policy.param_dtype != torch.float32:
@@ -479,7 +504,7 @@ def pipeline(args: Args):
             model = build_classifier(
                 stage1_name, num_classes=args.num_classes or 2,
                 dtype=policy.compute_dtype, grad_checkpointing=args.grad_checkpointing,
-                generator=generator,
+                quant=args.quant, generator=generator,
             )
         else:
             model = build_clip(
@@ -490,6 +515,7 @@ def pipeline(args: Args):
                 grad_checkpointing=args.grad_checkpointing,
                 siglip=args.siglip,
                 dtype=policy.compute_dtype,
+                quant=args.quant,
                 gelu=args.gelu,
                 attn_flash=attn_flash,
                 generator=generator,
@@ -522,7 +548,7 @@ def pipeline(args: Args):
         clip = build_clip(
             model_name=stage1_name, image_size=image_size,
             quick_gelu=args.force_quick_gelu, dtype=policy.compute_dtype,
-            gelu=args.gelu, attn_flash=attn_flash, generator=generator,
+            quant=args.quant, gelu=args.gelu, attn_flash=attn_flash, generator=generator,
         )
         model = ClipClassifier(
             clip=clip,

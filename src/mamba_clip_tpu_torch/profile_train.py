@@ -42,6 +42,7 @@ from .ops.flash_attn import (flash_attn_bwd_dkv, flash_attn_bwd_dq, flash_attn_f
                              resolve_attn_flash)
 from .ops.selective_scan import selective_scan_bwd, selective_scan_fwd
 from .optim import build_optimizer
+from .pipeline import init_quant_state
 from .profile_classify import card_name, trace_summary
 from .profile_embed import report_tokens
 from .schedules import create_schedule
@@ -72,22 +73,25 @@ KERNEL_WRAPPERS = {
 
 
 def medmamba_train_setup(batch: int, device="cuda", scan_impl=None, seed: int = 0,
-                         model_state=None):
+                         model_state=None, quant=None):
     """Full-width medmamba (``amp``) with its train step, through
     ``build_classifier``, ``create_schedule``, ``build_optimizer``,
     ``create_train_state`` and ``make_classifier_train_step``; weights from
     ``seed`` (or ``model_state``), two uint8 batches with int targets made
-    from a numpy seed and put on ``device``. Returns (state, step_fn,
-    batches)."""
+    from a numpy seed and put on ``device``. ``quant``: the ``--quant``
+    mode, its delayed scales (if any) set from the init batch as
+    ``prepare_params`` sets them. Returns (state, step_fn, batches)."""
     policy = get_policy("amp")
     args = SimpleNamespace(**TRAIN_ARGS)
     tcfg = get_transform_config(None, 224, is_train=True)
     model = build_classifier("medmamba", num_classes=2, dtype=policy.compute_dtype,
-                             scan_impl=scan_impl,
+                             scan_impl=scan_impl, quant=quant,
                              generator=torch.Generator().manual_seed(seed))
     if model_state is not None:
         model.load_state_dict(model_state)
     model = model.to(device)
+    if model_state is None:
+        init_quant_state(model, 224, policy, stage=2, takes_text=False, device=device)
     schedule = create_schedule(args, TOTAL_STEPS)
     tx = build_optimizer(args, schedule)
     state = create_train_state(model, tx, policy)
@@ -105,26 +109,28 @@ def medmamba_train_setup(batch: int, device="cuda", scan_impl=None, seed: int = 
 def clip_train_setup(batch: int, device="cuda", model_name: str = "biomedclip",
                      attn_impl: str = "flash", seed: int = 0, model_state=None,
                      grad_checkpointing: bool = False, precision: str = "amp",
-                     **arg_overrides):
+                     quant=None, **arg_overrides):
     """A full-width CLIP (``precision``: ``amp`` unless asked) with its
     contrastive train step, through ``build_clip``, ``create_schedule``,
     ``build_optimizer``, ``create_train_state`` and
     ``make_clip_train_step``; weights from
     ``seed`` (or ``model_state``); two batches of uint8 images and of
     HashTokenizer tokens of report-like text (context 256, so the key masks
-    are real) made from a numpy seed and put on ``device``.
-    ``arg_overrides`` replace entries of ``CLIP_TRAIN_ARGS``. Returns
-    (state, step_fn, batches)."""
+    are real) made from a numpy seed and put on ``device``. ``quant`` as
+    :func:`medmamba_train_setup`'s. ``arg_overrides`` replace entries of
+    ``CLIP_TRAIN_ARGS``. Returns (state, step_fn, batches)."""
     policy = get_policy(precision)
     args = SimpleNamespace(**{**CLIP_TRAIN_ARGS, **arg_overrides})
     tcfg = get_transform_config(None, 224, is_train=True)
     model = build_clip(model_name, image_size=224, dtype=policy.compute_dtype,
                        grad_checkpointing=grad_checkpointing,
-                       attn_flash=resolve_attn_flash(attn_impl),
+                       attn_flash=resolve_attn_flash(attn_impl), quant=quant,
                        generator=torch.Generator().manual_seed(seed))
     if model_state is not None:
         model.load_state_dict(model_state)
     model = model.to(device)
+    if model_state is None:
+        init_quant_state(model, 224, policy, stage=1, takes_text=True, device=device)
     schedule = create_schedule(args, CLIP_TOTAL_STEPS)
     tx = build_optimizer(args, schedule)
     state = create_train_state(model, tx, policy)

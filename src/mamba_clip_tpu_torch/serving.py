@@ -38,8 +38,12 @@ on the requested device, and returns JAX's dict: ``manifest``, one
 ``fn(x)`` per entry point and ``tokenize`` beside ``text_embed``. A loaded
 CLIP module always runs the flash attention interior: its CUDA kernel on
 the card, the plain interior on the CPU.
-Data-sharded artifacts and the quantized modes are not ported (ROADMAP.md,
-Queue 1, items 8 and 7).
+
+Quantized serving: ``quant="int8_serve"`` puts the per-channel int8 dot
+(``ops/qdot.py``) into the towers' Dense layers; the manifest records it
+and ``load_serving`` rebuilds the module with it. The training modes
+``int8_delayed*`` are refused, with the JAX package's message.
+Data-sharded artifacts are not ported (ROADMAP.md, Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from .data.preprocess_cfg import get_transform_config
 from .models import build_classifier, build_clip
 from .ops.flash_attn import resolve_attn_flash
 from .ops.preprocess import eval_preprocess
+from .ops import qdot
 from .utils.precision import get_policy
 
 _MANIFEST = "manifest.json"
@@ -73,6 +78,17 @@ _PARAMS = "params.pt"
 # Flax Dense kernel [K, N] has one scale per column; its torch weight is
 # [N, K], so here the scale is per row. An embedding table is [V, D] in
 # both packages, one scale per row. Either way: one scale per row.
+#
+# A kernel that an int8_serve dot consumes is stored as that dot's own
+# int8 operand and per-output-channel scales: quantized from the weight cast
+# to the compute type (the dot's rounding point), with the dot's arithmetic.
+# Under bf16 compute its dequantized values requantize, through the same
+# cast, to the same int8 values and scales, so a compressed int8_serve
+# artifact serves those dots bit for bit as the uncompressed module does;
+# under fp32 the int8 values come back and the scales within an ulp. (The
+# JAX package's serving.py:52-58 states the exactness; its compression of
+# the fp32 kernel keeps it under fp32 compute only.) Every other tensor is
+# compressed in fp32 and carries one int8 rounding.
 
 _COMPRESS_KEY = "__int8_cols__"
 _COMPRESS_MIN_ELEMS = 1 << 16
@@ -81,31 +97,49 @@ _COMPRESS_MIN_ELEMS = 1 << 16
 def _compress_2d(w: torch.Tensor):
     """Symmetric int8 with one fp32 scale per row, in JAX's fp32
     arithmetic: amax, max(amax, 1e-6) / 127, the division, round half to
-    even, clip to +-127. Returns (int8 values, scales [rows, 1], an empty
-    tensor of ``w``'s dtype)."""
+    even, clip to +-127. Returns (int8 values, scales [rows, 1])."""
     w32 = w.detach().to("cpu", torch.float32)
     amax = w32.abs().amax(dim=1, keepdim=True)
     scale = torch.clamp_min(amax, 1e-6) / 127.0
     q = torch.clamp(torch.round(w32 / scale), -127, 127)
-    return q.to(torch.int8), scale, torch.zeros((0,), dtype=w.dtype)
+    return q.to(torch.int8), scale
+
+
+def _compress_served(w: torch.Tensor, dtype: torch.dtype):
+    """The int8 operand and the per-output-channel scales [N, 1] that an
+    int8_serve dot makes of the weight ``w`` [N, K] under ``dtype``."""
+    rhs = w.detach().to("cpu", dtype).t()  # JAX's [K, N] kernel, cast as the Dense casts it
+    sr = qdot._absmax_scale_cols(rhs)
+    return qdot._quantize(rhs, sr).t().contiguous(), sr.reshape(-1, 1)
+
+
+def serve_kernels(module: torch.nn.Module) -> set:
+    """The state-dict keys of the weights that an int8_serve dot consumes."""
+    return {f"{name}.weight" for name, m in module.named_modules()
+            if isinstance(qdot.injected(m), qdot.Int8ServeDotGeneral)}
 
 
 def compress_params(state_dict: Mapping[str, torch.Tensor], module: torch.nn.Module,
-                    min_elems: int = _COMPRESS_MIN_ELEMS) -> Dict[str, torch.Tensor]:
+                    min_elems: int = _COMPRESS_MIN_ELEMS,
+                    compute_dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
     """``state_dict`` (of ``module``, whose module types name its tensors)
     with each large 2-D kernel and embedding table replaced by three flat
     entries: ``<key>.__int8_cols__`` (int8), ``<key>.__int8_cols__.scale``
     (fp32, one a row) and ``<key>.__int8_cols__.proto`` (empty, the
-    original dtype), on the CPU. Every other tensor is kept as it is."""
+    original dtype), on the CPU. Every other tensor is kept as it is. With
+    ``compute_dtype`` (the module's compute type), a kernel of an int8_serve
+    dot is stored as that dot's own operand and scales under that type."""
     names = flax_leaf_names(module)
+    served = serve_kernels(module) if compute_dtype is not None else set()
     out: Dict[str, torch.Tensor] = {}
     for key, t in state_dict.items():
         if (names.get(key) in ("kernel", "embedding") and t.ndim == 2
                 and t.is_floating_point() and t.numel() >= min_elems):
-            q, scale, proto = _compress_2d(t)
+            q, scale = (_compress_served(t, compute_dtype) if key in served
+                        else _compress_2d(t))
             out[f"{key}.{_COMPRESS_KEY}"] = q
             out[f"{key}.{_COMPRESS_KEY}.scale"] = scale
-            out[f"{key}.{_COMPRESS_KEY}.proto"] = proto
+            out[f"{key}.{_COMPRESS_KEY}.proto"] = torch.zeros((0,), dtype=t.dtype)
         else:
             out[key] = t
     return out
@@ -297,7 +331,8 @@ def export_serving(
     ``tokenizer``: a local vocab path or HF tokenizer directory ships with
     the artifact (the manifest records ``wordpiece``); any other value
     records the hash tokenizer. ``compress_weights``: int8 kernels and
-    tables (:func:`compress_params`). ``data_shards`` above 1 raises.
+    tables (:func:`compress_params`, the kernels of int8_serve dots from
+    their cast to the compute type). ``data_shards`` above 1 raises.
     """
     _check_quant(quant)
     if data_shards > 1:
@@ -316,7 +351,9 @@ def export_serving(
         with torch.device("meta"):
             model = _build_model(model_name, generator=None, **build)
         model.load_state_dict(variables, assign=True)  # strict: keys and shapes
-    stored = compress_params(variables, model) if compress_weights else variables
+    stored = (compress_params(variables, model,
+                              compute_dtype=get_policy(precision).compute_dtype)
+              if compress_weights else variables)
     os.makedirs(out_dir, exist_ok=True)
     torch.save({k: t.detach().to("cpu", copy=True) for k, t in stored.items()},
                os.path.join(out_dir, _PARAMS))

@@ -24,12 +24,23 @@ Differences that follow from the framework:
   dropout). The draws have jax.random's distributions, not its bits.
 - The fp16 path decides on the host whether to skip a step (one
   synchronisation per step), where JAX selects on the device.
+- The delayed int8 scales of ``--quant int8_delayed*`` (the JAX
+  ``quant`` collection) are buffers of the model (``ops/qdot.py``). A step
+  quantizes with the stored ones and records this step's absmax aside
+  (``scale_mode(..., "record")``), then writes it after the backward
+  (``commit_scales``), as JAX returns the mutated collection from the
+  step: a block recomputed under ``--grad-checkpointing`` quantizes with
+  the same scales as its forward. Under ``--accum-freq`` each micro-batch
+  commits after its backward, so micro-batch i quantizes with i-1's
+  absmax; the no-grad feature bank records nothing.
 
 ``train_one_epoch`` feeds a step from a ``data/loader.py`` loader through
 ``device_prefetch``, meters data and batch time, calls the step-checkpoint
 hook and reads the metrics only where it logs (that read is the loop's one
-synchronisation with the card). The mesh (``mesh=``, ``--local-loss``) and
-``calibrate_quant`` are not ported yet (ROADMAP.md).
+synchronisation with the card). On the first batch of a fresh run (step 0)
+of a model with delayed scales it first calls the step's
+``calibrate_quant``. The mesh (``mesh=``, ``--local-loss``) is not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ from torch import nn
 from .losses import clip_loss, cross_entropy_loss, siglip_loss
 from .models.clip import clamp_logit_scale
 from .ops.preprocess import train_preprocess
+from .ops.qdot import commit_scales, delayed_holders, delayed_scales, scale_mode
 from .optim import AdamState, global_norm
 from .utils.logging import get_logger
 from .utils.precision import LossScaleState, Policy, init_loss_scale, update_loss_scale
@@ -194,6 +206,24 @@ def _collect_grads(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
             for k, p in params.items()}
 
 
+def _running_stats(model: nn.Module, quant_keys) -> Dict[str, torch.Tensor]:
+    """The model's buffers but its delayed scales (``quant_keys``):
+    BatchNorm's statistics."""
+    return {k: b for k, b in model.named_buffers() if k not in quant_keys}
+
+
+def _calibrate(model: nn.Module, holders, quant_keys, forward) -> None:
+    """``--quant int8_delayed*``: one no-grad ``forward()`` in training mode
+    that records every delayed scale; the running statistics it moves are
+    put back (JAX keeps only the ``quant`` collection of the pass)."""
+    stats = {k: b.clone() for k, b in _running_stats(model, quant_keys).items()}
+    with torch.no_grad(), scale_mode(holders, "record"):
+        forward()
+    for k, b in _running_stats(model, quant_keys).items():
+        b.copy_(stats[k])
+    commit_scales(holders)
+
+
 def _preprocess_train(images_u8, generator, tcfg, policy: Policy):
     return train_preprocess(
         images_u8, generator,
@@ -229,7 +259,11 @@ def make_clip_train_step(
     parameter's ``.grad`` holds the gradient the optimizer was given.
 
     ``--lock-image`` with ``--lock-image-freeze-bn-stats`` puts the visual
-    tower's running statistics back after the step."""
+    tower's running statistics back after the step.
+
+    ``fn.calibrate_quant(state, batch, seed) -> state``: one forward on the
+    step's images and tokens that re-anchors the delayed int8 scales (module
+    docstring), no optimizer step."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh=: the sharded train step and --local-loss are not ported yet "
@@ -240,6 +274,7 @@ def make_clip_train_step(
     dynamic = bool(policy.dynamic_loss_scale)
     freeze_bn = bool(getattr(args, "lock_image", False)
                      and getattr(args, "lock_image_freeze_bn_stats", False))
+    holders, quant_keys = delayed_holders(model), set(delayed_scales(model))
 
     def contrastive(out):
         if use_siglip:
@@ -272,21 +307,24 @@ def make_clip_train_step(
             dropout.set_state(dropout_start)  # every forward of the step: one stream
             return model(image=images[sl], text=tokens[sl], generator=dropout)
 
-        buffers = dict(model.named_buffers())
+        buffers = _running_stats(model, quant_keys)
         frozen_stats = {k: b.clone() for k, b in buffers.items()
                         if freeze_bn and k.startswith("visual.")}
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         if accum == 1:
-            out = encode(slice(None))
-            scaled = contrastive(out) * ls_
-            scaled.backward()
+            with scale_mode(holders, "record"):
+                out = encode(slice(None))
+                scaled = contrastive(out) * ls_
+                scaled.backward()
+            commit_scales(holders)
             loss = scaled.detach() / ls_
         else:
             mb = _check_accum(images.shape[0], accum)
             slices = [slice(j * mb, (j + 1) * mb) for j in range(accum)]
             # Phase 1: the no-grad feature bank; its statistics are discarded
+            # and it records no delayed scale
             stats = {k: b.clone() for k, b in buffers.items()}
             with torch.no_grad():
                 outs = [encode(sl) for sl in slices]
@@ -295,14 +333,16 @@ def make_clip_train_step(
             bank = {key: [o[key] for o in outs] for key in ("image_features", "text_features")}
             loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
             for j, sl in enumerate(slices):
-                out = encode(sl)
-                full = {key: torch.cat(rows[:j] + [out[key]] + rows[j + 1:])
-                        for key, rows in bank.items()}
-                full["logit_scale"] = out["logit_scale"]
-                if "logit_bias" in out:
-                    full["logit_bias"] = out["logit_bias"]
-                scaled = contrastive(full) * ls_
-                scaled.backward()
+                with scale_mode(holders, "record"):
+                    out = encode(sl)
+                    full = {key: torch.cat(rows[:j] + [out[key]] + rows[j + 1:])
+                            for key, rows in bank.items()}
+                    full["logit_scale"] = out["logit_scale"]
+                    if "logit_bias" in out:
+                        full["logit_bias"] = out["logit_bias"]
+                    scaled = contrastive(full) * ls_
+                    scaled.backward()
+                commit_scales(holders)  # micro-batch j+1 quantizes with j's absmax
                 loss_sum += scaled.detach()
             loss = loss_sum / (ls_ * accum)
         logit_scale = out["logit_scale"].detach().clone()
@@ -321,9 +361,16 @@ def make_clip_train_step(
         return new_state, metrics
 
     def calibrate_quant(state, batch, seed):
-        raise NotImplementedError(
-            "calibrate_quant: the int8_delayed scales are not ported yet "
-            "(ROADMAP.md, Queue 1, item 7 'Quantized modes')")
+        """Re-anchor the delayed scales on one real batch: the step's images
+        (its preprocess stream) and tokens, its dropout stream."""
+        model = state.model
+        model.train()
+        gens = step_generators(seed, state.step, batch["image"].device)
+        images = _preprocess_train(batch["image"], gens["preprocess"], tcfg, policy)
+        _calibrate(model, holders, quant_keys,
+                   lambda: model(image=images, text=batch.get("tokens"),
+                                 generator=gens["dropout"]))
+        return state
 
     step_fn.calibrate_quant = calibrate_quant
     return step_fn
@@ -348,8 +395,10 @@ def make_classifier_train_step(
 
     ``--accum-freq N`` splits the batch into N equal micro-batches and
     averages their gradients. After the step each parameter's ``.grad``
-    holds the gradient the optimizer was given (averaged, unscaled)."""
+    holds the gradient the optimizer was given (averaged, unscaled).
+    ``fn.calibrate_quant`` as :func:`make_clip_train_step`'s."""
     ls = policy.loss_scale
+    holders, quant_keys = delayed_holders(model), set(delayed_scales(model))
     dynamic = bool(policy.dynamic_loss_scale)
     accum = max(int(args.accum_freq), 1)
     weights = None
@@ -384,9 +433,11 @@ def make_classifier_train_step(
         for j in range(accum):
             sl = slice(j * mb, (j + 1) * mb)
             inputs = (images[sl], tokens[sl]) if takes_text else (images[sl],)
-            logits = model(*inputs, generator=gens["dropout"])
-            scaled = cross_entropy_loss(logits, tgt[sl], weight=w) * ls_
-            scaled.backward()
+            with scale_mode(holders, "record"):
+                logits = model(*inputs, generator=gens["dropout"])
+                scaled = cross_entropy_loss(logits, tgt[sl], weight=w) * ls_
+                scaled.backward()
+            commit_scales(holders)
             loss_sum += scaled.detach()
         grads = _collect_grads(params)
         if accum > 1:
@@ -403,6 +454,18 @@ def make_classifier_train_step(
             metrics["lr"] = schedule(state.step)
         return new_state, metrics
 
+    def calibrate_quant(state, batch, seed):
+        """See :func:`make_clip_train_step`'s ``calibrate_quant``."""
+        model = state.model
+        model.train()
+        gens = step_generators(seed, state.step, batch["image"].device)
+        images = _preprocess_train(batch["image"], gens["preprocess"], tcfg, policy)
+        inputs = (images, batch.get("tokens")) if takes_text else (images,)
+        _calibrate(model, holders, quant_keys,
+                   lambda: model(*inputs, generator=gens["dropout"]))
+        return state
+
+    step_fn.calibrate_quant = calibrate_quant
     return step_fn
 
 
@@ -435,7 +498,10 @@ def train_one_epoch(
     owns that). ``meters``, when given, receives the
     loop's data and batch times in seconds and the batches it ran.
     ``tb_writer`` (a tensorboard ``SummaryWriter``) gets each logged step's
-    metrics as ``train/<name>`` at the global step."""
+    metrics as ``train/<name>`` at the global step. A model with delayed
+    int8 scales is calibrated on the first batch
+    (``step_fn.calibrate_quant``) when the run is fresh (step 0); a resumed
+    run keeps its checkpointed scales."""
     from .data.loader import device_prefetch
 
     train_data = data["train"]
@@ -466,6 +532,8 @@ def train_one_epoch(
     # trace steps 3-8 of this iteration (relative to start_batch, so a
     # run resumed mid-epoch still captures a profile)
     trace_lo, trace_hi = start_batch + 3, start_batch + 8
+    calibrate = getattr(step_fn, "calibrate_quant", None)
+    need_calib = calibrate is not None and bool(delayed_holders(state.model))
 
     def stop_trace():
         nonlocal prof
@@ -477,6 +545,10 @@ def train_one_epoch(
 
     try:
         for i, batch in enumerate(it, start=start_batch):
+            if need_calib:
+                need_calib = False
+                if state.step == 0:
+                    state = calibrate(state, batch, seed)
             if trace_dir and i == trace_lo and prof is None:
                 from torch.profiler import ProfilerActivity, profile
 

@@ -346,8 +346,9 @@ def test_refusals_match_jax(tmp_path, mm):
         with pytest.raises(ValueError) as got:
             export_serving(str(tmp_path / "q"), "medmamba", quant=quant, precision="fp32")
         assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="item 7 'Quantized modes'"):
-        export_serving(str(tmp_path / "q"), "medmamba", quant="int8_serve")
+    for quant in ("int8", "int8_fwd"):  # the aqt modes; int8_serve exports
+        with pytest.raises(NotImplementedError, match="item 7 'Quantized modes'"):
+            export_serving(str(tmp_path / "q"), "medmamba", quant=quant)
     with pytest.raises(NotImplementedError, match="item 8 'Parallel layers'"):
         export_serving(str(tmp_path / "dp"), "medmamba", data_shards=8)
     # a sharded manifest, a JAX artifact, a module that does not match

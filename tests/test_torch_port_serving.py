@@ -166,13 +166,13 @@ def test_bridge_refuses_missing_and_extra_leaves(slice_pair):
 
 def test_entry_points_refuse_unported_modes():
     with pytest.raises(NotImplementedError, match="Quantized modes"):
-        make_serving_fns("biomedclip", quant="int8_serve", device="cpu")
+        make_serving_fns("biomedclip", quant="int8", device="cpu")
     with pytest.raises(ValueError, match="einsum|flash"):
         make_serving_fns("biomedclip", attn_impl="bogus", device="cpu")
     with pytest.raises(ValueError, match="TRAINING mode"):
         make_serving_fns("medmamba", quant="int8_delayed", device="cpu")
     with pytest.raises(NotImplementedError, match="Quantized modes"):
-        build_classifier("medmamba", quant="int8_serve")
+        build_classifier("medmamba", quant="int8_fwd")
     with pytest.raises(ValueError, match="unknown precision"):
         make_serving_fns("medmamba", precision="bogus", device="cpu")
 
