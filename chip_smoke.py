@@ -45,24 +45,24 @@ on failure:
    relative). Prints ms per step, train img/s, peak device memory and the
    scan kernels' ms per step;
 7. flash kernel against plain: first each instance of the forward that
-   phase 2 built (at hd 32, 64, 128: the tensor-core body, which bf16 runs
-   with and without residuals, and the CUDA-core body, which fp32 runs),
-   with ptxas' registers and spills, its shared memory a block and the
-   ``HMMA`` instructions in its SASS (``cuobjdump -sass``); every
-   tensor-core instance must hold some, or the phase fails. Then
+   phase 2 built (at hd 32, 64, 128: the tensor-core body in its bf16 and
+   its fp16 instance, which bf16 and fp16 run with and without residuals,
+   and the CUDA-core body, which fp32 runs), with ptxas' registers and
+   spills, its shared memory a block and the ``HMMA`` instructions in its
+   SASS (``cuobjdump -sass``); every tensor-core instance must hold some, or
+   the phase fails. Then
    ``flash_attn_fwd`` against the plain
    (einsum) interior at h = 12, hd = 64, batch 2: T = 197 unmasked; T = 256
    with a prefix, a non-prefix, a one-key and an all-masked key row; the
-   trimmed text context 224; a ragged 77; and hd 32 and 128; fp32 and bf16;
-   each case as serving calls it (no residuals) and as training calls it
-   (with residuals); gate
-   max|o_k - o_p| / max|o_p| <= 5e-4 (fp32) and 2e-2 (bf16), and the
-   all-masked row must be the mean of v. Then, at batch 64 in bf16, the
-   kernel, the plain interior and ``F.scaled_dot_product_attention`` (the
-   library yardstick, never on the path) are timed at the ViT shape
-   (T 197) and the BERT shape (T 256, masks of tokenized report-like text)
-   beside the bound, and the training forward's o is held against the
-   plain interior there too;
+   trimmed text context 224; a ragged 77; and hd 32 and 128; fp32, bf16
+   and fp16; each case as serving calls it (no residuals) and as training
+   calls it (with residuals); gate max|o_k - o_p| / max|o_p| <= 5e-4
+   (fp32) and 2e-2 (bf16 and fp16), and the all-masked row must be the mean
+   of v. Then, at batch 64 in bf16 and in fp16, the kernel, the plain
+   interior and ``F.scaled_dot_product_attention`` (the library yardstick,
+   never on the path) are timed at the ViT shape (T 197) and the BERT shape
+   (T 256, masks of tokenized report-like text) beside the bound, and the
+   training forward's o is held against the plain interior there too;
 8. CLIP serving: full-width BiomedCLIP (ViT-B/16 + the 12-layer BERT, bf16
    compute, ``attn_impl="flash"``, random weights from seed 0) answers 16
    concurrent ``image_embed`` and 16 concurrent ``text_embed`` requests
@@ -81,20 +81,25 @@ on failure:
    ``flash_attn_bwd_dkv`` against ``attention_plain_bwd`` at the shapes of
    phase 7 (the one-key and the all-masked row beside a non-prefix row,
    since their own dq and dk vanish), fp32 on the CUDA-core bodies and bf16
-   on the tensor-core bodies, each gradient at
-   max|g_k - g_p| / max|g_p| <= 5e-4 (fp32) and 2e-2 (bf16: the plain
-   backward rounds p, dp and ds to bf16, the kernels round p once for dv and
-   carry ds as two bf16 terms; in bf16 each case is held against the bf16 plain
-   backward, a row with one valid key left out because its dq and dk vanish
-   and the bf16 plain backward leaves rounding noise there, and against the
-   fp32 plain backward on the same inputs, every row); the forward's
-   residuals m and l against the plain ones at 5e-4; dk and dv of a masked key exactly 0 from every row that has a valid
-   key, dq and dk exactly 0 for a row with none; two runs bit-identical.
-   Then, at batch 64 at the ViT and BERT shapes, in bf16 (tensor cores) and
-   fp32 (CUDA cores), the forward with residuals and both backward kernels
-   are timed beside their bounds, the plain forward and backward, and the
-   forward (with its residuals, as training calls it) and backward of
-   ``F.scaled_dot_product_attention`` in the same type;
+   and fp16 on the tensor-core bodies, each gradient at
+   max|g_k - g_p| / max|g_p| <= 5e-4 (fp32) and 2e-2 (bf16 and fp16: the
+   plain backward rounds p, dp and ds to the type, the kernels round p once
+   for dv and carry ds as two terms of the type; in bf16 and fp16 each case
+   is held against the plain backward in the type, a row with one valid key
+   left out because its dq and dk vanish and the rounding plain backward
+   leaves noise there, and against the fp32 plain backward on the same
+   inputs, every row); the forward's residuals m and l against the plain
+   ones at 5e-4; dk and dv of a masked key exactly 0 from every row that has
+   a valid key, dq and dk exactly 0 for a row with none; two runs
+   bit-identical. Then fp16's range: a cotangent carrying the 2^16 loss
+   scale whose fp16 rounding overflows in two rows; dq, dk and dv of the
+   kernels must be non-finite exactly where the plain backward's are (some
+   of each), nothing clamped. Then, at batch 64 at the ViT and BERT shapes,
+   in bf16 and fp16 (tensor cores) and fp32 (CUDA cores), the forward with
+   residuals and both backward kernels are timed beside their bounds, the
+   plain forward and backward, and the forward (with its residuals, as
+   training calls it) and backward of ``F.scaled_dot_product_attention`` in
+   the same type;
 10. CLIP training: the stage-1 contrastive step of full-width BiomedCLIP
    (``amp``, ``attn_impl="flash"``, batch 64, device-resident uint8 images
    at staging 256, HashTokenizer tokens of report-like text, AdamW with
@@ -283,19 +288,42 @@ on failure:
    launches for the init batch, 14 for ``calibrate_quant``, 2 steps of 14
    + 14, an eval batch of 14, and 62 delayed scales in the checkpoint.
    Prints a ``quant`` JSON line;
-18. prints the kernels line (nine entries: the two scan kernels, the
-   roofline's chain kernel, and each flash kernel as two entries, one a
-   body: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
+18. the low-precision parameter policies (``--precision``), every count set
+   to 0 just before each driven call and read just after: (a) the
+   contrastive step of full-width BiomedCLIP at batch 64 with the flash
+   interior under ``pure_bf16``, ``fp16`` and ``pure_fp16`` (``--eps
+   1e-4``): 1 warm-up and 3 timed steps each, 24 + 24 + 24 flash launches a
+   step on the tensor cores (the fp16 instances under the fp16 policies),
+   finite losses (the first within [3, 6]), a finite grad norm for every
+   step the dynamic loss scale did not skip and some step taken, the
+   parameters and moments in JAX's types (parameters in the policy's type,
+   moments too but fp32 under the fp16 policies); ms a step and the peak
+   memory beside phase 10's amp step; (b) the medmamba step under
+   ``pure_bf16`` and ``pure_fp16`` through both scan kernels (14 + 14 a
+   step), the same type gates and BatchNorm's statistics fp32; (c) the CLI's
+   ``main()`` with phase 14's flags and ``--precision pure_bf16``: stage 1
+   (3 steps of 24 + 24 + 24), stage 2 finding it (24 + 0 + 0), stage 2 with
+   ``--resume latest`` (its metrics equal stage 2's row bit for bit), every
+   checkpoint's parameters and moments bf16; (d) stage 1's checkpoint
+   through ``export_serving`` raw and ``--compress-weights``, then
+   ``load_serving``: bf16 parameters, ``image_embed`` and ``text_embed`` of
+   64 rows bit for bit ``make_serving_fns`` on the same state (the
+   compressed one given the decompressed weights), 12 flash launches a
+   call. Prints a ``precision`` JSON line;
+19. prints the kernels line (twelve entries: the two scan kernels, the
+   roofline's chain kernel, and each flash kernel as three entries, one a
+   body and type: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
-   from the main path, and ``..._cuda_cores``, fp32, whose launches come
-   from phase 10's fp32 step; the main path's launches include phases
-   14, 15, 16 and 17's; a body launched no time fails. Each flash
+   from the main path, ``..._fp16`` on the tensor cores, whose launches come
+   from phase 18's fp16 steps, and ``..._cuda_cores``, fp32, whose launches
+   come from phase 10's fp32 step; the main path's launches include phases
+   14, 15, 16, 17 and 18's; a body launched no time fails. Each flash
    entry is timed at the towers' shapes in its type beside the plain
    version and the library's, with its bound from the data sheet and from
    the ceilings phase 11 measured, its shares of both, and its instances;
-   the forward's tensor-core entry is serving's pair, its training launches
-   under ``training``; each scan entry with its instances), then the
-   device line last.
+   the forward's tensor-core entries are serving's pair, their training
+   launches under ``training``; each scan entry with its instances), then
+   the device line last.
 
 Phases 1-10 run at the depth and iteration counts they had before phases
 11-13 were added.
@@ -333,8 +361,9 @@ PROBS_ATOL = 2e-2        # kernel vs plain scan, end to end, bf16 activations
 SERVE_BATCHED_ATOL = {"image_embed": 5e-3, "text_embed": 5e-3, "classify": PROBS_ATOL}
 TRAIN_REL = 2.0**-8      # kernel vs plain scan, train step loss and grad norm: one bf16 ulp
 # flash kernel vs plain interior: fp32 as GATE_REL; bf16 also covers the plain
-# interior rounding the scores and the normalized probabilities to bf16
-ATTN_GATE = {"fp32": GATE_REL, "bf16": 2e-2}
+# interior rounding the scores and the normalized probabilities to bf16, and
+# fp16 is held to bf16's gate (its roundings are eight times finer)
+ATTN_GATE = {"fp32": GATE_REL, "bf16": 2e-2, "fp16": 2e-2}
 # the sources under csrc/; flash_attn_bwd holds the dk/dv and the dq kernel
 KERNELS = ("selective_scan_fwd", "selective_scan_bwd", "flash_attn_fwd", "flash_attn_bwd",
            "vpu_chain")
@@ -1864,6 +1893,282 @@ def quant_phase(card, reset_counts, read_counts, flash_bodies, amp):
     return line, total, total_bodies
 
 
+def precision_phase(card, reset_counts, read_counts, flash_bodies, amp):
+    """Phase 18: the low-precision parameter policies at full width, each
+    gate as the module docstring says. ``amp``: this run's amp yardsticks
+    (phase 10's contrastive step with flash and phase 6's medmamba step: ms
+    a step and peak bytes). Every count is set to 0 just before each driven
+    call and read just after. Returns (the ``precision`` line's fields, those
+    calls' launches by counter, their flash launches by body, and the
+    tensor-core launches of the fp16 runs alone by flash kernel)."""
+    import numpy as np
+    import torch
+
+    from mamba_clip_tpu_torch import export_serving as export_cli
+    from mamba_clip_tpu_torch.checkpoint import load_params_only
+    from mamba_clip_tpu_torch.profile_embed import report_tokens
+    from mamba_clip_tpu_torch.profile_train import clip_train_setup, medmamba_train_setup
+    from mamba_clip_tpu_torch.serving import decompress_params, load_serving, make_serving_fns
+    from mamba_clip_tpu_torch.utils.precision import get_policy
+
+    total = {k: 0 for k in read_counts()}
+    total_bodies = {k: {"tensor_cores": 0, "cuda_cores": 0} for k in ("fwd", "dkv", "dq")}
+    fp16_launches = {k: 0 for k in ("fwd", "dkv", "dq")}
+    line = {"card": card}
+
+    def add(counts, bodies, fp16):
+        for k in total:
+            total[k] += counts[k]
+        for k, by in bodies.items():
+            for body, c in by.items():
+                total_bodies[k][body] += c
+            if fp16:
+                fp16_launches[k] += by["tensor_cores"]
+
+    def counted(what, fn, want, fp16=False):
+        """``fn()`` with every count set to 0 just before and read just after;
+        fails unless the launches are ``want``, every flash one on the
+        tensor cores; adds them to the phase's (and, ``fp16``, to the fp16
+        instances')."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts, bodies = read_counts(), flash_bodies()
+        full = {k: want.get(k, 0) for k in counts}
+        want_bodies = {k: {"tensor_cores": full[k], "cuda_cores": 0} for k in total_bodies}
+        if counts != full or bodies != want_bodies:
+            fail(f"precision {what}: launches {counts}, by body {bodies}; expected {full}")
+        add(counts, bodies, fp16)
+        return out
+
+    def types(state):
+        """The types of the parameters, the first and the second moments."""
+        opt = state.opt_state
+        return tuple(sorted({str(t.dtype).replace("torch.", "") for t in ts}) for ts in (
+            list(state.model.parameters()), opt.mu.values(), opt.nu.values()))
+
+    def want_types(precision):
+        """What JAX's optimizer keeps under ``precision``: parameters in the
+        policy's type; moments too, but fp32 where the gradients are unscaled
+        by the fp32 loss scale (the fp16 policies)."""
+        policy = get_policy(precision)
+        param = str(policy.param_dtype).replace("torch.", "")
+        moment = "float32" if policy.dynamic_loss_scale else param
+        return [param], [moment], [moment]
+
+    def run_steps(what, state, step_fn, batches, n, per, fp16):
+        metrics = []
+
+        def run():
+            st = state
+            for i in range(n):
+                st, m = step_fn(st, batches[i % 2], 0)
+                metrics.append({k: (float(v) if not isinstance(v, (int, float)) else v)
+                                for k, v in m.items()})
+            return st
+
+        return counted(what, run, {k: n * c for k, c in per.items()}, fp16), metrics
+
+    def check_steps(what, metrics, dynamic):
+        """Finite losses; a finite grad norm on every step that was taken
+        (under the dynamic scale a step whose gradients overflowed is
+        skipped, its norm non-finite, and the scale halves); some step
+        taken."""
+        for i, m in enumerate(metrics):
+            skipped = dynamic and m.get("skipped_steps", 0) == 1
+            if not np.isfinite(m["loss"]) or not (skipped or np.isfinite(m["grad_norm"])):
+                fail(f"precision {what} step {i}: {m}")
+        if dynamic and all(m.get("skipped_steps", 0) for m in metrics):
+            fail(f"precision {what}: every step skipped ({metrics})")
+
+    # (a) full-width BiomedCLIP contrastive steps, batch 64, the flash
+    # interior: 1 warm-up and 3 timed steps a policy
+    clip_line = {}
+    for precision in ("pure_bf16", "fp16", "pure_fp16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        extra = {"eps": 1e-4} if precision == "pure_fp16" else {}
+        before = torch.cuda.memory_allocated()
+        state, step_fn, batches = clip_train_setup(64, precision=precision, **extra)
+        fp16 = get_policy(precision).compute_dtype == torch.float16
+        dynamic = get_policy(precision).dynamic_loss_scale
+        per = {"fwd": 24, "dkv": 24, "dq": 24}
+        state, warm = run_steps(f"{precision} clip warm-up", state, step_fn, batches, 1, per, fp16)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, timed = run_steps(f"{precision} clip timed", state, step_fn, batches, 3, per, fp16)
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        metrics = warm + timed
+        check_steps(f"{precision} clip", metrics, dynamic)
+        if not 3.0 <= metrics[0]["loss"] <= 6.0:
+            fail(f"precision {precision} clip: first loss {metrics[0]['loss']} outside [3, 6]")
+        got_types = types(state)
+        if list(got_types) != list(want_types(precision)):
+            fail(f"precision {precision} clip: parameter and moment types {got_types}, "
+                 f"expected {want_types(precision)}")
+        clip_line[precision] = {
+            "ms_per_step": ms, "amp_ms_per_step": amp["clip_ms"], "ratio": ms / amp["clip_ms"],
+            "max_memory_allocated": peak, "amp_max_memory_allocated": amp["clip_peak"],
+            # what was allocated before the model was built, here and in phase 10
+            "allocated_before": before, "amp_allocated_before": amp["clip_before"],
+            "losses": [m["loss"] for m in metrics],
+            "grad_norms": [m["grad_norm"] for m in metrics],
+            "skipped_steps": [m.get("skipped_steps", 0) for m in metrics],
+            "loss_scale": [m.get("loss_scale") for m in metrics],
+            "flash_tensor_core_launches_per_step": per, "types": got_types,
+            "flash_instances": "fp16" if fp16 else "bf16"}
+        say(f"precision clip {precision}: {ms:.2f} ms a step against amp {amp['clip_ms']:.2f} "
+            f"({ms / amp['clip_ms']:.2f}x), peak {peak / 2**30:.2f} GiB ({before / 2**30:.2f} "
+            f"before the model) against amp {amp['clip_peak'] / 2**30:.2f} "
+            f"({amp['clip_before'] / 2**30:.2f}); losses {[round(m['loss'], 5) for m in metrics]}; "
+            f"skipped {clip_line[precision]['skipped_steps']}; types {got_types}; 24 + 24 + 24 "
+            f"flash launches a step on the tensor cores ({'fp16' if fp16 else 'bf16'})")
+        del state, step_fn, batches
+    line["clip_steps"] = clip_line
+
+    # (b) the full-width medmamba step through both scan kernels
+    mm_line = {}
+    for precision in ("pure_bf16", "pure_fp16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        extra = {"eps": 1e-4} if precision == "pure_fp16" else {}
+        before = torch.cuda.memory_allocated()
+        state, step_fn, batches = medmamba_train_setup(64, precision=precision, **extra)
+        per = {"scan_fwd": 14, "scan_bwd": 14}
+        state, warm = run_steps(f"{precision} medmamba warm-up", state, step_fn, batches, 1,
+                                per, False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, timed = run_steps(f"{precision} medmamba timed", state, step_fn, batches, 2,
+                                 per, False)
+        ms = (time.perf_counter() - t0) / 2 * 1e3
+        metrics = warm + timed
+        check_steps(f"{precision} medmamba", metrics, get_policy(precision).dynamic_loss_scale)
+        got_types = types(state)
+        stats = {str(b.dtype) for b in state.model.buffers() if b.is_floating_point()}
+        if list(got_types) != list(want_types(precision)) or stats != {"torch.float32"}:
+            fail(f"precision {precision} medmamba: types {got_types}, BatchNorm statistics "
+                 f"{stats}; expected {want_types(precision)} and float32")
+        mm_line[precision] = {
+            "ms_per_step": ms, "amp_ms_per_step": amp["medmamba_ms"],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "amp_max_memory_allocated": amp["medmamba_peak"],
+            "allocated_before": before, "amp_allocated_before": amp["medmamba_before"],
+            "losses": [m["loss"] for m in metrics],
+            "skipped_steps": [m.get("skipped_steps", 0) for m in metrics],
+            "types": got_types, "scan_launches_per_step": per}
+        say(f"precision medmamba {precision}: {ms:.2f} ms a step against amp "
+            f"{amp['medmamba_ms']:.2f}; losses {[round(m['loss'], 5) for m in metrics]}; "
+            f"types {got_types}, BatchNorm statistics float32; 14 + 14 scan launches a step")
+        del state, step_fn, batches
+    line["medmamba_steps"] = mm_line
+
+    # (c) the CLI with phase 14's flags under --precision pure_bf16: stage 1,
+    # stage 2 finding it, and stage 2 resumed; (d) stage 1's checkpoint
+    # exported raw and compressed, loaded and served against make_serving_fns
+    work = tempfile.mkdtemp(prefix="chip_smoke_precision_")
+    counters = (reset_counts, read_counts, flash_bodies)
+    try:
+        logs = os.path.join(work, "logs")
+        drive = ["--synthetic-data", "--train-num-samples", "192", "--val-num-samples", "64",
+                 "--batch-size", "64", "--epochs", "1", "--warmup", "2", "--lr", "1e-4",
+                 "--precision", "pure_bf16", "--save-most-recent", "--log-every-n-steps", "1",
+                 "--grad-clip-norm", "1.0", "--attn-impl", "flash", "--logs", logs,
+                 "--tokenizer", "hash"]
+        cli = {}
+        s1 = run_cli(counters, "pure_bf16 stage 1", drive + ["--stage", "1"])
+        check_cli_steps(s1, "pure_bf16 stage 1", 3, {"fwd": 24, "dkv": 24, "dq": 24},
+                        {"fwd": 24}, eval_batches=1)
+        (s1_name,) = os.listdir(logs)
+        s1_latest = os.path.join(logs, s1_name, "checkpoints", "stage_1_epoch_latest")
+        s2_argv = drive + ["--stage", "2", "--name", "s2"]
+        s2 = run_cli(counters, "pure_bf16 stage 2", s2_argv)
+        check_cli_steps(s2, "pure_bf16 stage 2", 3, {"fwd": 24}, {"fwd": 24}, eval_batches=1)
+        s2_dir = os.path.join(logs, "s2", "checkpoints")
+        with open(os.path.join(s2_dir, "results.jsonl")) as f:
+            row = [json.loads(x) for x in f][-1]
+        rs = run_cli(counters, "pure_bf16 stage 2 --resume latest", s2_argv + ["--resume",
+                                                                              "latest"])
+        check_cli_steps(rs, "pure_bf16 resume", 0, {}, {"fwd": 24}, eval_batches=1)
+        resume_diff = {k: abs(rs["metrics"][k] - row[k]) for k in ("val_loss", "partial_auc")}
+        saved = {}
+        for tag, path in (("stage1", s1_latest),
+                          ("stage2", os.path.join(s2_dir, "stage_2_epoch_latest"))):
+            st = torch.load(os.path.join(path, "state.pt"), weights_only=True)
+            saved[tag] = [sorted({str(t.dtype) for t in st[part].values()})
+                          for part in ("params",)] + [
+                sorted({str(t.dtype) for t in st["opt_state"][m].values()}) for m in ("mu", "nu")]
+        if any(resume_diff.values()) or any(
+                v != [["torch.bfloat16"]] * 3 for v in saved.values()):
+            fail(f"precision cli: the resume's metrics {rs['metrics']} against {row}, the "
+                 f"checkpoints' types {saved}")
+        for rec in (s1, s2, rs):
+            add(rec["total"], rec["total_bodies"], False)
+        cli = {"stage1_wall_s": s1["wall_s"], "stage2_wall_s": s2["wall_s"],
+               "resume_wall_s": rs["wall_s"],
+               "stage1_losses": [st["loss"] for st in s1["steps"]],
+               "stage2_metrics": s2["metrics"], "resume_diff_to_stage2_row": resume_diff,
+               "checkpoint_types": saved}
+        say(f"precision cli pure_bf16: stage 1 {s1['wall_s']:.1f} s, stage 2 "
+            f"{s2['wall_s']:.1f} s, the resume's metrics equal stage 2's row bit for bit; "
+            f"checkpoints {saved}")
+        line["cli"] = cli
+
+        # (d) export_serving of stage 1's checkpoint, raw and compressed
+        rs_img = np.random.RandomState(181)
+        x64 = torch.from_numpy(rs_img.randint(0, 256, (64, 256, 256, 3), dtype=np.uint8)).cuda()
+        toks = torch.from_numpy(report_tokens(64, seed=18)).cuda()
+        ref, fns, _ = make_serving_fns("biomedclip", is_clip=True, attn_impl="flash",
+                                       precision="pure_bf16", device="cuda")
+        get_policy("pure_bf16").cast_params(ref)
+        load_params_only(s1_latest, ref)
+        art = {}
+        for compress in (False, True):
+            out = os.path.join(work, f"artifact_{int(compress)}")
+            man = export_cli.main(["--out", out, "--model", "biomedclip", "--checkpoint",
+                                   s1_latest, "--precision", "pure_bf16"]
+                                  + (["--compress-weights"] if compress else []))
+            served = load_serving(out, device="cuda")
+            stored = torch.load(os.path.join(out, "params.pt"), weights_only=True)
+            model = ref
+            if compress:
+                model, _, _ = make_serving_fns("biomedclip", is_clip=True, attn_impl="flash",
+                                               precision="pure_bf16", device="cuda")
+                model.load_state_dict({k: v.cuda() for k, v in
+                                       decompress_params(stored).items()}, assign=True)
+                model.eval()
+            p_types = sorted({str(t.dtype) for t in served["image_embed"].args[0].parameters()})
+            if man["precision"] != "pure_bf16" or p_types != ["torch.bfloat16"]:
+                fail(f"precision artifact: manifest precision {man['precision']}, loaded "
+                     f"parameter types {p_types}")
+            diffs = {}
+            for name, x in (("image_embed", x64), ("text_embed", toks)):
+                fns[name](model, x)
+                got = counted(f"loaded {name}", lambda: served[name](x), {"fwd": 12})
+                want = counted(f"in-process {name}", lambda: fns[name](model, x), {"fwd": 12})
+                diffs[name] = float((got - want).abs().max())
+                if not torch.equal(got, want):
+                    fail(f"precision artifact ({'compressed' if compress else 'raw'}) {name} "
+                         f"differs from make_serving_fns by {diffs[name]:.3e}")
+            art["compressed" if compress else "raw"] = {
+                "bytes": os.path.getsize(os.path.join(out, "params.pt")),
+                "weights": man["weights"], "parameter_types": p_types,
+                "int8_tensors": sum(k.endswith(".__int8_cols__") for k in stored)}
+            del served, stored
+        say(f"precision artifact: stage 1's pure_bf16 checkpoint exported raw "
+            f"({art['raw']['bytes']} bytes) and compressed ({art['compressed']['bytes']} bytes), "
+            f"loaded with bf16 parameters; image_embed and text_embed of 64 rows bit for bit "
+            f"make_serving_fns's, 12 flash launches a call")
+        line["artifact"] = art
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    line["fp16_flash_launches"] = fp16_launches
+    return line, total, total_bodies, fp16_launches
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one card.")
     ap.add_argument("--clip-check-seeds", type=int, nargs="+", default=None,
@@ -2213,6 +2518,7 @@ def main(argv=None) -> None:
 
     # 6. training: the stage-2 CE step of full-width medmamba at batch 64
     TB, WARM, TIMED = 64, 2, 5
+    mm_before = torch.cuda.memory_allocated()
     state, step_fn, batches = medmamba_train_setup(TB)
     n_params = sum(p.numel() for p in state.model.parameters())
     say(f"training: medmamba {n_params / 1e6:.2f} M parameters, batch {TB}, image 224, "
@@ -2333,35 +2639,42 @@ def main(argv=None) -> None:
         """Each kernel instance of a built library: ptxas' registers and
         spills, its shared memory a block (``smem_of(kernel, hd)`` for the
         dynamic shared memory of a tensor-core body, else the static) and
-        the HMMA instructions in its SASS, by "<kernel> <body> hd<HD>"."""
+        the HMMA instructions in its SASS, by "<kernel> <body> hd<HD>": the
+        tensor-core body's bf16 and fp16 instances, the CUDA cores' fp32."""
         report = cuda_build.ptxas_report(cuda_build.build_logs.get(library, ""))
         hmma = cuda_build.sass_counts(cuda_build.library_path(library), "HMMA")
+        types = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}
         out = {}
         for mangled, rep in report.items():
             inst = re.search(pattern, mangled)
             if inst is None:
                 continue
-            kernel, tc, hd = inst.group(1), inst.group(2) == "bf16_", int(inst.group(3))
-            out[f"{kernel} {'bf16 tensor cores' if tc else 'fp32 CUDA cores'} hd{hd}"] = {
+            kernel, elem, hd = inst.group(1), types.get(inst.group(2)), int(inst.group(3))
+            body = f"{elem} tensor cores" if elem else "fp32 CUDA cores"
+            out[f"{kernel} {body} hd{hd}"] = {
                 "registers": rep["registers"], "spill_stores": rep["spill_stores"],
                 "spill_loads": rep["spill_loads"],
-                "smem_bytes": smem_of(kernel, hd) if tc else rep["static_smem"],
+                "smem_bytes": smem_of(kernel, hd) if elem else rep["static_smem"],
                 "hmma": hmma.get(mangled, 0)}
         for name, inst in sorted(out.items()):
             say(f"{library} {name}: {inst['registers']} registers, spills "
                 f"{inst['spill_stores']}/{inst['spill_loads']} bytes, {inst['smem_bytes']} B "
                 f"shared memory a block, {inst['hmma']} HMMA")
-        tc_hmma = [v["hmma"] for k, v in out.items() if "tensor cores" in k]
-        if not tc_hmma or len(tc_hmma) * 2 != len(out) or min(tc_hmma) == 0:
-            fail(f"{library}: bf16 runs on the tensor cores, so each of its bf16 instances "
-                 f"needs HMMA in its SASS, beside one fp32 instance each ({out})")
+        for elem in ("bf16", "fp16"):
+            tc_hmma = [v["hmma"] for k, v in out.items() if f"{elem} tensor cores" in k]
+            if not tc_hmma or len(tc_hmma) * 3 != len(out) or min(tc_hmma) == 0:
+                fail(f"{library}: {elem} runs on the tensor cores, so each of its {elem} "
+                     f"instances needs HMMA in its SASS, beside one bf16, fp16 and fp32 "
+                     f"instance each ({out})")
         return out
 
     fwd_lib = cuda_build.load("flash_attn_fwd")
-    fwd_instances = instances("flash_attn_fwd", r"(flash_attn_fwd)_(bf16_)?kernelILi(\d+)E",
-                              lambda _, hd: fwd_lib.flash_attn_fwd_bf16_smem_bytes(hd))
-    if len(fwd_instances) != 6:
-        fail(f"flash_attn_fwd: expected 6 instances (hd 32, 64, 128 of two bodies), got "
+    fwd_instances = instances(
+        "flash_attn_fwd", r"(flash_attn_fwd)_(?:tc_)?kernelI(13__nv_bfloat16|6__half)?Li(\d+)E",
+        lambda _, hd: fwd_lib.flash_attn_fwd_tc_smem_bytes(hd))
+    if len(fwd_instances) != 9:
+        fail(f"flash_attn_fwd: expected 9 instances (hd 32, 64, 128 of the tensor-core "
+             f"body in bf16 and fp16, and of the CUDA-core body), got "
              f"{sorted(fwd_instances)}")
 
     def attn_inputs(Bsz, T, h, hd, dtype, valid=None, seed=0):
@@ -2389,13 +2702,20 @@ def main(argv=None) -> None:
                 out[i] = False
         return out
 
-    # the two bodies of each flash kernel: the tensor cores run bf16 (with
-    # and without the forward's residuals), the CUDA cores fp32; each body
-    # keeps its own worst errors and launch count
+    # the two bodies of each flash kernel: the tensor cores run bf16 and fp16
+    # (with and without the forward's residuals), the CUDA cores fp32; each
+    # body counts its launches, and each type of it keeps its own worst
+    # errors ("tensor_cores" bf16, "tensor_cores_fp16", "cuda_cores")
     flash_wrappers = {"fwd": flash_attn_fwd, "dkv": flash_attn_bwd_dkv, "dq": flash_attn_bwd_dq}
+    flash_types = ((torch.float32, "fp32"), (torch.bfloat16, "bf16"), (torch.float16, "fp16"))
+    VARIANTS = ("tensor_cores", "tensor_cores_fp16", "cuda_cores")
 
     def body_of(dtype):
-        return "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+        return "cuda_cores" if dtype == torch.float32 else "tensor_cores"
+
+    def variant_of(dtype):
+        return {torch.float32: "cuda_cores", torch.bfloat16: "tensor_cores",
+                torch.float16: "tensor_cores_fp16"}[dtype]
 
     def zero_bodies():
         for w in flash_wrappers.values():
@@ -2405,12 +2725,12 @@ def main(argv=None) -> None:
     def flash_bodies():
         return {key: dict(w.launches_by_body) for key, w in flash_wrappers.items()}
 
-    attn_worst = {"tensor_cores": 0.0, "cuda_cores": 0.0}
-    attn_abs = {"tensor_cores": 0.0, "cuda_cores": 0.0}
+    attn_worst = {v: 0.0 for v in VARIANTS}
+    attn_abs = {v: 0.0 for v in VARIANTS}
 
-    def note_fwd(body, rel, abs_err):
-        attn_worst[body] = max(attn_worst[body], rel)
-        attn_abs[body] = max(attn_abs[body], abs_err)
+    def note_fwd(variant, rel, abs_err):
+        attn_worst[variant] = max(attn_worst[variant], rel)
+        attn_abs[variant] = max(attn_abs[variant], abs_err)
 
     cases = [
         (197, 12, 64, None, "ViT, no mask"),
@@ -2423,7 +2743,7 @@ def main(argv=None) -> None:
         (77, 2, 128, rows(77, "prefix:9", "none"), "hd 128"),
     ]
     for T, h, hd, valid, label in cases:
-        for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for dtype, name in flash_types:
             q, k, v, mask = attn_inputs(2, T, h, hd, dtype, valid, seed=T + hd)
             key_mask = None if mask is None else mask.reshape(2, T).contiguous()
             with torch.inference_mode():
@@ -2447,42 +2767,47 @@ def main(argv=None) -> None:
                 if not ok:
                     fail(f"flash_attn_fwd disagrees with the plain interior at T={T} hd={hd} "
                          f"{name}, {'with' if with_res else 'without'} residuals")
-                note_fwd(body, rel, abs_err)
+                note_fwd(variant_of(dtype), rel, abs_err)
 
-    # at the serving batch (64) and type (bf16): the ViT and BERT shapes
-    attn_shapes = {}
-    for tower, T, valid in (("vit", 197, None),
-                            ("bert", 256, report_tokens(64) != HashTokenizer.PAD)):
-        q, k, v, mask = attn_inputs(64, T, 12, 64, torch.bfloat16, valid, seed=5)
-        sm = 64**-0.5
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        with torch.inference_mode():
-            o_k = flash_attention_interior(q, k, v, mask, sm_scale=sm, impl="cuda")
-            o_p = attention_plain(q, k, v, mask, sm_scale=sm)
-            (rel, abs_err), = rel_errs([o_k], [o_p])
-            key_mask = None if mask is None else mask.reshape(64, T).contiguous()
-            o_r = flash_attn_fwd(q, k, v, key_mask, sm_scale=sm, with_residuals=True)[0]
-            (rel_r, abs_r), = rel_errs([o_r], [o_p])
-            ms_k = cuda_ms(lambda: flash_attention_interior(q, k, v, mask, sm_scale=sm,
-                                                            impl="cuda"), 20)
-            ms_p = cuda_ms(lambda: attention_plain(q, k, v, mask, sm_scale=sm), 20)
-            ms_l = cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, scale=sm), 20)
-        if rel > ATTN_GATE["bf16"] or rel_r > ATTN_GATE["bf16"]:
-            fail(f"flash_attn_fwd disagrees with the plain interior at the {tower} shape: "
-                 f"rel err {rel:.3e} without residuals, {rel_r:.3e} with them")
-        note_fwd("tensor_cores", max(rel, rel_r), max(abs_err, abs_r))
-        bound = attn_bound(64, T, 12, 64, 2, valid is not None, sfu_rate)
-        attn_shapes[tower] = {"B": 64, "T": T, "h": 12, "hd": 64, "dtype": "bf16",
-                              "masked": valid is not None, "launches_per_forward": 12,
-                              "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l, **bound,
-                              "max_rel_err": rel}
-        say(f"flash B=64 T={T} bf16 ({tower}): kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
-            f"scaled_dot_product_attention {ms_l:.4f} ms, bound {bound['bound_ms']:.4f} ms "
-            f"({bound['bound_by']}), rel_err {rel:.3e}; with residuals rel_err "
-            f"{rel_r:.3e}")
-        del q, k, v, qt, kt, vt, o_k, o_p, o_r
-    say(json.dumps({"flash_attn_fwd_shapes": attn_shapes, "card": card}))
+    # at the serving batch (64) and the towers' types, bf16 (amp, bf16,
+    # pure_bf16) and fp16 (fp16, pure_fp16): the ViT and BERT shapes, each
+    # beside the plain interior and the library's call in the same type
+    attn_shapes_by = {}
+    for dtype, name in flash_types[1:]:
+        shapes = attn_shapes_by[variant_of(dtype)] = {}
+        for tower, T, valid in (("vit", 197, None),
+                                ("bert", 256, report_tokens(64) != HashTokenizer.PAD)):
+            q, k, v, mask = attn_inputs(64, T, 12, 64, dtype, valid, seed=5)
+            sm = 64**-0.5
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            with torch.inference_mode():
+                o_k = flash_attention_interior(q, k, v, mask, sm_scale=sm, impl="cuda")
+                o_p = attention_plain(q, k, v, mask, sm_scale=sm)
+                (rel, abs_err), = rel_errs([o_k], [o_p])
+                key_mask = None if mask is None else mask.reshape(64, T).contiguous()
+                o_r = flash_attn_fwd(q, k, v, key_mask, sm_scale=sm, with_residuals=True)[0]
+                (rel_r, abs_r), = rel_errs([o_r], [o_p])
+                ms_k = cuda_ms(lambda: flash_attention_interior(q, k, v, mask, sm_scale=sm,
+                                                                impl="cuda"), 20)
+                ms_p = cuda_ms(lambda: attention_plain(q, k, v, mask, sm_scale=sm), 20)
+                ms_l = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, scale=sm), 20)
+            if rel > ATTN_GATE[name] or rel_r > ATTN_GATE[name]:
+                fail(f"flash_attn_fwd disagrees with the plain interior at the {tower} shape "
+                     f"in {name}: rel err {rel:.3e} without residuals, {rel_r:.3e} with them")
+            note_fwd(variant_of(dtype), max(rel, rel_r), max(abs_err, abs_r))
+            bound = attn_bound(64, T, 12, 64, 2, valid is not None, sfu_rate)
+            shapes[tower] = {"B": 64, "T": T, "h": 12, "hd": 64, "dtype": name,
+                             "masked": valid is not None, "launches_per_forward": 12,
+                             "ms": ms_k, "plain_ms": ms_p, "library_ms": ms_l, **bound,
+                             "max_rel_err": rel}
+            say(f"flash B=64 T={T} {name} ({tower}): kernel {ms_k:.4f} ms, plain {ms_p:.4f} "
+                f"ms, scaled_dot_product_attention {ms_l:.4f} ms, bound "
+                f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}), rel_err {rel:.3e}; with "
+                f"residuals rel_err {rel_r:.3e}")
+            del q, k, v, qt, kt, vt, o_k, o_p, o_r
+    attn_shapes = attn_shapes_by["tensor_cores"]
+    say(json.dumps({"flash_attn_fwd_shapes": attn_shapes_by, "card": card}))
 
     # 8. CLIP serving at full width
     clip, cfns, cmeta = make_serving_fns(
@@ -2648,11 +2973,14 @@ def main(argv=None) -> None:
     # built, as phase 7 lists the forward's instances
     bwd_lib = cuda_build.load("flash_attn_bwd")
     bwd_instances = instances(
-        "flash_attn_bwd", r"(flash_attn_bwd_dkv|flash_attn_bwd_dq)_(bf16_)?kernelILi(\d+)E",
-        lambda kernel, hd: bwd_lib.flash_attn_bwd_bf16_smem_bytes(int(kernel.endswith("dq")), hd))
-    if len(bwd_instances) != 12:
-        fail(f"flash_attn_bwd: expected 12 instances (dk/dv and dq at hd 32, 64, 128 of two "
-             f"bodies), got {sorted(bwd_instances)}")
+        "flash_attn_bwd",
+        r"(flash_attn_bwd_dkv|flash_attn_bwd_dq)_(?:tc_)?kernelI(13__nv_bfloat16|6__half)?"
+        r"Li(\d+)E",
+        lambda kernel, hd: bwd_lib.flash_attn_bwd_tc_smem_bytes(int(kernel.endswith("dq")), hd))
+    if len(bwd_instances) != 18:
+        fail(f"flash_attn_bwd: expected 18 instances (dk/dv and dq at hd 32, 64, 128 of the "
+             f"tensor-core body in bf16 and fp16 and of the CUDA-core body), got "
+             f"{sorted(bwd_instances)}")
 
     def plain_residuals(q, k, mask, sm):
         sc = torch.matmul(q.transpose(1, 2).float(), k.permute(0, 2, 3, 1).float()) * sm
@@ -2679,21 +3007,21 @@ def main(argv=None) -> None:
         dk, dv = flash_attn_bwd_dkv(q, k, v, *res, sm_scale=sm)
         return (flash_attn_bwd_dq(q, k, v, *res, sm_scale=sm), dk, dv), res, out
 
-    bwd_attn_worst = {key: {"tensor_cores": 0.0, "cuda_cores": 0.0} for key in ("dq", "dkv")}
-    bwd_attn_abs = {key: {"tensor_cores": 0.0, "cuda_cores": 0.0} for key in ("dq", "dkv")}
+    bwd_attn_worst = {key: {v: 0.0 for v in VARIANTS} for key in ("dq", "dkv")}
+    bwd_attn_abs = {key: {v: 0.0 for v in VARIANTS} for key in ("dq", "dkv")}
 
-    def note_bwd(errs, body):
+    def note_bwd(errs, variant):
         (r_q, a_q), (r_k, a_k), (r_v, a_v) = errs
         for key, rel, abs_err in (("dq", r_q, a_q), ("dkv", max(r_k, r_v), max(a_k, a_v))):
-            bwd_attn_worst[key][body] = max(bwd_attn_worst[key][body], rel)
-            bwd_attn_abs[key][body] = max(bwd_attn_abs[key][body], abs_err)
+            bwd_attn_worst[key][variant] = max(bwd_attn_worst[key][variant], rel)
+            bwd_attn_abs[key][variant] = max(bwd_attn_abs[key][variant], abs_err)
 
     bwd_cases = [c if c[4] != "one valid key + all masked" else
                  (256, 12, 64, rows(256, "one", "none", "holes", seed=4),
                   "one valid key + all masked + non-prefix") for c in cases]
     for T, h, hd, valid, label in bwd_cases:
         Bsz = 2 if valid is None else len(valid)
-        for dtype, name in ((torch.float32, "fp32"), (torch.bfloat16, "bf16")):
+        for dtype, name in flash_types:
             q, k, v, mask, key_mask, do = flash_bwd_inputs(Bsz, T, h, hd, dtype, valid, T + hd)
             sm = hd**-0.5
             g_k, res, _ = flash_bwd(q, k, v, key_mask, do, sm)
@@ -2702,13 +3030,13 @@ def main(argv=None) -> None:
             m_p, l_p = plain_residuals(q, k, mask, sm)
             torch.cuda.synchronize()
             errs = rel_errs(g_k, g_p)
-            if name == "bf16":
+            if name != "fp32":
                 # A row with one valid key has ds = 0: its dq and dk vanish.
-                # The bf16 plain backward rounds do.v to bf16 before it takes
-                # di off, which leaves rounding noise there, so such rows are
-                # left out against it; every row is also held against the fp32
-                # plain backward on the same inputs, whose arithmetic is the
-                # kernels'.
+                # The bf16 (fp16) plain backward rounds do.v to its type
+                # before it takes di off, which leaves rounding noise there,
+                # so such rows are left out against it; every row is also
+                # held against the fp32 plain backward on the same inputs,
+                # whose arithmetic is the kernels'.
                 if valid is not None:
                     keep = torch.as_tensor(valid.sum(1) != 1, device="cuda")
                     errs = rel_errs([g[keep] for g in g_k], [g[keep] for g in g_p])
@@ -2735,17 +3063,45 @@ def main(argv=None) -> None:
             if not ok:
                 fail(f"the flash backward kernels disagree with the plain backward at T={T} "
                      f"hd={hd} {name}")
-            note_bwd(errs, body_of(dtype))
+            note_bwd(errs, variant_of(dtype))
 
-    # at the training batch (64), the ViT and BERT shapes: bf16 on the tensor
-    # cores (training under amp), fp32 on the CUDA cores; each beside the
-    # plain forward and backward and the library's, in the same type. The
-    # operations of an fp32 body are bound by the fp32 rate outside the
-    # tensor cores.
-    bwd_shapes_attn = {"tensor_cores": {}, "cuda_cores": {}}
-    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
-        body, itemsize = body_of(dtype), dtype.itemsize
-        rate = {} if dtype == torch.bfloat16 else {"tc_rate": FP32_FLOPS}
+    # fp16's range: a cotangent that carries the fp16 loss scale (2^16) and
+    # whose fp16 rounding overflows in a few entries of two rows. The kernels
+    # must pass the inf on, as the plain backward does, and clamp nothing:
+    # each gradient non-finite exactly where the plain one is (every dv
+    # column the inf rows feed, their own dq rows, every attended key's dk)
+    # and finite elsewhere.
+    q, k, v, mask, key_mask, _ = flash_bwd_inputs(2, 197, 12, 64, torch.float16, None, 41)
+    cot = torch.randn(2, 197, 12 * 64, generator=torch.Generator(device="cuda").manual_seed(42),
+                      device="cuda") * 1e-3
+    cot[0, 5, :3], cot[1, 100, 64:70] = 2.0, -3.0
+    do = (cot * 2.0**16).to(torch.float16)
+    g_k, _, out = flash_bwd(q, k, v, None, do, 64**-0.5)
+    g_p = attention_plain_bwd(q, k, v, None, do, 64**-0.5, o=out)
+    torch.cuda.synchronize()
+    overflow = {"do_nonfinite": int((~torch.isfinite(do)).sum())}
+    for gname, a, b in zip(("dq", "dk", "dv"), g_k, g_p):
+        bad_k, bad_p = ~torch.isfinite(a), ~torch.isfinite(b)
+        overflow[gname] = {"kernel_nonfinite": int(bad_k.sum()),
+                           "plain_nonfinite": int(bad_p.sum()),
+                           "same_entries": bool(torch.equal(bad_k, bad_p))}
+    say(f"flash bwd fp16 with an overflowing scaled cotangent: {overflow}")
+    if not overflow["do_nonfinite"] or not all(
+            overflow[g]["same_entries"] and overflow[g]["kernel_nonfinite"] > 0
+            for g in ("dq", "dk", "dv")):
+        fail(f"fp16 flash backward: the non-finite cotangent did not reach dq, dk and dv "
+             f"where the plain backward's does: {overflow}")
+    del q, k, v, do, cot, g_k, g_p, out
+
+    # at the training batch (64), the ViT and BERT shapes: bf16 and fp16 on
+    # the tensor cores (training under amp, pure_bf16; fp16, pure_fp16), fp32
+    # on the CUDA cores; each beside the plain forward and backward and the
+    # library's, in the same type. The operations of an fp32 body are bound
+    # by the fp32 rate outside the tensor cores.
+    bwd_shapes_attn = {v: {} for v in VARIANTS}
+    for dtype, name in flash_types:
+        body, itemsize = variant_of(dtype), dtype.itemsize
+        rate = {} if dtype != torch.float32 else {"tc_rate": FP32_FLOPS}
         for tower, T, valid in (("vit", 197, None),
                                 ("bert", 256, report_tokens(64) != HashTokenizer.PAD)):
             q, k, v, mask, key_mask, do = flash_bwd_inputs(64, T, 12, 64, dtype, valid, 5)
@@ -3425,12 +3781,26 @@ def main(argv=None) -> None:
         {"medmamba_ms": step_ms, "clip_flash_ms": clip_ms, "clip_einsum_ms": einsum_ms})
     say(json.dumps({"quant": quant_line}))
 
-    # 18. kernels line, then the device line. Each attention kernel as two
-    # entries, one a body: the tensor cores (bf16: what serving and training
-    # under amp run, its launches from the main path) and the CUDA cores
-    # (fp32, its launches from phase 10's fp32 step), each timed at the
-    # towers' shapes in its own type (phase 7 serving's forward, phase 9 the
-    # rest)
+    # 18. the low-precision parameter policies at full width: the contrastive
+    # and medmamba steps, the CLI under pure_bf16 and its checkpoint's
+    # artifacts, through the scan kernels and the flash kernels' bf16 and fp16
+    # instances
+    gc.collect()
+    torch.cuda.empty_cache()
+    prec_line, prec_launches, prec_bodies, fp16_launches = precision_phase(
+        card, reset_counts, read_counts, flash_bodies,
+        {"medmamba_ms": step_ms, "medmamba_peak": peak, "medmamba_before": mm_before,
+         "clip_ms": clip_ms,
+         "clip_peak": clip_peak, "clip_before": base_mem})
+    say(json.dumps({"precision": prec_line}))
+
+    # 19. kernels line, then the device line. Each attention kernel as three
+    # entries, one a body and type: the tensor cores in bf16 (what serving and
+    # training under amp and pure_bf16 run, its launches from the main path),
+    # the tensor cores in fp16 (training under fp16 and pure_fp16, its
+    # launches from phase 18's fp16 steps) and the CUDA cores (fp32, its
+    # launches from phase 10's fp32 step), each timed at the towers' shapes in
+    # its own type (phase 7 serving's forward, phase 9 the rest)
     def by_bound(shapes):
         by = {"bytes": 0.0, "operations": 0.0}
         for sh in shapes:
@@ -3443,18 +3813,25 @@ def main(argv=None) -> None:
                    "clip_train_accum2_checkpointed": accum_bodies,
                    "medmamba_clip_train": mm_train_bodies, "clip_train_fp32": fp32_bodies,
                    "cli": cli_bodies, "serving_http": http_bodies, "real_data": real_bodies,
-                   "quant": quant_bodies}
+                   "quant": quant_bodies,
+                   # phase 18's bf16 launches; its fp16 ones are the fp16 entries'
+                   "precision": {k: {"tensor_cores": by["tensor_cores"] - fp16_launches[k],
+                                     "cuda_cores": by["cuda_cores"]}
+                                 for k, by in prec_bodies.items()}}
     main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2", "cli",
-                          "serving_http", "real_data", "quant"),
-                  "dkv": ("clip_train", "epoch_stage1", "cli", "real_data", "quant"),
-                  "dq": ("clip_train", "epoch_stage1", "cli", "real_data", "quant")}
+                          "serving_http", "real_data", "quant", "precision"),
+                  "dkv": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
+                          "precision"),
+                  "dq": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
+                         "precision")}
     flash_launches = {key: {"tensor_cores": sum(flash_paths[p][key]["tensor_cores"]
                                                 for p in paths),
+                            "tensor_cores_fp16": fp16_launches[key],
                             "cuda_cores": fp32_bodies[key]["cuda_cores"]}
                       for key, paths in main_paths.items()}
     if any(n == 0 for by in flash_launches.values() for n in by.values()):
         fail(f"a flash body was launched no time: {flash_launches} (the tensor cores on the "
-             "main path, the CUDA cores in the fp32 step)")
+             "main path in bf16 and in phase 18's fp16 steps, the CUDA cores in the fp32 step)")
     # the attention kernels' bounds again from the ceilings phase 11 measured
     # (HBM, exp and the fp32 FMA rate; the tensor cores' rate stays the data
     # sheet's)
@@ -3485,7 +3862,14 @@ def main(argv=None) -> None:
                    share_of_bound_measured=meas / out["ms"])
         return out
 
-    fwd_serving = attn_times(list(attn_shapes.values()), True, {"stats": 0})
+    fwd_serving = {v: attn_times(list(attn_shapes_by[v].values()), True, {"stats": 0})
+                   for v in ("tensor_cores", "tensor_cores_fp16")}
+    bodies_of_entry = {
+        "tensor_cores": ("", "bf16 (serving and training under amp, bf16 and pure_bf16), "
+                             "mma.sync on the tensor cores", "bf16"),
+        "tensor_cores_fp16": ("_fp16", "fp16 (training and evaluation under fp16 and "
+                                       "pure_fp16), mma.sync .f16 on the tensor cores", "fp16"),
+        "cuda_cores": ("_cuda_cores", "fp32, on the CUDA cores", "fp32")}
     attn_entries = []
     for key, name, source, replaces in (
             ("fwd", "flash_attn_fwd", "flash_attn_fwd.cu", "src/mamba_clip_tpu/ops/flash_attn.py:75"),
@@ -3495,26 +3879,29 @@ def main(argv=None) -> None:
             ("dq", "flash_attn_bwd_dq", "flash_attn_bwd.cu",
              "jax/experimental/pallas/ops/tpu/flash_attention.py:1146 (reached from "
              "src/mamba_clip_tpu/ops/flash_attn.py:122)")):
-        for body in ("tensor_cores", "cuda_cores"):
-            tc = body == "tensor_cores"
+        for body in ("tensor_cores", "tensor_cores_fp16", "cuda_cores"):
+            tc = body != "cuda_cores"
+            suffix, what, elem = bodies_of_entry[body]
             times = attn_times(attn_rows(key, body), tc, bound_kw[key])
+            by_path = ({p: c[key]["tensor_cores" if tc else body] for p, c in flash_paths.items()}
+                       if body != "tensor_cores_fp16" else {"precision": fp16_launches[key]})
             entry = {
-                "name": name if tc else f"{name}_cuda_cores",
+                "name": f"{name}{suffix}",
                 "route": "cuda",
                 "source": f"src/mamba_clip_tpu_torch/csrc/{source}",
                 "replaces": replaces,
-                "body": ("bf16 (serving and training under amp), mma.sync on the tensor cores"
-                         if tc else "fp32, on the CUDA cores"),
+                "body": what,
                 "launches": flash_launches[key][body],
-                "launches_by_path": {p: c[key][body] for p, c in flash_paths.items()},
+                "launches_by_path": by_path,
                 "max_abs_err": (attn_abs if key == "fwd" else bwd_attn_abs[key])[body],
                 "max_rel_err": (attn_worst if key == "fwd" else bwd_attn_worst[key])[body],
-                # the forward's tensor-core entry: an image_embed + text_embed
-                # pair (serving, no residuals), its "training" the train
-                # step's launches; the rest per train step in their type
-                **(fwd_serving if tc and key == "fwd" else times),
+                # the forward's tensor-core entries: an image_embed +
+                # text_embed pair (serving, no residuals), their "training"
+                # the train step's launches; the rest per train step in
+                # their type
+                **(fwd_serving[body] if tc and key == "fwd" else times),
                 "instances": {n: i for n, i in {**fwd_instances, **bwd_instances}.items()
-                              if n.startswith(f"{name} {'bf16' if tc else 'fp32'}")},
+                              if n.startswith(f"{name} {elem}")},
             }
             if tc and key == "fwd":
                 entry["training"] = times
@@ -3525,12 +3912,14 @@ def main(argv=None) -> None:
         "source": "src/mamba_clip_tpu_torch/csrc/selective_scan_fwd.cu",
         "replaces": "src/mamba_clip_tpu/ops/selective_scan.py:194",
         "launches": (launches + train_fwd + cli_launches["scan_fwd"]
-                     + http_launches["scan_fwd"] + quant_launches["scan_fwd"]),
+                     + http_launches["scan_fwd"] + quant_launches["scan_fwd"]
+                     + prec_launches["scan_fwd"]),
         "launches_by_path": {"serve": launches, "train": train_fwd, "clip_serve": clip_scans,
                              "medmamba_clip_image_embed": mm_launches["image_embed"]["scan"],
                              "cli": cli_launches["scan_fwd"],
                              "serving_http": http_launches["scan_fwd"],
-                             "quant": quant_launches["scan_fwd"]},
+                             "quant": quant_launches["scan_fwd"],
+                             "precision": prec_launches["scan_fwd"]},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": fwd_k,
@@ -3544,11 +3933,13 @@ def main(argv=None) -> None:
         "route": "cuda",
         "source": "src/mamba_clip_tpu_torch/csrc/selective_scan_bwd.cu",
         "replaces": "src/mamba_clip_tpu/ops/selective_scan.py:243",
-        "launches": train_bwd + cli_launches["scan_bwd"] + quant_launches["scan_bwd"],
+        "launches": (train_bwd + cli_launches["scan_bwd"] + quant_launches["scan_bwd"]
+                     + prec_launches["scan_bwd"]),
         "launches_by_path": {"serve": serve_bwd, "train": train_bwd,
                              "cli": cli_launches["scan_bwd"],
                              "serving_http": http_launches["scan_bwd"],
-                             "quant": quant_launches["scan_bwd"]},
+                             "quant": quant_launches["scan_bwd"],
+                             "precision": prec_launches["scan_bwd"]},
         "max_abs_err": bwd_abs,
         "max_rel_err": bwd_rel,
         "ms": bwd_k_step,

@@ -119,8 +119,41 @@ def _convert_value(path, arr: np.ndarray) -> np.ndarray:
     raise ValueError(f"params/{'/'.join(path)}: kernel of rank {arr.ndim}")
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A leaf as a tensor of its own float type: fp16 stays fp16, and a JAX
+    bfloat16 array (numpy's ``bfloat16`` type, which ml_dtypes registers)
+    becomes bf16 bit for bit through its 16-bit pattern, so that the port
+    never imports ml_dtypes; any other type becomes fp32."""
+    if arr.dtype.name == "bfloat16":
+        bits = np.array(arr, order="C").view(np.int16)
+        return torch.from_numpy(bits).view(torch.bfloat16)
+    if arr.dtype == np.float16:
+        return torch.from_numpy(np.array(arr, np.float16, order="C"))
+    return torch.from_numpy(np.array(arr, np.float32, order="C"))
+
+
+def _array(t: torch.Tensor, dtype=None) -> np.ndarray:
+    """The inverse of :func:`_tensor`: a tensor as a numpy array of its
+    own type (bf16 as numpy's ``bfloat16``, which needs ml_dtypes imported
+    first, as JAX imports it), or of ``dtype``."""
+    t = t.detach().to("cpu")
+    if dtype is not None:
+        return t.to(torch.float32).numpy().astype(dtype)
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    try:
+        bf16 = np.dtype("bfloat16")
+    except TypeError:
+        raise TypeError(
+            "a bf16 parameter as a numpy array needs numpy's bfloat16 type, which "
+            "ml_dtypes registers (import it first, as JAX does), or an explicit "
+            "dtype=np.float32") from None
+    return t.view(torch.int16).numpy().view(bf16)
+
+
 def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
-    """Map a Flax variable tree to state-dict entries."""
+    """Map a Flax variable tree to state-dict entries, each in its leaf's
+    type (fp32, bf16 or fp16; see :func:`_tensor`)."""
     extra = sorted(set(variables) - set(_COLLECTIONS))
     if extra:
         raise KeyError(f"unmapped variable collections {extra}")
@@ -130,8 +163,7 @@ def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
             key = _key(collection, path)
             if key in out:
                 raise KeyError(f"two leaves map to {key}")
-            out[key] = torch.from_numpy(
-                np.array(_convert_value(path, arr), np.float32, order="C"))
+            out[key] = _tensor(_convert_value(path, arr))
     return out
 
 
@@ -282,16 +314,18 @@ def flax_shapes(module: nn.Module) -> Dict[str, Tuple[int, ...]]:
             for key, name, t in _flax_leaves(module)}
 
 
-def flax_arrays(module: nn.Module) -> Dict[str, np.ndarray]:
-    """``module``'s parameters as fp32 numpy arrays in Flax layouts, keyed by
+def flax_arrays(module: nn.Module, dtype=None) -> Dict[str, np.ndarray]:
+    """``module``'s parameters as numpy arrays in Flax layouts, keyed by
     the ``/``-joined paths of the Flax ``params`` tree: the inverse of
-    :func:`state_dict_from_jax` on that collection."""
-    return {key: np.array(_flax_value(name, t.detach().to("cpu", torch.float32).numpy()),
-                          order="C")
+    :func:`state_dict_from_jax` on that collection. Each array keeps its
+    parameter's type (a bf16 one needs ml_dtypes imported, see
+    :func:`_array`) unless ``dtype`` is given."""
+    return {key: np.array(_flax_value(name, _array(t, dtype)), order="C")
             for key, name, t in _flax_leaves(module)}
 
 
 def write_converted_npz(module: nn.Module, path: str) -> None:
     """Write ``module``'s parameters as a converted ``.npz`` (Flax keys,
-    Flax layouts), the file ``checkpoint.load_torch_clip`` reads."""
-    np.savez(path, **flax_arrays(module))
+    Flax layouts, fp32 as ``tools/convert_weights.py`` writes it), the file
+    ``checkpoint.load_torch_clip`` reads."""
+    np.savez(path, **flax_arrays(module, np.float32))

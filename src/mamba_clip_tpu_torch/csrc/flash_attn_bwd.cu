@@ -15,9 +15,10 @@
 //     dk_j  = sum_t ds_tj * q_t
 //     dq_t  = sum_j ds_tj * k_j
 //
-// q, k, v and do are (B, T, H, HD) in float or bf16, contiguous; mask is an
-// optional (B, T) byte per key (nonzero = attend); m, l and di are (B, H, T)
-// fp32; dq, dk, dv are written once, in q's type, as (B, T, H, HD). The mask
+// q, k, v and do are (B, T, H, HD) in float, bf16 or fp16, contiguous;
+// mask is an optional (B, T) byte per key (nonzero = attend); m, l and di
+// are (B, H, T) fp32; dq, dk, dv are written once, in q's type, as
+// (B, T, H, HD). The mask
 // covers keys only: a padded token as a query attends the valid keys and
 // adds to their dk and dv. A masked key's score is the constant -1e9, so no
 // gradient flows through it to q or k (ds = 0), as in the plain interior's
@@ -31,11 +32,13 @@
 // batch) walking the query tiles, and dq, one block per (tile of 64 query
 // rows, head, batch) walking the key tiles. Each has two bodies.
 //
-// The tensor-core bodies run bf16 (training under amp). A warp owns 16 rows
-// and every product runs mma.sync m16n8k16 (bf16 in, fp32 accumulators) on
-// tiles that cp.async stages two buffers deep with a 16-byte pad a row, as
-// in the forward's tensor-core body:
-// - dk/dv (flash_attn_bwd_dkv_bf16_kernel): the warp's 16 rows of K and V
+// The tensor-core bodies run bf16 (training under amp, bf16 and pure_bf16)
+// and fp16 (under fp16 and pure_fp16), a template instance each on the
+// element type. A warp owns 16 rows and every product runs mma.sync
+// m16n8k16 (bf16 or fp16 in, fp32 accumulators) on tiles that cp.async
+// stages two buffers deep with a 16-byte pad a row, as in the forward's
+// tensor-core body:
+// - dk/dv (flash_attn_bwd_dkv_tc_kernel): the warp's 16 rows of K and V
 //   are A fragments in registers, its dK and dV fp32 accumulators too (64
 //   registers a thread at HD 64). Per tile of kBlockN query rows the block
 //   stages Q, dO and each row's m, 1/l and di; per 16-query chunk a warp
@@ -45,20 +48,27 @@
 //   (P^T from the accumulators as an A fragment, dO by ldmatrix.trans),
 //   dP^T = V dO^T (dO by ldmatrix), dS^T = P^T (dP^T - di_t) * scale and
 //   dK += dS^T Q (Q by ldmatrix.trans).
-// - dq (flash_attn_bwd_dq_bf16_kernel), the forward's shape: the warp's 16
+// - dq (flash_attn_bwd_dq_tc_kernel), the forward's shape: the warp's 16
 //   rows of Q and dO are A fragments in registers, m, 1/l and di of its rows
 //   too; per staged K/V tile (with one code a key: attend, masked, past T),
 //   per 16-key chunk: S = Q K^T, P = exp(S * scale - m) / l, dP = dO V^T,
 //   dS = P (dP - di) * scale, dQ += dS K (K by ldmatrix.trans).
-// Rounding: q, k, v and do are bf16, so every product the tensor cores
-// take of them is exact and sums in fp32. Two operands are rounded that the
-// fp32 bodies keep: P, to bf16 once for dV (p >= 0, as the forward's P . V),
-// and dS for dK and dQ. dq and dk are small remainders of terms that cancel
-// (sum_j ds_tj is 0 for every row), so one rounding of ds is of their size;
-// ds goes in as two bf16 terms, hi = bf16(ds) and lo = bf16(ds - hi), two
-// mma a product, which carries it to about 2^-16. The scores are summed by
-// the tensor cores: the dq kernel takes S = Q K^T as the forward does, the
-// dk/dv kernel S^T = K Q^T with the operands swapped; m and l come from the
+// Rounding: q, k, v and do are bf16 (fp16), so every product the tensor
+// cores take of them is exact and sums in fp32. Two operands are rounded
+// that the fp32 bodies keep: P, to q's type once for dV (p >= 0, as the
+// forward's P . V), and dS for dK and dQ. dq and dk are small remainders of
+// terms that cancel (sum_j ds_tj is 0 for every row), so one rounding of ds
+// is of their size; ds goes in as two terms of q's type, hi = E(ds) and lo = E(ds - hi), two
+// mma a product, which carries it to about 2^-16 (2^-22 in fp16). fp16's
+// range is where the types part: under the fp16 policies do carries the
+// dynamic loss scale (2^16 at the start), so do . v, ds and their
+// roundings can leave fp16's range. Nothing is clamped: a score product or
+// an accumulator that is inf or NaN stays so, ds that rounds beyond the
+// range goes in as hi = inf alone (split_f16), and dq, dk and dv round to
+// inf where their sums overflow, so that the train step's finiteness check
+// sees them and the scale backs off. The scores are summed by the tensor
+// cores: the dq kernel takes S = Q K^T as the forward does, the dk/dv
+// kernel S^T = K Q^T with the operands swapped; m and l come from the
 // forward, so a recomputed score is only ever put against them.
 // The ragged tail of T: rows are handled in 16-row warp tiles, a warp whose
 // rows all lie past T does no math but takes part in every barrier, and the
@@ -280,24 +290,20 @@ struct BwdCfg {
   static_assert(kBlockN % 16 == 0 && kBlockN <= kThreads, "a tile is 16-row chunks");
 };
 
-template <int HD>
+template <typename E, int HD>
 __global__ void __launch_bounds__(BwdCfg<HD>::kThreads)
-flash_attn_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                               const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v,
-                               const uint8_t* __restrict__ mask,
-                               const __nv_bfloat16* __restrict__ dout,
-                               const float* __restrict__ m, const float* __restrict__ l,
-                               const float* __restrict__ di, __nv_bfloat16* __restrict__ dk,
-                               __nv_bfloat16* __restrict__ dv, int T_len, int H,
-                               float sm_scale) {
+flash_attn_bwd_dkv_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                             const E* __restrict__ v, const uint8_t* __restrict__ mask,
+                             const E* __restrict__ dout, const float* __restrict__ m,
+                             const float* __restrict__ l, const float* __restrict__ di,
+                             E* __restrict__ dk, E* __restrict__ dv, int T_len, int H,
+                             float sm_scale) {
   using C = BwdCfg<HD>;
-  using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);  // [kBlockM][kStride], later dK
-  bf16* v_s = k_s + C::kOwn;                  // [kBlockM][kStride], later dV
-  bf16* q_s = v_s + C::kOwn;                  // [2][kBlockN][kStride]
-  bf16* do_s = q_s + 2 * C::kTile;            // [2][kBlockN][kStride]
+  E* k_s = reinterpret_cast<E*>(smem);  // [kBlockM][kStride], later dK
+  E* v_s = k_s + C::kOwn;               // [kBlockM][kStride], later dV
+  E* q_s = v_s + C::kOwn;               // [2][kBlockN][kStride]
+  E* do_s = q_s + 2 * C::kTile;         // [2][kBlockN][kStride]
   float* st_s = reinterpret_cast<float*>(do_s + 2 * C::kTile);  // [2][m, 1/l, di][kBlockN]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -311,7 +317,7 @@ flash_attn_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int64_t stat0 = ((int64_t)b * H + h) * T_len;
   const int n_tiles = (T_len + C::kBlockN - 1) / C::kBlockN;
 
-  auto stage = [&](bf16* dst, const bf16* src, int r0, int rows) {
+  auto stage = [&](E* dst, const E* src, int r0, int rows) {
     stage_rows<HD, C::kThreads>(dst, src + head0, row_stride, r0, rows, T_len, tid);
   };
   // m, 1/l and di of query row t; a row past T gets p = 0 exactly
@@ -363,8 +369,8 @@ flash_attn_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     if (active) {
       if (n == 0) {
-        const bf16* kw = a_addr(k_s + 16 * warp * C::kStride, C::kStride, lane);
-        const bf16* vw = a_addr(v_s + 16 * warp * C::kStride, C::kStride, lane);
+        const E* kw = a_addr(k_s + 16 * warp * C::kStride, C::kStride, lane);
+        const E* vw = a_addr(v_s + 16 * warp * C::kStride, C::kStride, lane);
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           ldmatrix_x4(kf[kk], kw + 16 * kk);
@@ -373,8 +379,8 @@ flash_attn_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
       const int nq = min(C::kBlockN, T_len - n * C::kBlockN);
       const int chunks = (nq + 15) / 16;  // 16-query chunks that hold a row before T
-      const bf16* qs = q_s + buf * C::kTile;
-      const bf16* dos = do_s + buf * C::kTile;
+      const E* qs = q_s + buf * C::kTile;
+      const E* dos = do_s + buf * C::kTile;
       const float* st = st_s + buf * 3 * C::kBlockN;
 
       for (int c = 0; c < chunks; ++c) {
@@ -384,17 +390,17 @@ flash_attn_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         for (int t = 0; t < 2; ++t)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
-        const bf16* qr = b_addr(qs + 16 * c * C::kStride, C::kStride, lane);
-        const bf16* dr = b_addr(dos + 16 * c * C::kStride, C::kStride, lane);
+        const E* qr = b_addr(qs + 16 * c * C::kStride, C::kStride, lane);
+        const E* dr = b_addr(dos + 16 * c * C::kStride, C::kStride, lane);
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           unsigned qb[4], db[4];
           ldmatrix_x4(qb, qr + 16 * kk);
-          mma_bf16_16816(s[0], kf[kk], qb[0], qb[1]);
-          mma_bf16_16816(s[1], kf[kk], qb[2], qb[3]);
+          Tc<E>::mma(s[0], kf[kk], qb[0], qb[1]);
+          Tc<E>::mma(s[1], kf[kk], qb[2], qb[3]);
           ldmatrix_x4(db, dr + 16 * kk);
-          mma_bf16_16816(dp[0], vf[kk], db[0], db[1]);
-          mma_bf16_16816(dp[1], vf[kk], db[2], db[3]);
+          Tc<E>::mma(dp[0], vf[kk], db[0], db[1]);
+          Tc<E>::mma(dp[1], vf[kk], db[2], db[3]);
         }
         // P^T and dS^T on the accumulators: element e of tile t is key row
         // g + 8 (e / 2), query column 16 c + 8 t + 2 quad + e % 2
@@ -413,25 +419,25 @@ flash_attn_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
             p[e] = __expf(sc - (e & 1 ? mt.y : mt.x)) * (e & 1 ? ilt.y : ilt.x);
             ds[e] = att ? p[e] * (dp[t][e] - (e & 1 ? dit.y : dit.x)) * sm_scale : 0.f;
           }
-          pa[2 * t] = pack_bf16(p[0], p[1]);      // key row g
-          pa[2 * t + 1] = pack_bf16(p[2], p[3]);  // key row g + 8
-          split_bf16(ds[0], ds[1], dsh[2 * t], dsl[2 * t]);
-          split_bf16(ds[2], ds[3], dsh[2 * t + 1], dsl[2 * t + 1]);
+          pa[2 * t] = Tc<E>::pack(p[0], p[1]);      // key row g
+          pa[2 * t + 1] = Tc<E>::pack(p[2], p[3]);  // key row g + 8
+          Tc<E>::split(ds[0], ds[1], dsh[2 * t], dsl[2 * t]);
+          Tc<E>::split(ds[2], ds[3], dsh[2 * t + 1], dsl[2 * t + 1]);
         }
         // dV += P^T dO and dK += dS^T Q, dO and Q by ldmatrix.trans
-        const bf16* dtr = bt_addr(dos + 16 * c * C::kStride, C::kStride, lane);
-        const bf16* qtr = bt_addr(qs + 16 * c * C::kStride, C::kStride, lane);
+        const E* dtr = bt_addr(dos + 16 * c * C::kStride, C::kStride, lane);
+        const E* qtr = bt_addr(qs + 16 * c * C::kStride, C::kStride, lane);
 #pragma unroll
         for (int d2 = 0; d2 < HD / 16; ++d2) {
           unsigned db[4], qb[4];
           ldmatrix_x4_trans(db, dtr + 16 * d2);
-          mma_bf16_16816(dv_acc[2 * d2], pa, db[0], db[1]);
-          mma_bf16_16816(dv_acc[2 * d2 + 1], pa, db[2], db[3]);
+          Tc<E>::mma(dv_acc[2 * d2], pa, db[0], db[1]);
+          Tc<E>::mma(dv_acc[2 * d2 + 1], pa, db[2], db[3]);
           ldmatrix_x4_trans(qb, qtr + 16 * d2);
-          mma_bf16_16816(dk_acc[2 * d2], dsh, qb[0], qb[1]);
-          mma_bf16_16816(dk_acc[2 * d2 + 1], dsh, qb[2], qb[3]);
-          mma_bf16_16816(dk_acc[2 * d2], dsl, qb[0], qb[1]);
-          mma_bf16_16816(dk_acc[2 * d2 + 1], dsl, qb[2], qb[3]);
+          Tc<E>::mma(dk_acc[2 * d2], dsh, qb[0], qb[1]);
+          Tc<E>::mma(dk_acc[2 * d2 + 1], dsh, qb[2], qb[3]);
+          Tc<E>::mma(dk_acc[2 * d2], dsl, qb[0], qb[1]);
+          Tc<E>::mma(dk_acc[2 * d2 + 1], dsl, qb[2], qb[3]);
         }
       }
     }
@@ -453,23 +459,19 @@ flash_attn_bwd_dkv_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                       T_len, lane);
 }
 
-template <int HD>
+template <typename E, int HD>
 __global__ void __launch_bounds__(BwdCfg<HD>::kThreads)
-flash_attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v,
-                              const uint8_t* __restrict__ mask,
-                              const __nv_bfloat16* __restrict__ dout,
-                              const float* __restrict__ m, const float* __restrict__ l,
-                              const float* __restrict__ di, __nv_bfloat16* __restrict__ dq,
-                              int T_len, int H, float sm_scale) {
+flash_attn_bwd_dq_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                            const E* __restrict__ v, const uint8_t* __restrict__ mask,
+                            const E* __restrict__ dout, const float* __restrict__ m,
+                            const float* __restrict__ l, const float* __restrict__ di,
+                            E* __restrict__ dq, int T_len, int H, float sm_scale) {
   using C = BwdCfg<HD>;
-  using bf16 = __nv_bfloat16;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);  // [kBlockM][kStride], later dQ
-  bf16* do_s = q_s + C::kOwn;                 // [kBlockM][kStride]
-  bf16* k_s = do_s + C::kOwn;                 // [2][kBlockN][kStride]
-  bf16* v_s = k_s + 2 * C::kTile;             // [2][kBlockN][kStride]
+  E* q_s = reinterpret_cast<E*>(smem);  // [kBlockM][kStride], later dQ
+  E* do_s = q_s + C::kOwn;              // [kBlockM][kStride]
+  E* k_s = do_s + C::kOwn;              // [2][kBlockN][kStride]
+  E* v_s = k_s + 2 * C::kTile;          // [2][kBlockN][kStride]
   uint8_t* code_s = reinterpret_cast<uint8_t*>(v_s + 2 * C::kTile);  // [2][kBlockN]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -483,7 +485,7 @@ flash_attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int64_t stat0 = ((int64_t)b * H + h) * T_len;
   const int n_tiles = (T_len + C::kBlockN - 1) / C::kBlockN;
 
-  auto stage = [&](bf16* dst, const bf16* src, int r0, int rows) {
+  auto stage = [&](E* dst, const E* src, int r0, int rows) {
     stage_rows<HD, C::kThreads>(dst, src + head0, row_stride, r0, rows, T_len, tid);
   };
 
@@ -528,8 +530,8 @@ flash_attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     if (active) {
       if (n == 0) {
-        const bf16* qw = a_addr(q_s + 16 * warp * C::kStride, C::kStride, lane);
-        const bf16* dw = a_addr(do_s + 16 * warp * C::kStride, C::kStride, lane);
+        const E* qw = a_addr(q_s + 16 * warp * C::kStride, C::kStride, lane);
+        const E* dw = a_addr(do_s + 16 * warp * C::kStride, C::kStride, lane);
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           ldmatrix_x4(qf[kk], qw + 16 * kk);
@@ -538,8 +540,8 @@ flash_attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
       const int nk = min(C::kBlockN, T_len - n * C::kBlockN);
       const int chunks = (nk + 15) / 16;  // 16-key chunks that hold a key before T
-      const bf16* ks = k_s + buf * C::kTile;
-      const bf16* vs = v_s + buf * C::kTile;
+      const E* ks = k_s + buf * C::kTile;
+      const E* vs = v_s + buf * C::kTile;
       const uint8_t* code = code_s + buf * C::kBlockN;
 
       for (int c = 0; c < chunks; ++c) {
@@ -549,17 +551,17 @@ flash_attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         for (int t = 0; t < 2; ++t)
 #pragma unroll
           for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
-        const bf16* kr = b_addr(ks + 16 * c * C::kStride, C::kStride, lane);
-        const bf16* vr = b_addr(vs + 16 * c * C::kStride, C::kStride, lane);
+        const E* kr = b_addr(ks + 16 * c * C::kStride, C::kStride, lane);
+        const E* vr = b_addr(vs + 16 * c * C::kStride, C::kStride, lane);
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           unsigned kb[4], vb[4];
           ldmatrix_x4(kb, kr + 16 * kk);
-          mma_bf16_16816(s[0], qf[kk], kb[0], kb[1]);
-          mma_bf16_16816(s[1], qf[kk], kb[2], kb[3]);
+          Tc<E>::mma(s[0], qf[kk], kb[0], kb[1]);
+          Tc<E>::mma(s[1], qf[kk], kb[2], kb[3]);
           ldmatrix_x4(vb, vr + 16 * kk);
-          mma_bf16_16816(dp[0], dof[kk], vb[0], vb[1]);
-          mma_bf16_16816(dp[1], dof[kk], vb[2], vb[3]);
+          Tc<E>::mma(dp[0], dof[kk], vb[0], vb[1]);
+          Tc<E>::mma(dp[1], dof[kk], vb[2], vb[3]);
         }
         // dS on the accumulators: element e of tile t is query row
         // g + 8 (e / 2), key column 16 c + 8 t + 2 quad + e % 2
@@ -576,19 +578,19 @@ flash_attn_bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q,
             const float p = __expf(s[t][e] * sm_scale - m_t[r]) * il_t[r];
             ds[e] = cd == kKeyAttend ? p * (dp[t][e] - di_t[r]) * sm_scale : 0.f;
           }
-          split_bf16(ds[0], ds[1], dsh[2 * t], dsl[2 * t]);          // row g
-          split_bf16(ds[2], ds[3], dsh[2 * t + 1], dsl[2 * t + 1]);  // row g + 8
+          Tc<E>::split(ds[0], ds[1], dsh[2 * t], dsl[2 * t]);          // row g
+          Tc<E>::split(ds[2], ds[3], dsh[2 * t + 1], dsl[2 * t + 1]);  // row g + 8
         }
         // dQ += dS K, K by ldmatrix.trans
-        const bf16* ktr = bt_addr(ks + 16 * c * C::kStride, C::kStride, lane);
+        const E* ktr = bt_addr(ks + 16 * c * C::kStride, C::kStride, lane);
 #pragma unroll
         for (int d2 = 0; d2 < HD / 16; ++d2) {
           unsigned kb[4];
           ldmatrix_x4_trans(kb, ktr + 16 * d2);
-          mma_bf16_16816(acc[2 * d2], dsh, kb[0], kb[1]);
-          mma_bf16_16816(acc[2 * d2 + 1], dsh, kb[2], kb[3]);
-          mma_bf16_16816(acc[2 * d2], dsl, kb[0], kb[1]);
-          mma_bf16_16816(acc[2 * d2 + 1], dsl, kb[2], kb[3]);
+          Tc<E>::mma(acc[2 * d2], dsh, kb[0], kb[1]);
+          Tc<E>::mma(acc[2 * d2 + 1], dsh, kb[2], kb[3]);
+          Tc<E>::mma(acc[2 * d2], dsl, kb[0], kb[1]);
+          Tc<E>::mma(acc[2 * d2 + 1], dsl, kb[2], kb[3]);
         }
       }
     }
@@ -619,16 +621,16 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// bf16 on the tensor cores, fp32 on the CUDA cores
+// bf16 and fp16 on the tensor cores, fp32 on the CUDA cores
 template <typename T, int HD>
 cudaError_t launch_dkv_hd(const Args& a, void* dk, void* dv) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     using C = BwdCfg<HD>;
-    const cudaError_t err = allow_smem(flash_attn_bwd_dkv_bf16_kernel<HD>, C::kSmemDkv);
+    const cudaError_t err = allow_smem(flash_attn_bwd_dkv_tc_kernel<T, HD>, C::kSmemDkv);
     if (err != cudaSuccess) return err;
     const dim3 grid((unsigned)((a.T_len + C::kBlockM - 1) / C::kBlockM), (unsigned)a.H,
                     (unsigned)a.batch);
-    flash_attn_bwd_dkv_bf16_kernel<HD><<<grid, C::kThreads, C::kSmemDkv, a.stream>>>(
+    flash_attn_bwd_dkv_tc_kernel<T, HD><<<grid, C::kThreads, C::kSmemDkv, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.m), static_cast<const float*>(a.l),
@@ -649,13 +651,13 @@ cudaError_t launch_dkv_hd(const Args& a, void* dk, void* dv) {
 
 template <typename T, int HD>
 cudaError_t launch_dq_hd(const Args& a, void* dq) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     using C = BwdCfg<HD>;
-    const cudaError_t err = allow_smem(flash_attn_bwd_dq_bf16_kernel<HD>, C::kSmemDq);
+    const cudaError_t err = allow_smem(flash_attn_bwd_dq_tc_kernel<T, HD>, C::kSmemDq);
     if (err != cudaSuccess) return err;
     const dim3 grid((unsigned)((a.T_len + C::kBlockM - 1) / C::kBlockM), (unsigned)a.H,
                     (unsigned)a.batch);
-    flash_attn_bwd_dq_bf16_kernel<HD><<<grid, C::kThreads, C::kSmemDq, a.stream>>>(
+    flash_attn_bwd_dq_tc_kernel<T, HD><<<grid, C::kThreads, C::kSmemDq, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.m), static_cast<const float*>(a.l),
@@ -743,9 +745,28 @@ extern "C" int flash_attn_bwd_dq_bf16(const void* q, const void* k, const void* 
   return (int)launch_dq<__nv_bfloat16>(a, HD, dq);
 }
 
-// Dynamic shared memory a block of a tensor-core body takes at head dim HD
-// (kind 0: dk/dv, 1: dq), or -1.
-extern "C" int flash_attn_bwd_bf16_smem_bytes(int kind, int HD) {
+extern "C" int flash_attn_bwd_dkv_f16(const void* q, const void* k, const void* v,
+                                      const void* mask, const void* dout, const void* m,
+                                      const void* l, const void* di, void* dk, void* dv,
+                                      int batch, int T_len, int H, int HD, float sm_scale,
+                                      void* stream) {
+  const Args a{q, k, v, mask, dout, m, l, di, batch, T_len, H, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  return (int)launch_dkv<__half>(a, HD, dk, dv);
+}
+
+extern "C" int flash_attn_bwd_dq_f16(const void* q, const void* k, const void* v,
+                                     const void* mask, const void* dout, const void* m,
+                                     const void* l, const void* di, void* dq, int batch,
+                                     int T_len, int H, int HD, float sm_scale, void* stream) {
+  const Args a{q, k, v, mask, dout, m, l, di, batch, T_len, H, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  return (int)launch_dq<__half>(a, HD, dq);
+}
+
+// Dynamic shared memory a block of a tensor-core body (either type) takes at
+// head dim HD (kind 0: dk/dv, 1: dq), or -1.
+extern "C" int flash_attn_bwd_tc_smem_bytes(int kind, int HD) {
   switch (HD) {
     case 32: return kind == 0 ? BwdCfg<32>::kSmemDkv : BwdCfg<32>::kSmemDq;
     case 64: return kind == 0 ? BwdCfg<64>::kSmemDkv : BwdCfg<64>::kSmemDq;

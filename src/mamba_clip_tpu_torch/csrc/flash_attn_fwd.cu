@@ -9,9 +9,10 @@
 //     s_j = (q_t . k_j) * sm_scale          masked keys: s_j = -1e9
 //     o_t = sum_j softmax(s)_j v_j
 //
-// q, k, v are (B, T, H, HD) in float or bf16, contiguous, as the fused qkv
-// projection gives them; mask is an optional (B, T) byte per key (nonzero =
-// attend); o is written once, in q's type, straight into (B, T, H*HD). A
+// q, k, v are (B, T, H, HD) in float, bf16 or fp16, contiguous, as the
+// fused qkv projection gives them; mask is an optional (B, T) byte per key
+// (nonzero = attend); o is written once, in q's type, straight into
+// (B, T, H*HD). A
 // row whose keys are all masked gets the softmax of T equal scores, the
 // mean of v over the T keys, as the plain interior gives it, and not NaN.
 // For training the kernel also writes the softmax residuals of every row,
@@ -38,25 +39,29 @@
 // kernels take them, so they recompute these scores bit for bit. TF32
 // would lose that and the fp32 gate of 5e-4.
 //
-// The tensor-core body (flash_attn_fwd_bf16_kernel) runs bf16, with or
-// without the residuals: training, image_embed, text_embed and the no-grad
-// forward of evaluation and of stage 2. After FlashAttention-2: one block of
+// The tensor-core body (flash_attn_fwd_tc_kernel) runs bf16 and fp16, one
+// instance each, with or without the residuals: training, image_embed,
+// text_embed and the no-grad forward of evaluation and of stage 2 (bf16
+// under amp, bf16 and pure_bf16; fp16 under fp16 and pure_fp16). After
+// FlashAttention-2: one block of
 // kWarps warps per (tile of 16 * kWarps query rows, head, batch); a warp
 // owns 16 query rows. Its Q fragment is loaded once (ldmatrix) and stays in
 // registers for the whole key loop. Per tile of kBlockN keys:
-// - S = Q . K^T on the tensor cores (mma.sync m16n8k16, bf16 in, fp32
-//   accumulators: 16 x kBlockN a warp), K's fragments by ldmatrix.x4;
+// - S = Q . K^T on the tensor cores (mma.sync m16n8k16, bf16 or fp16 in,
+//   fp32 accumulators: 16 x kBlockN a warp), K's fragments by ldmatrix.x4;
 // - the online softmax on the accumulators: the scale, -1e9 for a masked
 //   key, the row max over the quad of lanes that shares a row (shuffles 1
 //   and 2), O and l rescaled once a tile, p = exp(s - m) in fp32;
-// - P is rounded to bf16 in registers, two neighbouring m16n8 accumulators
+// - P is rounded to q's type in registers, two neighbouring m16n8 accumulators
 //   making one m16k16 A fragment, and O += P . V on the tensor cores with
 //   V's fragments by ldmatrix.x4.trans; O stays fp32 in registers.
 // l sums the fp32 p. The plain interior rounds the normalised p instead;
-// the 2e-2 bf16 gate covers either. With the residuals the epilogue also
-// writes each row's m and l (the quad's sum), the only difference between
-// training's launch and serving's.
-// Staging: K and V go to shared memory as bf16 with 16-byte cp.async, two
+// the 2e-2 gate of both types covers either. p lies in [0, 1] and o is a
+// convex combination of the rows of v, so fp16's range adds nothing that
+// bf16's does not meet: only an inf or NaN in q, k or v makes one in o.
+// With the residuals the epilogue also writes each row's m and l (the
+// quad's sum), the only difference between training's launch and serving's.
+// Staging: K and V go to shared memory in q's type with 16-byte cp.async, two
 // buffers deep: tile n+1 is in flight while tile n is consumed. A row of a
 // staged tile is padded by 16 bytes (TcTile). A tile's mask bytes are read
 // with its copy and stored after the current tile's math, as one code a
@@ -68,7 +73,7 @@
 // masked: their score is -inf, so p is exactly 0 and they never enter l
 // (an all-masked row gets l = T, not 208), and their K/V rows in shared
 // memory are zero-filled (cp.async with source size 0), so no stale NaN
-// reaches O through 0 * NaN. The epilogue rounds O / l to bf16 once and
+// reaches O through 0 * NaN. The epilogue rounds O / l to q's type once and
 // writes each warp's 16 rows through shared memory (its own rows of the Q
 // buffer), so that the stores to o are 16 bytes a thread.
 // Block sizes (kWarps, kBlockN, the blocks an SM holds) were chosen by
@@ -194,13 +199,14 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// The bf16 body's block geometry, chosen by measurement at the towers'
-// shapes (PERF.md has the sweep): 4 warps, key tiles of 64 (32 at HD 128),
-// and at HD 32 and 64 at least 4 blocks an SM, which caps the registers.
+// The tensor-core body's block geometry (both types: an element is 2 bytes
+// in each), chosen by measurement in bf16 at the towers' shapes (PERF.md
+// has the sweep): 4 warps, key tiles of 64 (32 at HD 128), and at HD 32 and
+// 64 at least 4 blocks an SM, which caps the registers.
 // Without the cap ptxas took 136 registers at HD 64, so an SM held 3 blocks
 // of 4 warps and not 4, and the launch at T 197 ran 14% slower.
 template <int HD>
-struct Bf16Cfg {
+struct TcCfg {
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kBlockM = 16 * kWarps;                         // query rows a block
@@ -213,20 +219,17 @@ struct Bf16Cfg {
   static_assert(kBlockN % 16 == 0 && kBlockN <= kThreads, "a key tile is 16-key chunks");
 };
 
-template <int HD>
-__global__ void __launch_bounds__(Bf16Cfg<HD>::kThreads, Bf16Cfg<HD>::kMinBlocks)
-flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
-                           const __nv_bfloat16* __restrict__ k,
-                           const __nv_bfloat16* __restrict__ v,
-                           const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ o,
-                           float* __restrict__ m_out, float* __restrict__ l_out, int T_len,
-                           int H, float sm_scale) {
-  using C = Bf16Cfg<HD>;
-  using bf16 = __nv_bfloat16;
+template <typename E, int HD>
+__global__ void __launch_bounds__(TcCfg<HD>::kThreads, TcCfg<HD>::kMinBlocks)
+flash_attn_fwd_tc_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                         const E* __restrict__ v, const uint8_t* __restrict__ mask,
+                         E* __restrict__ o, float* __restrict__ m_out,
+                         float* __restrict__ l_out, int T_len, int H, float sm_scale) {
+  using C = TcCfg<HD>;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);   // [kBlockM][kStride]
-  bf16* k_s = q_s + C::kBlockM * C::kStride;   // [2][kBlockN][kStride]
-  bf16* v_s = k_s + 2 * C::kTile;              // [2][kBlockN][kStride]
+  E* q_s = reinterpret_cast<E*>(smem);      // [kBlockM][kStride]
+  E* k_s = q_s + C::kBlockM * C::kStride;   // [2][kBlockN][kStride]
+  E* v_s = k_s + 2 * C::kTile;              // [2][kBlockN][kStride]
   uint8_t* code_s = reinterpret_cast<uint8_t*>(v_s + 2 * C::kTile);  // [2][kBlockN]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -240,7 +243,7 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   const int64_t head0 = (int64_t)b * T_len * row_stride + (int64_t)h * HD;
   const int n_tiles = (T_len + C::kBlockN - 1) / C::kBlockN;
 
-  auto stage = [&](bf16* dst, const bf16* src, int r0, int rows) {
+  auto stage = [&](E* dst, const E* src, int r0, int rows) {
     stage_rows<HD, C::kThreads>(dst, src + head0, row_stride, r0, rows, T_len, tid);
   };
 
@@ -274,14 +277,14 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     if (active) {
       if (n == 0) {
-        const bf16* qw = a_addr(q_s + 16 * warp * C::kStride, C::kStride, lane);
+        const E* qw = a_addr(q_s + 16 * warp * C::kStride, C::kStride, lane);
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) ldmatrix_x4(qf[kk], qw + 16 * kk);
       }
       const int nk = min(C::kBlockN, T_len - n * C::kBlockN);
       const int chunks = (nk + 15) / 16;  // 16-key chunks that hold a key before T
-      const bf16* ks = k_s + buf * C::kTile;
-      const bf16* vs = v_s + buf * C::kTile;
+      const E* ks = k_s + buf * C::kTile;
+      const E* vs = v_s + buf * C::kTile;
       const uint8_t* code = code_s + buf * C::kBlockN;
 
       // S = Q . K^T: chunk c is the accumulators s[2c] and s[2c + 1]
@@ -291,13 +294,13 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[2 * c][e] = s[2 * c + 1][e] = 0.f;
         if (c < chunks) {
-          const bf16* kr = b_addr(ks + 16 * c * C::kStride, C::kStride, lane);
+          const E* kr = b_addr(ks + 16 * c * C::kStride, C::kStride, lane);
 #pragma unroll
           for (int kk = 0; kk < HD / 16; ++kk) {
             unsigned kb[4];
             ldmatrix_x4(kb, kr + 16 * kk);
-            mma_bf16_16816(s[2 * c], qf[kk], kb[0], kb[1]);
-            mma_bf16_16816(s[2 * c + 1], qf[kk], kb[2], kb[3]);
+            Tc<E>::mma(s[2 * c], qf[kk], kb[0], kb[1]);
+            Tc<E>::mma(s[2 * c + 1], qf[kk], kb[2], kb[3]);
           }
         }
       }
@@ -349,16 +352,16 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
               st[e] = __expf(st[e] - m_run[e / 2]);
               l_run[e / 2] += st[e];
             }
-            pa[2 * half] = pack_bf16(st[0], st[1]);      // row g
-            pa[2 * half + 1] = pack_bf16(st[2], st[3]);  // row g + 8
+            pa[2 * half] = Tc<E>::pack(st[0], st[1]);      // row g
+            pa[2 * half + 1] = Tc<E>::pack(st[2], st[3]);  // row g + 8
           }
-          const bf16* vr = bt_addr(vs + 16 * c * C::kStride, C::kStride, lane);
+          const E* vr = bt_addr(vs + 16 * c * C::kStride, C::kStride, lane);
 #pragma unroll
           for (int d2 = 0; d2 < HD / 16; ++d2) {
             unsigned vb[4];
             ldmatrix_x4_trans(vb, vr + 16 * d2);
-            mma_bf16_16816(acc[2 * d2], pa, vb[0], vb[1]);
-            mma_bf16_16816(acc[2 * d2 + 1], pa, vb[2], vb[3]);
+            Tc<E>::mma(acc[2 * d2], pa, vb[0], vb[1]);
+            Tc<E>::mma(acc[2 * d2 + 1], pa, vb[2], vb[3]);
           }
         }
       }
@@ -387,28 +390,27 @@ flash_attn_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  // O / l in bf16 through this warp's rows of the Q buffer
+  // O / l in q's type through this warp's rows of the Q buffer
   store_warp_tile<HD>(q_s + 16 * warp * C::kStride, acc, inv, o + head0, row_stride, wrow0,
                       T_len, lane);
 }
 
-template <int HD>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* mask, void* o,
-                        float* m_out, float* l_out, int batch, int T_len, int H, float sm_scale,
-                        cudaStream_t stream) {
-  using C = Bf16Cfg<HD>;
+template <typename E, int HD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* mask, void* o,
+                      float* m_out, float* l_out, int batch, int T_len, int H, float sm_scale,
+                      cudaStream_t stream) {
+  using C = TcCfg<HD>;
   if (C::kSmemBytes > 48 * 1024) {  // above 48 KB only after opting in
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attn_fwd_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attn_fwd_tc_kernel<E, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         C::kSmemBytes);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((unsigned)((T_len + C::kBlockM - 1) / C::kBlockM), (unsigned)H,
                   (unsigned)batch);
-  flash_attn_fwd_bf16_kernel<HD><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const uint8_t*>(mask),
-      static_cast<__nv_bfloat16*>(o), m_out, l_out, T_len, H, sm_scale);
+  flash_attn_fwd_tc_kernel<E, HD><<<grid, C::kThreads, C::kSmemBytes, stream>>>(
+      static_cast<const E*>(q), static_cast<const E*>(k), static_cast<const E*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<E*>(o), m_out, l_out, T_len, H, sm_scale);
   return cudaGetLastError();
 }
 
@@ -416,9 +418,9 @@ template <typename T, int HD>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* mask, void* o,
                       float* m_out, float* l_out, int batch, int T_len, int H, float sm_scale,
                       cudaStream_t stream) {
-  // bf16 on the tensor cores, fp32 on the CUDA cores
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return launch_bf16<HD>(q, k, v, mask, o, m_out, l_out, batch, T_len, H, sm_scale, stream);
+  // bf16 and fp16 on the tensor cores, fp32 on the CUDA cores
+  if constexpr (!std::is_same<T, float>::value) {
+    return launch_tc<T, HD>(q, k, v, mask, o, m_out, l_out, batch, T_len, H, sm_scale, stream);
   } else {
     const dim3 grid((unsigned)((T_len + kRows - 1) / kRows), (unsigned)H, (unsigned)batch);
     flash_attn_fwd_kernel<HD><<<grid, Cfg<HD>::kThreads, 0, stream>>>(
@@ -465,12 +467,21 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                     sm_scale, static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory a block of the bf16 body takes at head dim HD, or -1.
-extern "C" int flash_attn_fwd_bf16_smem_bytes(int HD) {
+extern "C" int flash_attn_fwd_f16(const void* q, const void* k, const void* v,
+                                  const void* mask, void* o, void* m_out, void* l_out,
+                                  int batch, int T_len, int H, int HD, float sm_scale,
+                                  void* stream) {
+  return (int)launch<__half>(q, k, v, mask, o, m_out, l_out, batch, T_len, H, HD, sm_scale,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory a block of the tensor-core body (either type) takes
+// at head dim HD, or -1.
+extern "C" int flash_attn_fwd_tc_smem_bytes(int HD) {
   switch (HD) {
-    case 32: return Bf16Cfg<32>::kSmemBytes;
-    case 64: return Bf16Cfg<64>::kSmemBytes;
-    case 128: return Bf16Cfg<128>::kSmemBytes;
+    case 32: return TcCfg<32>::kSmemBytes;
+    case 64: return TcCfg<64>::kSmemBytes;
+    case 128: return TcCfg<128>::kSmemBytes;
     default: return -1;
   }
 }

@@ -11,9 +11,12 @@ Usage:
         [--model biomedclip|medmamba|mambavision] [--clip] \\
         [--checkpoint <checkpoint dir, e.g. .../stage_1_epoch_latest>] \\
         [--num-classes 2] [--image-size 224] [--compress-weights] \\
-        [--quant int8_serve] [--tokenizer <vocab.txt or tokenizer dir>]
+        [--quant int8_serve] [--tokenizer <vocab.txt or tokenizer dir>] \\
+        [--precision amp|bf16|pure_bf16|fp16|pure_fp16|fp32]
 
-Without ``--checkpoint`` it exports a fresh init (seed 0).
+Without ``--checkpoint`` it exports a fresh init (seed 0). With it the
+parameters keep the type ``--precision`` trains them in (bf16 under
+``bf16``/``pure_bf16``, fp16 under ``pure_fp16``), in the artifact too.
 """
 
 from __future__ import annotations
@@ -68,8 +71,13 @@ def main(argv=None):
     variables = None
     if a.checkpoint:
         from .checkpoint import load_params_only
+        from .utils.precision import get_policy
 
         model, _, _ = make_serving_fns(a.model, device="cpu", **kw)
+        # the parameters in the precision's type, as training kept them: a
+        # pure_bf16 checkpoint's values load as they are, and the artifact
+        # keeps them in bf16
+        get_policy(a.precision).cast_params(model)
         variables = load_params_only(os.path.abspath(a.checkpoint), model).state_dict()
 
     manifest = export_serving(

@@ -22,12 +22,11 @@ import math
 from typing import Dict, Mapping, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from .text_bert import TextBert
 from .vit import VisionTransformer, _dense
-from .vssm import VSSM
+from .vssm import VSSM, _linear
 
 LOGIT_SCALE_MAX = math.log(100.0)  # the train step clamps the log scale to ln(100)
 INIT_LOGIT_SCALE = math.log(1.0 / 0.07)
@@ -50,7 +49,7 @@ class VssmTower(nn.Module):
         self.proj = _dense(vssm.num_features, embed_dim, generator, bias=False)
 
     def forward(self, x, generator: Optional[torch.Generator] = None):
-        return F.linear(self.vssm(x, generator=generator).float(), self.proj.weight)
+        return _linear(self.vssm(x, generator=generator), self.proj, torch.float32)
 
 
 class ClipModel(nn.Module):
@@ -96,7 +95,9 @@ class ClipModel(nn.Module):
 
 def clamp_logit_scale(params: Mapping[str, torch.Tensor]) -> None:
     """Clamp every ``logit_scale`` among ``params`` (a name -> parameter
-    mapping, ``named_parameters``) to [0, ln 100], in place."""
+    mapping, ``named_parameters``) to [0, ln 100], in place. A bf16 or fp16
+    leaf gets what ``jnp.clip`` gives against the bounds rounded to its
+    type: no value of the type lies between ln 100 and its rounding."""
     with torch.no_grad():
         for name, p in params.items():
             if name.rsplit(".", 1)[-1] == "logit_scale":

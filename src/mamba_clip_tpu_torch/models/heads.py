@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .clip import ClipModel
-from .vssm import VSSM, _apply_keep, _lecun_normal_, keep_mask
+from .vssm import VSSM, _apply_keep, _lecun_normal_, _linear, keep_mask
 
 
 def _tower_dim(tower: nn.Module) -> int:
@@ -89,8 +89,8 @@ class ClipClassifier(nn.Module):
             feats = img * txt
         else:
             feats = torch.cat([img, txt], dim=-1)
-        x = F.relu(F.linear(feats.float(), self.fc1.weight, self.fc1.bias))
-        return F.linear(x, self.fc2.weight, self.fc2.bias)
+        x = F.relu(_linear(feats, self.fc1, torch.float32))
+        return _linear(x, self.fc2, torch.float32)
 
     def classify(self, image, text):
         probs = torch.softmax(self(image, text), dim=-1)
@@ -123,4 +123,4 @@ class MambaVisionClassifier(nn.Module):
             feats = _apply_keep(
                 feats, keep_mask(feats.shape, self.dropout, generator, feats.device),
                 self.dropout)
-        return F.linear(feats, self.fc.weight, self.fc.bias)
+        return _linear(feats, self.fc, torch.float32)

@@ -125,8 +125,8 @@ class TextBert(nn.Module):
                 x = block(x, pad_mask)
         cls = x[:, 0].float()
         if self.proj_type == "linear":
-            cls = F.linear(cls, self.proj.weight)
+            cls = _linear(cls, self.proj, torch.float32)
         elif self.proj_type == "mlp":
-            h = gelu(F.linear(cls, self.proj_fc1.weight, self.proj_fc1.bias), False)
-            cls = F.linear(h, self.proj_fc2.weight)
+            h = gelu(_linear(cls, self.proj_fc1, torch.float32), False)
+            cls = _linear(h, self.proj_fc2, torch.float32)
         return cls

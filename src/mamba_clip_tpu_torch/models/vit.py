@@ -275,5 +275,5 @@ class VisionTransformer(nn.Module):
                 x = block(x)
         x = _layer_norm_f32(x[:, 0], self.norm)
         if self.proj is not None:
-            x = F.linear(x, self.proj.weight)
+            x = _linear(x, self.proj, torch.float32)
         return x

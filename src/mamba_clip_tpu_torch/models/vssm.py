@@ -9,9 +9,13 @@ them leaf by leaf.
 - Activations are NHWC at every module boundary, as in the JAX package;
   the convolutions permute to NCHW around ``F.conv2d`` and pad like Flax's
   ``padding="SAME"``.
-- Parameters are fp32. Each module casts at its use sites as the JAX
-  package does (``dtype=cdt`` for the GEMMs and convolutions, fp32 for the
-  LayerNorms, the BatchNorm arithmetic and the head); no autocast region.
+- Parameters are fp32, or bf16/fp16 where the precision policy keeps them
+  so (``--precision bf16|pure_bf16|pure_fp16``; BatchNorm's running
+  statistics stay fp32 buffers). Each module casts a parameter at its use
+  site as Flax's ``promote_dtype`` does (``dtype=cdt`` for the GEMMs and
+  convolutions, fp32 for the LayerNorms, the BatchNorm arithmetic and the
+  head); no autocast region, and no fp32 copy of a low-precision
+  parameter is kept.
 - The selective scan is ``ops/selective_scan.py``: the CUDA kernels for
   tensors on the card, the plain loops on the CPU, differentiable either
   way.
@@ -107,8 +111,10 @@ def _conv_nhwc(x, conv: nn.Conv2d, dtype):
 
 
 def _layer_norm_f32(x, ln: nn.LayerNorm):
-    """``nn.LayerNorm(dtype=float32)``: statistics and output in fp32."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, ln.eps)
+    """``nn.LayerNorm(dtype=float32)``: statistics and output in fp32, the
+    scale and bias promoted to fp32 (exact) whatever their stored type."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(),
+                        ln.eps)
 
 
 def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -251,7 +257,9 @@ class SS2D(nn.Module):
         dts_r, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
         dts = torch.einsum("bklr,kdr->bkld", dts_r, self.dt_projs_weight.to(cdt))
 
-        As = -torch.exp(self.A_logs)  # (K*D, N) fp32
+        # (K*D, N) in A_logs' type, as the JAX package takes it: a bf16
+        # A_logs gives a bf16 A, which the scan promotes
+        As = -torch.exp(self.A_logs)
         ys = selective_scan_tm(
             xs, dts, As, Bs, Cs,
             D=self.Ds, delta_bias=self.dt_projs_bias.reshape(-1),
@@ -307,7 +315,7 @@ class ConvBranch(nn.Module):
         if not self.training:
             y = F.batch_norm(
                 x.float().permute(0, 3, 1, 2), bn.running_mean, bn.running_var,
-                bn.weight, bn.bias, False, bn.momentum, bn.eps)
+                bn.weight.float(), bn.bias.float(), False, bn.momentum, bn.eps)
             return y.permute(0, 2, 3, 1).to(self.dtype)
         x32 = x.float()
         mean = x32.mean(dim=(0, 1, 2))
@@ -317,7 +325,7 @@ class ConvBranch(nn.Module):
                 m = bn.momentum
                 bn.running_mean.mul_(1.0 - m).add_(m * mean)
                 bn.running_var.mul_(1.0 - m).add_(m * var)
-        y = (x32 - mean) * (torch.rsqrt(var + bn.eps) * bn.weight) + bn.bias
+        y = (x32 - mean) * (torch.rsqrt(var + bn.eps) * bn.weight.float()) + bn.bias.float()
         return y.to(self.dtype)
 
     def forward(self, x, update_stats: bool = True):
@@ -547,7 +555,7 @@ class VSSM(nn.Module):
         feats = x.mean(dim=(1, 2))  # (B, num_features)
         if self.head is None:
             return feats
-        return F.linear(feats.float(), self.head.weight, self.head.bias)
+        return _linear(feats, self.head, torch.float32)
 
 
 def medmamba(num_classes: int = 2, **kw) -> VSSM:

@@ -21,11 +21,12 @@ Two implementations:
   also writes the softmax residuals m and l of every row), and
   :func:`flash_attn_bwd_dkv` and :func:`flash_attn_bwd_dq`
   (``csrc/flash_attn_bwd.cu``, ``_flash_attention_dkv_kernel`` and
-  ``_flash_attention_dq_kernel``). Each has two bodies: bf16 runs every
-  product on the tensor cores (mma.sync with fp32 accumulators over bf16
-  tiles staged by cp.async), fp32 runs the CUDA cores, whose backward
-  recomputes the fp32 forward's scores bit for bit. Each wrapper launches
-  its kernel or raises, and counts its launches, in all and by body.
+  ``_flash_attention_dq_kernel``). Each has two bodies: bf16 and fp16 run
+  every product on the tensor cores (mma.sync with fp32 accumulators over
+  tiles staged by cp.async, one instance of the body a type), fp32 runs the
+  CUDA cores, whose backward recomputes the fp32 forward's scores bit for
+  bit. Each wrapper launches its kernel or raises, and counts its launches,
+  in all and by body. No type is cast to another to reach a kernel.
 
 :func:`flash_attention_interior` is what ``--attn-impl flash`` runs: the
 kernels for CUDA tensors, the plain versions for CPU tensors. Where a
@@ -58,7 +59,7 @@ __all__ = [
     "resolve_attn_flash",
 ]
 
-_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16", torch.float16: "f16"}
 _KERNEL_HEAD_DIMS = (32, 64, 128)
 _MASKED = -1e9  # the score of a masked key, as in the JAX einsum interior
 
@@ -127,10 +128,11 @@ def attention_plain_bwd(q, k, v, pad_mask, do, sm_scale: float, o=None):
 
 def _check_kernel_inputs(fn: str, tensors, key_mask, stats=None):
     """Refuse what the kernels do not take. ``tensors``: name -> q, k, v
-    (and do), all ``[B, T, h, hd]`` of one type, float32 or bfloat16, hd in
-    (32, 64, 128), 16-byte aligned; ``key_mask``: ``[B, T]`` bool or uint8
-    or None; ``stats``: name -> ``[B, h, T]`` float32. Every tensor
-    contiguous and on the CUDA device of q. Returns the mask as uint8."""
+    (and do), all ``[B, T, h, hd]`` of one type, float32, bfloat16 or
+    float16, hd in (32, 64, 128), 16-byte aligned; ``key_mask``: ``[B, T]``
+    bool or uint8 or None; ``stats``: name -> ``[B, h, T]`` float32. Every
+    tensor contiguous and on the CUDA device of q. Returns the mask as
+    uint8."""
     q = tensors["q"]
     if q.ndim != 4:
         raise ValueError(f"{fn}: q must be [B, T, h, hd], got {tuple(q.shape)}")
@@ -193,8 +195,8 @@ _launches_lock = threading.Lock()  # the two towers may be served from two threa
 
 def _count(wrapper, dtype) -> None:
     """One launch of ``wrapper``, under the body that ran it: the tensor
-    cores for bf16, the CUDA cores for fp32."""
-    body = "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+    cores for bf16 and fp16, the CUDA cores for fp32."""
+    body = "cuda_cores" if dtype == torch.float32 else "tensor_cores"
     with _launches_lock:
         wrapper.launches += 1
         wrapper.launches_by_body[body] += 1
@@ -203,15 +205,15 @@ def _count(wrapper, dtype) -> None:
 def flash_attn_fwd(q, k, v, key_mask=None, *, sm_scale: float, with_residuals: bool = False):
     """Launch the CUDA flash-attention forward on the current stream.
 
-    q, k, v: ``[B, T, h, hd]`` of one type, float32 or bfloat16, with hd in
-    (32, 64, 128); ``key_mask``: ``[B, T]`` bool or uint8 (nonzero =
-    attend) or None; every tensor contiguous and on one CUDA device, q, k
-    and v 16-byte aligned. Returns ``[B, T, h*hd]`` in q's type; with
+    q, k, v: ``[B, T, h, hd]`` of one type, float32, bfloat16 or float16,
+    with hd in (32, 64, 128); ``key_mask``: ``[B, T]`` bool or uint8
+    (nonzero = attend) or None; every tensor contiguous and on one CUDA
+    device, q, k and v 16-byte aligned. Returns ``[B, T, h*hd]`` in q's type; with
     ``with_residuals`` (training) also the softmax residuals of every row,
     its max score m and its sum l of ``exp(s - m)``, ``[B, h, T]`` fp32
     each. Counts each launch in ``flash_attn_fwd.launches``, and in
     ``flash_attn_fwd.launches_by_body`` under the body that ran it:
-    ``"tensor_cores"`` for bf16, ``"cuda_cores"`` for fp32.
+    ``"tensor_cores"`` for bf16 and fp16, ``"cuda_cores"`` for fp32.
     """
     mask_u8 = _check_kernel_inputs("flash_attn_fwd", {"q": q, "k": k, "v": v}, key_mask)
     B, T, h, hd = q.shape

@@ -18,6 +18,20 @@ out over a flat ``{parameter name: tensor}`` dict (``named_parameters``):
   ``set_to_zero`` in JAX) get a zero update and no decay, keep no moments
   and are left out of the clipping norm.
 
+Types, for the low-precision parameters of ``--precision bf16|pure_bf16|
+pure_fp16``: every step rounds where optax 0.2.6 rounds, so that a bf16 or
+fp16 leaf gets optax's update bit for bit. A Python constant (``1 - b1``,
+``b1``, ``eps``, the weight decay, ``max_norm``, the learning rate) is a
+weakly typed value in JAX, rounded to the type of the tensor it meets
+before the operation (PyTorch would apply it in fp32); the bias
+corrections ``1 - b**count`` are taken in fp32 and then cast to the
+moment's type (``optax.tree.bias_correction``); a leaf's sum of squares
+accumulates in fp32 and rounds to the leaf's type (``jnp.sum``), and the
+leaves' sums add in their promoted type. Two tensors of different types
+promote as ``jnp`` promotes them: fp32 gradients (the fp16 train step
+unscales by an fp32 scale) against fp16 moments give fp32 moments. The
+train step rounds ``p + u`` back to ``p``'s type (``optax.apply_updates``).
+
 The transform is functional like optax's: ``init(params)`` gives the
 state, ``update(grads, state, params)`` the additive updates and the next
 state; the train step adds the updates to the parameters in place.
@@ -25,6 +39,7 @@ state; the train step adds the updates to the parameters in place.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, Mapping, Optional
 
@@ -56,9 +71,31 @@ def merge_masks(a: Optional[Mapping[str, bool]],
     return {k: bool(a[k]) and bool(b[k]) for k in a}
 
 
+def _weak(x: float, like: torch.Tensor):
+    """The Python number ``x`` as JAX applies it to ``like``: rounded to
+    ``like``'s type. A 0-d tensor on the CPU, which takes no part in the
+    result's type and, beside a CUDA tensor, goes to the kernel as an
+    argument (no copy to the card). For fp32 the number itself does the
+    same, and stays a number."""
+    return x if like.dtype == torch.float32 else _scalar(float(x), like.dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _scalar(x: float, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to ``dtype`` as a 0-d CPU tensor, made once (the
+    optimizer's constants recur in every leaf and step; nothing writes
+    them)."""
+    if dtype == torch.float16:  # numpy rounds a double to fp16 once, as JAX does
+        return torch.from_numpy(np.asarray(x, np.float16))
+    return torch.tensor(x, dtype=dtype)
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """``optax.global_norm``: sqrt of the sum of squares of every entry."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    """``optax.global_norm``: sqrt of the sum of squares of every entry.
+    Each tensor's squares are rounded to its type and summed in fp32, the
+    sum rounded to its type (``jnp.sum``); the sums add in their promoted
+    type, the square root is taken in that type."""
+    return torch.sqrt(sum(torch.sum(t * t, dtype=torch.float32).to(t.dtype) for t in tensors))
 
 
 @dataclass
@@ -94,14 +131,17 @@ class AdamW:
         g = {k: grads[k] for k in names}
         if self.clip_norm is not None:
             norm = global_norm(g.values())
-            keep = norm < self.clip_norm
-            g = {k: torch.where(keep, t, (t / norm.to(t.dtype)) * self.clip_norm)
+            keep = norm < _weak(self.clip_norm, norm)
+            g = {k: torch.where(keep, t, (t / norm.to(t.dtype)) * _weak(self.clip_norm, t))
                  for k, t in g.items()}
         b1, b2 = self.b1, self.b2
-        mu = {k: (1 - b1) * g[k] + b1 * state.mu[k] for k in names}
-        nu = {k: (1 - b2) * g[k] ** 2 + b2 * state.nu[k] for k in names}
+        mu = {k: _weak(1 - b1, g[k]) * g[k] + _weak(b1, state.mu[k]) * state.mu[k]
+              for k in names}
+        nu = {k: _weak(1 - b2, g[k]) * (g[k] * g[k]) + _weak(b2, state.nu[k]) * state.nu[k]
+              for k in names}
         count = state.count + 1
-        # the bias corrections in fp32, as optax takes them
+        # the bias corrections in fp32, as optax takes them, then in the
+        # moment's type
         c1, c2 = (float(np.float32(1) - np.float32(b) ** np.float32(count)) for b in (b1, b2))
         lr = self.lr(state.count) if callable(self.lr) else self.lr
         decay = decay_mask(params)
@@ -110,10 +150,11 @@ class AdamW:
             if k not in mu:
                 updates[k] = torch.zeros_like(p)
                 continue
-            u = (mu[k] / c1) / (torch.sqrt(nu[k] / c2) + self.eps)
+            nu_hat = nu[k] / _weak(c2, nu[k])
+            u = (mu[k] / _weak(c1, mu[k])) / (torch.sqrt(nu_hat) + _weak(self.eps, nu_hat))
             if self.wd and decay[k]:
-                u = u + self.wd * p
-            updates[k] = -lr * u
+                u = u + _weak(self.wd, p) * p
+            updates[k] = _weak(-lr, u) * u
         return updates, AdamState(count=count, mu=mu, nu=nu)
 
 

@@ -46,7 +46,7 @@ from .schedules import create_schedule
 from .train import (TrainState, create_train_state, make_classifier_train_step,
                     make_clip_train_step, train_one_epoch)
 from .utils.logging import ResultsWriter, create_log_path, get_logger, logger_setup
-from .utils.precision import _POLICIES, get_policy
+from .utils.precision import get_policy
 
 logger = get_logger(__name__)
 
@@ -66,11 +66,6 @@ def check_ported(args: Args) -> None:
     if args.quant in ("int8", "int8_fwd"):
         raise _not_ported(f"--quant {args.quant} (the aqt library's numerics)", 7,
                           "Quantized modes")
-    policy = _POLICIES.get(args.precision)
-    if policy is not None and policy.param_dtype != torch.float32:
-        raise _not_ported(f"--precision {args.precision} (parameters kept in "
-                          f"{str(policy.param_dtype).replace('torch.', '')})", 11,
-                          "Low-precision parameters")
     if args.mesh_fsdp > 1 or args.mesh_model > 1:
         raise _not_ported(f"--mesh-fsdp {args.mesh_fsdp} --mesh-model {args.mesh_model}",
                           8, "Parallel layers")
@@ -236,9 +231,7 @@ def prepare_params(
             logger.info(f"Loaded pretrained CLIP weights from {args.pretrained}")
     # bf16/pure_bf16/pure_fp16 keep the parameters (and so the optimizer
     # moments) in the low-precision type; amp keeps fp32 masters
-    if policy.param_dtype != torch.float32:
-        for p in model.parameters():
-            p.data = policy.cast_to_param(p.data)
+    policy.cast_params(model)
 
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"Model parameters: {n_params / 1e6:.2f}M")

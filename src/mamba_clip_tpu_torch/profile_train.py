@@ -65,7 +65,7 @@ CLIP_TOTAL_STEPS = 10_000
 KERNEL_WRAPPERS = {
     "selective_scan_fwd": (selective_scan_fwd, "selective_scan_fwd_kernel"),
     "selective_scan_bwd": (selective_scan_bwd, "selective_scan_bwd_kernel"),
-    # both bodies: flash_attn_fwd_kernel (fp32) and flash_attn_fwd_bf16_kernel
+    # both bodies: flash_attn_fwd_kernel (fp32) and flash_attn_fwd_tc_kernel
     "flash_attn_fwd": (flash_attn_fwd, "flash_attn_fwd_"),
     "flash_attn_bwd_dkv": (flash_attn_bwd_dkv, "flash_attn_bwd_dkv_"),
     "flash_attn_bwd_dq": (flash_attn_bwd_dq, "flash_attn_bwd_dq_"),
@@ -73,16 +73,20 @@ KERNEL_WRAPPERS = {
 
 
 def medmamba_train_setup(batch: int, device="cuda", scan_impl=None, seed: int = 0,
-                         model_state=None, quant=None):
-    """Full-width medmamba (``amp``) with its train step, through
-    ``build_classifier``, ``create_schedule``, ``build_optimizer``,
-    ``create_train_state`` and ``make_classifier_train_step``; weights from
+                         model_state=None, quant=None, precision: str = "amp",
+                         **arg_overrides):
+    """Full-width medmamba (``precision``: ``amp`` unless asked; the
+    parameters in its type, as ``prepare_params`` keeps them) with its train
+    step, through ``build_classifier``, ``create_schedule``,
+    ``build_optimizer``, ``create_train_state`` and
+    ``make_classifier_train_step``; weights from
     ``seed`` (or ``model_state``), two uint8 batches with int targets made
     from a numpy seed and put on ``device``. ``quant``: the ``--quant``
     mode, its delayed scales (if any) set from the init batch as
-    ``prepare_params`` sets them. Returns (state, step_fn, batches)."""
-    policy = get_policy("amp")
-    args = SimpleNamespace(**TRAIN_ARGS)
+    ``prepare_params`` sets them. ``arg_overrides`` replace entries of
+    ``TRAIN_ARGS``. Returns (state, step_fn, batches)."""
+    policy = get_policy(precision)
+    args = SimpleNamespace(**{**TRAIN_ARGS, **arg_overrides})
     tcfg = get_transform_config(None, 224, is_train=True)
     model = build_classifier("medmamba", num_classes=2, dtype=policy.compute_dtype,
                              scan_impl=scan_impl, quant=quant,
@@ -92,6 +96,7 @@ def medmamba_train_setup(batch: int, device="cuda", scan_impl=None, seed: int = 
     model = model.to(device)
     if model_state is None:
         init_quant_state(model, 224, policy, stage=2, takes_text=False, device=device)
+    policy.cast_params(model)
     schedule = create_schedule(args, TOTAL_STEPS)
     tx = build_optimizer(args, schedule)
     state = create_train_state(model, tx, policy)
@@ -110,7 +115,8 @@ def clip_train_setup(batch: int, device="cuda", model_name: str = "biomedclip",
                      attn_impl: str = "flash", seed: int = 0, model_state=None,
                      grad_checkpointing: bool = False, precision: str = "amp",
                      quant=None, **arg_overrides):
-    """A full-width CLIP (``precision``: ``amp`` unless asked) with its
+    """A full-width CLIP (``precision``: ``amp`` unless asked; the
+    parameters in its type, as ``prepare_params`` keeps them) with its
     contrastive train step, through ``build_clip``, ``create_schedule``,
     ``build_optimizer``, ``create_train_state`` and
     ``make_clip_train_step``; weights from
@@ -131,6 +137,7 @@ def clip_train_setup(batch: int, device="cuda", model_name: str = "biomedclip",
     model = model.to(device)
     if model_state is None:
         init_quant_state(model, 224, policy, stage=1, takes_text=True, device=device)
+    policy.cast_params(model)
     schedule = create_schedule(args, CLIP_TOTAL_STEPS)
     tx = build_optimizer(args, schedule)
     state = create_train_state(model, tx, policy)

@@ -149,11 +149,17 @@ def _finish_step(state: TrainState, grads: Dict[str, torch.Tensor], tx, s: float
     with ``clamp`` the updated log logit scale is then clamped to
     [0, ln 100].
 
-    Dynamic path (fp16): a non-finite global norm skips the update (the
-    parameters and the optimizer state keep their values) and backs the
-    scale off; BatchNorm's statistics moved in the forward and stay moved.
-    Returns (new_state, grads, extra_metrics)."""
-    if s != 1.0:
+    Dynamic path (fp16): the JAX package divides by the scale as an fp32
+    array, so the unscaled gradients are fp32 whatever the parameters' type
+    (fp16 under ``pure_fp16``), and so are the moments they make. A
+    non-finite global norm skips the update (the parameters keep their
+    values, the moments too, in the type the update would have given them,
+    as ``jnp.where`` promotes them) and backs the scale off; BatchNorm's
+    statistics moved in the forward and stay moved. Returns (new_state,
+    grads, extra_metrics)."""
+    if dynamic:
+        grads = {k: g.float() / s for k, g in grads.items()}
+    elif s != 1.0:
         grads = {k: g / s for k, g in grads.items()}
     gnorm = global_norm(grads.values())
     extra = {"grad_norm": gnorm}
@@ -163,7 +169,12 @@ def _finish_step(state: TrainState, grads: Dict[str, torch.Tensor], tx, s: float
         extra.update(loss_scale=state.loss_scale.scale, skipped_steps=int(not finite))
         loss_scale = update_loss_scale(state.loss_scale, finite)
         if not finite:
-            return replace(state, step=state.step + 1, loss_scale=loss_scale), grads, extra
+            opt = state.opt_state
+            opt = replace(opt, **{name: {k: m.to(torch.promote_types(m.dtype, grads[k].dtype))
+                                         for k, m in getattr(opt, name).items()}
+                                  for name in ("mu", "nu")})
+            return (replace(state, step=state.step + 1, opt_state=opt, loss_scale=loss_scale),
+                    grads, extra)
     params = dict(state.model.named_parameters())
     updates, opt_state = tx.update(grads, state.opt_state, params)
     with torch.no_grad():
@@ -256,7 +267,9 @@ def make_clip_train_step(
     the loss is taken over the whole bank. Every forward of a step draws the
     same dropout stream. The micro-batches' gradients are summed, not
     averaged; the loss metric is their mean. After the step each
-    parameter's ``.grad`` holds the gradient the optimizer was given.
+    parameter's ``.grad`` holds the gradient the optimizer was given, in
+    the parameter's type (under ``pure_fp16`` the optimizer is given it in
+    fp32, unscaled, and ``.grad`` holds it rounded to fp16).
 
     ``--lock-image`` with ``--lock-image-freeze-bn-stats`` puts the visual
     tower's running statistics back after the step.
@@ -352,7 +365,7 @@ def make_clip_train_step(
         new_state, grads, extra = _finish_step(state, _collect_grads(params), tx, ls_, dyn,
                                                clamp=True)
         for k, p in params.items():
-            p.grad = grads[k]
+            p.grad = grads[k].to(p.dtype)
         metrics = {"loss": loss, "logit_scale": logit_scale, **extra}
         if getattr(args, "debug", False):
             metrics.update(_debug_grad_stats(params, grads))
@@ -395,7 +408,8 @@ def make_classifier_train_step(
 
     ``--accum-freq N`` splits the batch into N equal micro-batches and
     averages their gradients. After the step each parameter's ``.grad``
-    holds the gradient the optimizer was given (averaged, unscaled).
+    holds the gradient the optimizer was given (averaged, unscaled), in the
+    parameter's type.
     ``fn.calibrate_quant`` as :func:`make_clip_train_step`'s."""
     ls = policy.loss_scale
     holders, quant_keys = delayed_holders(model), set(delayed_scales(model))
@@ -446,7 +460,7 @@ def make_classifier_train_step(
 
         new_state, grads, extra = _finish_step(state, grads, tx, ls_, dyn)
         for k, p in params.items():
-            p.grad = grads[k]
+            p.grad = grads[k].to(p.dtype)
         metrics = {"loss": loss, **extra}
         if getattr(args, "debug", False):
             metrics.update(_debug_grad_stats(params, grads))

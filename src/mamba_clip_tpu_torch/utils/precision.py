@@ -64,6 +64,15 @@ class Policy:
             return tree.to(self.param_dtype)
         return tree
 
+    def cast_params(self, module: torch.nn.Module) -> torch.nn.Module:
+        """Keep ``module``'s parameters in ``param_dtype``, in place, as the
+        pipeline keeps them (bf16 under ``bf16``/``pure_bf16``, fp16 under
+        ``pure_fp16``); its buffers, BatchNorm's statistics among them,
+        stay as they are, as JAX casts ``params`` and not ``batch_stats``."""
+        for p in module.parameters():
+            p.data = self.cast_to_param(p.data)
+        return module
+
 
 _POLICIES = {
     "amp": Policy(torch.float32, torch.bfloat16, torch.float32),

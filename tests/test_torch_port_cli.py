@@ -206,9 +206,6 @@ def test_resume_latest_in_an_empty_logs_dir_starts_fresh(tiny, tmp_path):
 
 UNPORTED = {
     "quant": (["--quant", "int8"], 7),
-    "precision_bf16": (["--precision", "bf16"], 11),
-    "precision_pure_bf16": (["--precision", "pure_bf16"], 11),
-    "precision_pure_fp16": (["--precision", "pure_fp16"], 11),
     "mesh_fsdp": (["--mesh-fsdp", "2"], 8),
     "mesh_model": (["--mesh-model", "2"], 8),
     "local_loss": (["--local-loss"], 8),
@@ -225,6 +222,37 @@ def test_an_unported_flag_fails_first_naming_its_item(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1, item {item} "):
         main(argv)
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("flag", ["precision_bf16", "precision_pure_bf16",
+                                  "precision_pure_fp16"])
+def test_low_precision_runs_both_stages_as_jax_does(tiny, tmp_path, flag):
+    """``--precision bf16|pure_bf16|pure_fp16`` (once refused, ROADMAP item
+    11) through ``main()``: stage 1, then stage 2 finding it, beside JAX's
+    ``pipeline`` on the same flags and tiny towers. Both finish with finite
+    metrics of the same keys; the port's checkpoints keep the parameters in
+    the policy's type and the moments in the type JAX's optimizer gives
+    them (fp32 under pure_fp16, whose gradients are unscaled in fp32); the
+    stage-2 head and the stage-1 CLIP it holds as well."""
+    precision = flag[len("precision_"):]
+    want_param = {"bf16": torch.bfloat16, "pure_bf16": torch.bfloat16,
+                  "pure_fp16": torch.float16}[precision]
+    want_moment = torch.float32 if precision == "pure_fp16" else want_param
+    extra = ("--precision", precision, "--eps", "1e-4")
+    for stage in ("1", "2"):
+        want = jpipe.pipeline(jcfg.parse_args(_argv(tmp_path / "jax", "--stage", stage, *extra)))
+        got = main(_argv(tmp_path / "port", "--stage", stage, *extra))
+        assert set(got) == set(want) == (STAGE1_KEYS if stage == "1" else STAGE2_KEYS)
+        assert all(np.isfinite(v) for v in (got["val_loss"], want["val_loss"]))
+    runs = sorted(os.listdir(tmp_path / "port"))
+    assert len(runs) == 2 and all(r.endswith(f"-p_{precision}") for r in runs)
+    for run, tag in zip(runs, ("stage_1", "stage_2")):
+        saved = torch.load(os.path.join(tmp_path, "port", run, "checkpoints",
+                                        f"{tag}_epoch_latest", "state.pt"), weights_only=True)
+        assert {t.dtype for t in saved["params"].values()} == {want_param}
+        assert {t.dtype for t in saved["opt_state"]["mu"].values()} == {want_moment}
+        assert {t.dtype for t in saved["batch_stats"].values() if t.is_floating_point()} <= {
+            torch.float32}
 
 
 @pytest.mark.parametrize("device", ["auto", "cuda", None])

@@ -131,7 +131,7 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="head dim 48"):
         tfa.flash_attn_fwd(q48, k48, v48, sm_scale=0.125)
     with pytest.raises(ValueError, match="one type"):
-        tfa.flash_attn_fwd(q.half(), k.half(), v.half(), sm_scale=0.125)
+        tfa.flash_attn_fwd(q.double(), k.double(), v.double(), sm_scale=0.125)
     with pytest.raises(ValueError, match="key_mask"):
         tfa.flash_attn_fwd(q, k, v, torch.ones(2, 15, dtype=torch.bool), sm_scale=0.125)
     with pytest.raises(ValueError, match="shape"):
@@ -144,7 +144,7 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
     assert tfa.flash_attn_fwd.launches == 0
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 def test_flash_interior_takes_the_plain_interior_on_cpu(dtype):
     q, k, v = _tensors(T=33, dtype=dtype)
     mask = torch.from_numpy(_mask(2, 33, "nonprefix", seed=9))

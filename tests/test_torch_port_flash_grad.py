@@ -233,9 +233,9 @@ def _refused(case):
     q, k, v, km, do, m, l, di = _bwd_args()
     if case == "device":       # a CPU tensor: the kernels run on the card only
         return (q, k, v, km, do, m, l, di), "expected the CUDA device"
-    if case == "dtype":        # fp16, or two types at once
-        half = [t.half() for t in (q, k, v, do)]
-        return (*half[:3], km, half[3], m, l, di), "one type"
+    if case == "dtype":        # float64, a type with no instance, or two types at once
+        wide = [t.double() for t in (q, k, v, do)]
+        return (*wide[:3], km, wide[3], m, l, di), "one type"
     if case == "dtype_mixed":
         return (q, k, v, km, do.bfloat16(), m, l, di), "one type"
     if case == "head_dim":     # no instance outside 32, 64, 128
@@ -255,7 +255,7 @@ def _refused(case):
                          ids=["dkv", "dq"])
 def test_backward_wrapper_refuses_and_counts_no_launch(wrapper, case):
     """Each backward wrapper counts its launches by body, as the forward's
-    does (the tensor cores run bf16, the CUDA cores fp32), and a refused
+    does (the tensor cores run bf16 and fp16, the CUDA cores fp32), and a refused
     call, as every call on the CPU is, leaves both counts as they were."""
     assert set(wrapper.launches_by_body) == {"tensor_cores", "cuda_cores"}
     before = (wrapper.launches, dict(wrapper.launches_by_body))
