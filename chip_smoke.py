@@ -310,7 +310,36 @@ on failure:
    64 rows bit for bit ``make_serving_fns`` on the same state (the
    compressed one given the decompressed weights), 12 flash launches a
    call. Prints a ``precision`` JSON line;
-19. prints the kernels line (twelve entries: the two scan kernels, the
+19. the aqt modes (``--quant int8`` and ``int8_fwd``), every count set to
+   0 just before each driven call and read just after: (a) the dots of
+   ``ops/aqt.py`` (the forward, ``int8``'s two backward dots and
+   ``int8_fwd``'s unquantized backward) on the same fp32 inputs on the card
+   and on the CPU at the ViT's qkv Dense (64 x 197 rows of 768 -> 2304):
+   the int8 operands and int32 accumulators equal bit for bit, the outputs
+   within rel 1e-6 (int8_fwd's backward, fp32 GEMMs summed in another
+   order on each device, 1e-5); (b) the contrastive step of full-width
+   BiomedCLIP at batch 64, amp, ``attn_impl="flash"``, under each mode: 2 +
+   3 steps, 24 + 24 + 24 flash launches a step on the tensor cores, finite
+   losses (the first within [3, 6]), ms a step beside phase 10's amp step;
+   (c) the full-width medmamba step under each mode: 1 + 3 steps, 14 + 14
+   scan launches a step, ms beside phase 6's; (d) the CLI's Drive recipe
+   under ``--quant int8``: stage 1 (2 steps of 24 + 24 + 24) and stage 2
+   finding it (2 steps of 24 + 0 + 0). Prints an ``aqt`` JSON line;
+20. the data axis: two gloo ranks, each a process of its own on the one
+   card (NCCL refuses two ranks on one device), run the full-width
+   contrastive step with flash at 32 rows a rank from the same weights and
+   seeds as one process at 64 rows, with ``--local-loss`` off and on: the
+   ranks' losses and parameters identical, the losses and a parameter
+   digest (every 997th entry of each leaf) after 2 steps within 2^-7 of
+   one process's (amp; the digest relative to its largest entry), 24 +
+   24 + 24 flash launches a rank and a step on the tensor cores; ms a step
+   and the collectives' ms (two ranks share one card: not a scaling
+   number); that gloo takes CUDA tensors for all_reduce, broadcast and
+   all_gather as they are (the port hands it the card's tensors, so a
+   refusal fails the phase). The one process runs in a one-rank NCCL
+   world, which also runs the collective helpers and ``broadcast_object``
+   on the card's tensors. Prints a ``data_axis`` JSON line;
+21. prints the kernels line (twelve entries: the two scan kernels, the
    roofline's chain kernel, and each flash kernel as three entries, one a
    body and type: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
@@ -322,8 +351,9 @@ on failure:
    version and the library's, with its bound from the data sheet and from
    the ceilings phase 11 measured, its shares of both, and its instances;
    the forward's tensor-core entries are serving's pair, their training
-   launches under ``training``; each scan entry with its instances), then
-   the device line last.
+   launches under ``training``; each scan entry with its instances; the
+   launches include phases 19 and 20's, those of phase 20's rank processes
+   counted there), then the device line last.
 
 Phases 1-10 run at the depth and iteration counts they had before phases
 11-13 were added.
@@ -2169,6 +2199,429 @@ def precision_phase(card, reset_counts, read_counts, flash_bodies, amp):
     return line, total, total_bodies, fp16_launches
 
 
+def aqt_phase(card, reset_counts, read_counts, flash_bodies, amp):
+    """Phase 19: the aqt modes (``--quant int8`` and ``int8_fwd``), each gate
+    as the module docstring says. ``amp``: this run's unquantized yardsticks
+    (phase 10's contrastive step with flash, phase 6's medmamba step, in
+    ms). Every count is set to 0 just before each driven call and read just
+    after. Returns (the ``aqt`` line's fields, those calls' launches by
+    counter, their flash launches by body)."""
+    import numpy as np
+    import torch
+
+    from mamba_clip_tpu_torch.ops import aqt
+    from mamba_clip_tpu_torch.profile_train import clip_train_setup, medmamba_train_setup
+
+    total = {k: 0 for k in read_counts()}
+    total_bodies = {k: {"tensor_cores": 0, "cuda_cores": 0} for k in ("fwd", "dkv", "dq")}
+    line = {"card": card}
+
+    def counted(what, fn, want):
+        """``fn()`` between a reset and a read of every count; fails unless
+        the launches are ``want``, the flash ones all on the tensor cores."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts, bodies = read_counts(), flash_bodies()
+        full = {k: want.get(k, 0) for k in counts}
+        want_bodies = {k: {"tensor_cores": full[k], "cuda_cores": 0} for k in total_bodies}
+        if counts != full or bodies != want_bodies:
+            fail(f"aqt {what}: launches {counts}, by body {bodies}; expected {full}")
+        for k in total:
+            total[k] += counts[k]
+        for k, by in bodies.items():
+            for body, c in by.items():
+                total_bodies[k][body] += c
+        return out
+
+    # (a) the dots at the ViT qkv Dense's shape (64 x 197 rows of 768 -> 2304),
+    # the same fp32 inputs on the card and on the CPU
+    gen = torch.Generator().manual_seed(19)
+    lhs = torch.randn(64, 197, 768, generator=gen)
+    rhs = torch.randn(768, 2304, generator=gen) * 0.03
+    g = torch.randn(64, 197, 2304, generator=gen)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        a, b, c = lhs.to(dev), rhs.to(dev), g.to(dev)
+        out, ql, sl, qr, sr = aqt.fwd_dot(a, b)
+        acc = aqt.int_mm(ql.reshape(-1, 768), qr)
+        dl, qgl, accl = aqt.dlhs_dot(c, qr, sr)
+        dr, qgr, accr = aqt.drhs_dot(c, ql, sl)
+        fl = aqt.aqt_int8_fwd_dot(a.clone().requires_grad_(), b.clone().requires_grad_())
+        al, bl = a.clone().requires_grad_(), b.clone().requires_grad_()
+        aqt.aqt_int8_fwd_dot(al, bl).backward(c)
+        res[dev] = ({"lhs8": ql, "rhs8": qr, "acc": acc, "dlhs_g8": qgl, "dlhs_acc": accl,
+                     "drhs_g8": qgr, "drhs_acc": accr},
+                    {"out": out, "dlhs": dl, "drhs": dr, "fwd_only_out": fl.detach(),
+                     "fwd_only_dlhs": al.grad, "fwd_only_drhs": bl.grad})
+        res[dev] = tuple({k: t.detach().cpu() for k, t in d.items()} for d in res[dev])
+    (ic, fc), (ig, fg) = res["cpu"], res["cuda"]
+    unequal = [k for k in ic if not torch.equal(ic[k], ig[k])]
+    rels = {k: float((fg[k] - fc[k]).abs().max() / fc[k].abs().max()) for k in fc}
+    # int8_fwd's backward: two fp32 GEMMs, summed in another order on each
+    # device; everything else is the same roundings on both
+    bounds = {k: SERVE_GRAD_REL if k.startswith("fwd_only_d") else DOT_REL for k in fc}
+    bad = [k for k in rels if rels[k] > bounds[k]]
+    line["dots"] = {"int8_and_int32_equal": not unequal, "rel": rels, "bounds": bounds,
+                    "bit_equal": {k: torch.equal(fc[k], fg[k]) for k in fc},
+                    "max_abs_int32": max(int(ic[k].abs().max()) for k in ic
+                                         if ic[k].dtype == torch.int32)}
+    say(f"aqt dots at 64 x 197 x 768 -> 2304: int8 operands and int32 accumulators "
+        f"{'equal' if not unequal else 'DIFFER: ' + str(unequal)} ({sorted(ic)}); rel "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rels.items()))
+    if unequal or bad:
+        fail(f"aqt dots: the card differs from the CPU: int8/int32 {unequal}, rel {rels} "
+             f"against {bounds}")
+    del lhs, rhs, g, res, ic, fc, ig, fg
+
+    # (b) the contrastive step of full-width BiomedCLIP, amp, flash
+    per = {"fwd": 24, "dkv": 24, "dq": 24}
+    steps_line = {}
+    for quant in ("int8", "int8_fwd"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, step_fn, batches = clip_train_setup(64, quant=quant)
+        metrics = []
+
+        def run(st, k):
+            for i in range(k):
+                st, m = step_fn(st, batches[i % 2], 0)
+                metrics.append(m)
+            return st
+
+        torch.cuda.reset_peak_memory_stats()
+        state = counted(f"clip {quant} 2 steps", lambda: run(state, 2),
+                        {k: 2 * c for k, c in per.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = counted(f"clip {quant} 3 timed steps", lambda: run(state, 3),
+                        {k: 3 * c for k, c in per.items()})
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        losses = [float(m["loss"]) for m in metrics]
+        gn = [float(m["grad_norm"]) for m in metrics]
+        if not all(np.isfinite(x) for x in losses + gn) or not 3.0 <= losses[0] <= 6.0:
+            fail(f"aqt clip {quant}: losses {losses}, grad norms {gn} (the first loss "
+                 "within [3, 6])")
+        dots = sum(1 for m in state.model.modules() if isinstance(m, aqt._DenseDotGeneral))
+        steps_line[quant] = {"ms_per_step": ms, "amp_ms_per_step": amp["clip_flash_ms"],
+                             "ratio": ms / amp["clip_flash_ms"], "losses": losses,
+                             "grad_norms": gn, "aqt_dots": dots,
+                             "peak_bytes": torch.cuda.max_memory_allocated()}
+        say(f"aqt clip step {quant} (flash): {ms:.2f} ms a step against amp "
+            f"{amp['clip_flash_ms']:.2f} ({ms / amp['clip_flash_ms']:.2f}x); {dots} aqt dots; "
+            f"losses {[round(x, 5) for x in losses]}; 24 + 24 + 24 flash launches a step")
+        del state, step_fn, batches, metrics
+    line["clip_steps"] = steps_line
+
+    # (c) the medmamba classifier step
+    mm_line = {}
+    for quant in ("int8", "int8_fwd"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        state, step_fn, batches = medmamba_train_setup(64, quant=quant)
+        metrics = []
+
+        def run_mm(st, k):
+            for i in range(k):
+                st, m = step_fn(st, batches[i % 2], 0)
+                metrics.append(m)
+            return st
+
+        state = counted(f"medmamba {quant} warm-up", lambda: run_mm(state, 1),
+                        {"scan_fwd": 14, "scan_bwd": 14})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = counted(f"medmamba {quant} 3 timed steps", lambda: run_mm(state, 3),
+                        {"scan_fwd": 42, "scan_bwd": 42})
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        losses = [float(m["loss"]) for m in metrics]
+        if not all(np.isfinite(x) for x in losses):
+            fail(f"aqt medmamba {quant}: losses {losses}")
+        mm_line[quant] = {"ms_per_step": ms, "amp_ms_per_step": amp["medmamba_ms"],
+                          "ratio": ms / amp["medmamba_ms"], "losses": losses}
+        say(f"aqt medmamba step {quant}: {ms:.2f} ms a step against amp "
+            f"{amp['medmamba_ms']:.2f} ({ms / amp['medmamba_ms']:.2f}x); losses "
+            f"{[round(x, 5) for x in losses]}; 14 + 14 scan launches a step")
+        del state, step_fn, batches, metrics
+    line["medmamba_steps"] = mm_line
+
+    # (d) the CLI's Drive recipe under --quant int8, both stages
+    work = tempfile.mkdtemp(prefix="chip_smoke_aqt_")
+    try:
+        logs = os.path.join(work, "logs")
+        drive = ["--synthetic-data", "--train-num-samples", "128", "--val-num-samples", "64",
+                 "--batch-size", "64", "--epochs", "1", "--warmup", "2", "--lr", "1e-4",
+                 "--precision", "amp", "--log-every-n-steps", "1", "--grad-clip-norm", "1.0",
+                 "--attn-impl", "flash", "--logs", logs, "--tokenizer", "hash",
+                 "--quant", "int8"]
+        counters = (reset_counts, read_counts, flash_bodies)
+        s1 = run_cli(counters, "stage 1 --quant int8", drive + ["--stage", "1"])
+        check_cli_steps(s1, "stage 1 --quant int8", 2, per, {"fwd": 24}, eval_batches=1)
+        s2 = run_cli(counters, "stage 2 --quant int8", drive + ["--stage", "2", "--name", "s2"])
+        check_cli_steps(s2, "stage 2 --quant int8", 2, {"fwd": 24}, {"fwd": 24},
+                        eval_batches=1)
+        for rec in (s1, s2):
+            for k in total:
+                total[k] += rec["total"][k]
+            for k, by in rec["total_bodies"].items():
+                for body, c in by.items():
+                    total_bodies[k][body] += c
+        line["cli"] = {"stage1_wall_s": s1["wall_s"], "stage2_wall_s": s2["wall_s"],
+                       "stage1_losses": [st["loss"] for st in s1["steps"]],
+                       "stage2_losses": [st["loss"] for st in s2["steps"]],
+                       "stage1_val_loss": s1["metrics"]["val_loss"],
+                       "stage2_partial_auc": s2["metrics"]["partial_auc"]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return line, total, total_bodies
+
+
+def _axis_rank(rank, world, port, backend, modes, q):
+    """One rank of phase 20, in a process of its own on the one card: the
+    contrastive step over the data axis (``--local-loss`` off and on) at 32
+    rows a rank, its collectives timed apart, and which collectives the
+    backend takes CUDA tensors for as they are. Puts (rank, result, error)
+    on ``q``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(SRC))
+        logging.disable(logging.INFO)
+        import numpy as np
+        import torch
+        import torch.distributed as dist
+
+        from mamba_clip_tpu_torch.ops.flash_attn import (flash_attn_bwd_dkv, flash_attn_bwd_dq,
+                                                         flash_attn_fwd)
+        from mamba_clip_tpu_torch.parallel import collectives as coll
+        from mamba_clip_tpu_torch.parallel.mesh import create_mesh
+        from mamba_clip_tpu_torch.profile_train import clip_train_setup
+
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world)
+        out = {"backend": backend}
+        # does the backend take CUDA tensors as they are?
+        raw = {}
+        for name, fn in (("all_reduce", lambda t: dist.all_reduce(t)),
+                         ("broadcast", lambda t: dist.broadcast(t, src=0)),
+                         ("all_gather", lambda t: dist.all_gather(
+                             [torch.empty_like(t) for _ in range(world)], t))):
+            try:
+                fn(torch.ones(4, device="cuda"))
+                torch.cuda.synchronize()
+                raw[name] = True
+            except Exception as e:  # the answer is the finding
+                raw[name] = f"{type(e).__name__}: {str(e)[:120]}"
+        out["cuda_tensors_taken"] = raw
+        mesh = create_mesh()
+        wrappers = {"fwd": flash_attn_fwd, "dkv": flash_attn_bwd_dkv, "dq": flash_attn_bwd_dq}
+        per_rank = 64 // world
+        for local in modes:
+            state, step_fn, batches = clip_train_setup(64, mesh=mesh, local_loss=local)
+            mine = [{k: v[rank * per_rank:(rank + 1) * per_rank] for k, v in b.items()}
+                    for b in batches]
+            losses, gns = [], []
+            for w in wrappers.values():
+                w.launches = 0
+                for body in w.launches_by_body:
+                    w.launches_by_body[body] = 0
+            for i in range(2):
+                state, m = step_fn(state, mine[i], 0)
+                losses.append(float(m["loss"]))
+                gns.append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            counts = {k: w.launches for k, w in wrappers.items()}
+            bodies = {k: dict(w.launches_by_body) for k, w in wrappers.items()}
+            digest = param_digest(state.model)
+            # one timed step, then one with every collective timed apart
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step_fn(state, mine[0], 0)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            spent = {"ms": 0.0, "calls": 0}
+            real = {n: getattr(coll, n) for n in ("all_reduce_", "all_gather_")}
+
+            def timed(fn):
+                def wrapped(*a, **kw):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    r = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                    spent["ms"] += (time.perf_counter() - t) * 1e3
+                    spent["calls"] += 1
+                    return r
+                return wrapped
+
+            for n, f in real.items():
+                setattr(coll, n, timed(f))
+            try:
+                state, _ = step_fn(state, mine[1], 0)
+            finally:
+                for n, f in real.items():
+                    setattr(coll, n, f)
+            torch.cuda.synchronize()
+            out[local] = {"losses": losses, "grad_norms": gns, "digest": digest,
+                          "counts": counts, "bodies": bodies, "ms_per_step": step_ms,
+                          "collectives_ms": spent["ms"], "collective_calls": spent["calls"]}
+            del state, step_fn, batches, mine
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.destroy_process_group()
+        q.put((rank, out, None))
+    except BaseException:
+        q.put((rank, None, traceback.format_exc()))
+
+
+def param_digest(model, stride: int = 997):
+    """Every ``stride``-th entry of each parameter, in fp32, as one numpy
+    vector: what phase 20 compares across ranks and with one process."""
+    import torch
+
+    with torch.no_grad():
+        return torch.cat([p.detach().float().flatten()[::stride]
+                          for p in model.parameters()]).cpu().numpy()
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(world, backend, modes=(False, True), timeout=600):
+    """``_axis_rank`` on ``world`` processes (spawned, on a free local
+    port), each joined with a timeout of its own; their results by rank."""
+    import multiprocessing as mp
+
+    port = free_port()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_axis_rank, args=(r, world, port, backend, modes, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    out, errs = {}, []
+    try:
+        for _ in range(world):
+            rank, res, err = q.get(timeout=max(deadline - time.monotonic(), 1.0))
+            if err:
+                errs.append(f"rank {rank}: {err}")
+            out[rank] = res
+    except Exception as e:
+        errs.append(f"{type(e).__name__}: {e}")
+    finally:
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errs:
+        fail(f"{backend} ranks: " + "\n".join(errs))
+    return [out[r] for r in range(world)]
+
+
+def axis_phase(card):
+    """Phase 20: the data axis, as the module docstring says. Returns (the
+    ``data_axis`` line's fields, the two-rank steps' flash launches by
+    kernel (both ranks), by body)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mamba_clip_tpu_torch.parallel import collectives as coll
+    from mamba_clip_tpu_torch.parallel.mesh import broadcast_object, create_mesh
+    from mamba_clip_tpu_torch.profile_train import clip_train_setup
+
+    line = {"card": card, "note": "two gloo ranks share one card: not a scaling number"}
+    gate = CLIP_TRAIN_REL
+    # one process at 64 rows, from the same weights and seeds, the reference
+    # of both (in one process --local-loss changes nothing); it runs in a
+    # one-rank NCCL world, which also takes the collective helpers on the
+    # card's tensors
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        mesh = create_mesh()
+        state, step_fn, batches = clip_train_setup(64, mesh=mesh)
+        losses = []
+        for i in range(2):
+            state, m = step_fn(state, batches[i], 0)
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step_fn(state, batches[0], 0)
+        torch.cuda.synchronize()
+        one = {"losses": losses, "ms_per_step": (time.perf_counter() - t0) * 1e3,
+               "digest": param_digest(state.model)}
+        t = torch.arange(6, device="cuda", dtype=torch.float32)
+        coll.all_reduce_(t)
+        g = coll.all_gather_(t, 1)
+        helpers = (torch.equal(g[0], t) and broadcast_object("rank 0's") == "rank 0's"
+                   and dist.get_backend() == "nccl")
+    finally:
+        dist.destroy_process_group()
+    del state, step_fn, batches
+    if not helpers or not all(np.isfinite(one["losses"])):
+        fail(f"nccl one-rank world: helpers {helpers}, losses {one['losses']}")
+    line["nccl_one_rank"] = {"losses": one["losses"], "ms_per_step": one["ms_per_step"]}
+    say(f"data axis: one NCCL rank: losses {one['losses']}, {one['ms_per_step']:.1f} ms a "
+        "step; the collective helpers through nccl on the card's tensors")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(2, "gloo")
+    launches = {k: 0 for k in ("fwd", "dkv", "dq")}
+    bodies = {k: {"tensor_cores": 0, "cuda_cores": 0} for k in launches}
+    for local in (False, True):
+        r0, r1 = ranks[0][local], ranks[1][local]
+        ref = one
+        # amp: bf16 activations whose sums run in another order over two
+        # ranks (the gathered features, the all-reduced gradients)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"]))
+        dig = [float(np.abs(r0["digest"] - ref["digest"]).max() / np.abs(ref["digest"]).max())]
+        same = (np.array_equal(r0["digest"], r1["digest"])
+                and r0["losses"] == r1["losses"])
+        want = {k: 2 * 24 for k in launches}
+        for r in (r0, r1):
+            if r["counts"] != want or any(r["bodies"][k]["cuda_cores"] for k in launches):
+                fail(f"data axis local_loss={local}: a rank launched {r['counts']} "
+                     f"({r['bodies']}), expected {want} on the tensor cores")
+            for k in launches:
+                launches[k] += r["counts"][k]
+                for body, c in r["bodies"][k].items():
+                    bodies[k][body] += c
+        line[f"local_loss_{local}"] = {
+            "losses_two_ranks": r0["losses"], "losses_one_process": ref["losses"],
+            "loss_rel": loss_rel, "digest_rel_max": max(dig), "ranks_identical": same,
+            "ms_per_step_two_ranks": [r0["ms_per_step"], r1["ms_per_step"]],
+            "ms_per_step_one_process": ref["ms_per_step"],
+            "collectives_ms_per_step": [r0["collectives_ms"], r1["collectives_ms"]],
+            "collective_calls_per_step": r0["collective_calls"]}
+        say(f"data axis local_loss={local}: 2 gloo ranks x 32 against one process x 64: "
+            f"losses {[round(x, 5) for x in r0['losses']]} / "
+            f"{[round(x, 5) for x in ref['losses']]} (rel {loss_rel:.2e}), parameter "
+            f"digest rel {max(dig):.2e}, ranks identical {same}; {r0['ms_per_step']:.1f} ms a "
+            f"step a rank ({r0['collectives_ms']:.1f} ms of it in {r0['collective_calls']} "
+            f"collectives) against {ref['ms_per_step']:.1f} ms in one process")
+        if not same or loss_rel > gate or max(dig) > gate:
+            fail(f"data axis local_loss={local}: loss rel {loss_rel:.2e}, digest rel "
+                 f"{max(dig):.2e} (bound 2^-7), ranks identical {same}")
+    taken = line["gloo_cuda_tensors_taken"] = ranks[0]["cuda_tensors_taken"]
+    if any(v is not True for v in taken.values()):
+        fail(f"gloo refused CUDA tensors: {taken}")
+    say(f"data axis: gloo takes CUDA tensors as they are: {taken} "
+        "(the port hands gloo the card's tensors)")
+    return line, launches, bodies
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one card.")
     ap.add_argument("--clip-check-seeds", type=int, nargs="+", default=None,
@@ -3794,7 +4247,29 @@ def main(argv=None) -> None:
          "clip_peak": clip_peak, "clip_before": base_mem})
     say(json.dumps({"precision": prec_line}))
 
-    # 19. kernels line, then the device line. Each attention kernel as three
+    # 19. the aqt modes: the dots on the card against the CPU, the contrastive
+    # and medmamba steps under int8 and int8_fwd, and the CLI's recipe under
+    # --quant int8, through the flash and scan kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    t19 = time.perf_counter()
+    aqt_line, aqt_launches, aqt_bodies = aqt_phase(
+        card, reset_counts, read_counts, flash_bodies,
+        {"medmamba_ms": step_ms, "clip_flash_ms": clip_ms})
+    aqt_line["phase_s"] = time.perf_counter() - t19
+    say(json.dumps({"aqt": aqt_line}))
+
+    # 20. the data axis: two gloo ranks on the card against one process, and
+    # a one-rank NCCL world in this process (the gloo ranks each a process of
+    # its own, their launches counted there)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t20 = time.perf_counter()
+    axis_line, _, axis_bodies = axis_phase(card)
+    axis_line["phase_s"] = time.perf_counter() - t20
+    say(json.dumps({"data_axis": axis_line}))
+
+    # 21. kernels line, then the device line. Each attention kernel as three
     # entries, one a body and type: the tensor cores in bf16 (what serving and
     # training under amp and pure_bf16 run, its launches from the main path),
     # the tensor cores in fp16 (training under fp16 and pure_fp16, its
@@ -3813,17 +4288,18 @@ def main(argv=None) -> None:
                    "clip_train_accum2_checkpointed": accum_bodies,
                    "medmamba_clip_train": mm_train_bodies, "clip_train_fp32": fp32_bodies,
                    "cli": cli_bodies, "serving_http": http_bodies, "real_data": real_bodies,
-                   "quant": quant_bodies,
+                   "quant": quant_bodies, "aqt": aqt_bodies, "data_axis": axis_bodies,
                    # phase 18's bf16 launches; its fp16 ones are the fp16 entries'
                    "precision": {k: {"tensor_cores": by["tensor_cores"] - fp16_launches[k],
                                      "cuda_cores": by["cuda_cores"]}
                                  for k, by in prec_bodies.items()}}
     main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2", "cli",
-                          "serving_http", "real_data", "quant", "precision"),
+                          "serving_http", "real_data", "quant", "precision", "aqt",
+                          "data_axis"),
                   "dkv": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
-                          "precision"),
+                          "precision", "aqt", "data_axis"),
                   "dq": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
-                         "precision")}
+                         "precision", "aqt", "data_axis")}
     flash_launches = {key: {"tensor_cores": sum(flash_paths[p][key]["tensor_cores"]
                                                 for p in paths),
                             "tensor_cores_fp16": fp16_launches[key],
@@ -3913,13 +4389,14 @@ def main(argv=None) -> None:
         "replaces": "src/mamba_clip_tpu/ops/selective_scan.py:194",
         "launches": (launches + train_fwd + cli_launches["scan_fwd"]
                      + http_launches["scan_fwd"] + quant_launches["scan_fwd"]
-                     + prec_launches["scan_fwd"]),
+                     + prec_launches["scan_fwd"] + aqt_launches["scan_fwd"]),
         "launches_by_path": {"serve": launches, "train": train_fwd, "clip_serve": clip_scans,
                              "medmamba_clip_image_embed": mm_launches["image_embed"]["scan"],
                              "cli": cli_launches["scan_fwd"],
                              "serving_http": http_launches["scan_fwd"],
                              "quant": quant_launches["scan_fwd"],
-                             "precision": prec_launches["scan_fwd"]},
+                             "precision": prec_launches["scan_fwd"],
+                             "aqt": aqt_launches["scan_fwd"]},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": fwd_k,
@@ -3934,12 +4411,13 @@ def main(argv=None) -> None:
         "source": "src/mamba_clip_tpu_torch/csrc/selective_scan_bwd.cu",
         "replaces": "src/mamba_clip_tpu/ops/selective_scan.py:243",
         "launches": (train_bwd + cli_launches["scan_bwd"] + quant_launches["scan_bwd"]
-                     + prec_launches["scan_bwd"]),
+                     + prec_launches["scan_bwd"] + aqt_launches["scan_bwd"]),
         "launches_by_path": {"serve": serve_bwd, "train": train_bwd,
                              "cli": cli_launches["scan_bwd"],
                              "serving_http": http_launches["scan_bwd"],
                              "quant": quant_launches["scan_bwd"],
-                             "precision": prec_launches["scan_bwd"]},
+                             "precision": prec_launches["scan_bwd"],
+                             "aqt": aqt_launches["scan_bwd"]},
         "max_abs_err": bwd_abs,
         "max_rel_err": bwd_rel,
         "ms": bwd_k_step,

@@ -8,11 +8,12 @@ JAX package's. Run on the card (the default ``--device auto``) or, with
     python -m mamba_clip_tpu_torch.cli.main --data-path data/isic-2024-challenge/ --stage 1 ...
     python -m mamba_clip_tpu_torch.cli.main --synthetic-data --stage 1 ...
 
-``--quant`` takes the five native int8 modes (``int8_fast``,
-``int8_fast_attn``, ``int8_delayed``, ``int8_delayed_attn``,
-``int8_serve``); ``int8`` and ``int8_fwd`` (the aqt library's numerics)
-and ``--hyperparameter-tuning`` (the optuna, ray and ASHA searches) are
-not ported yet: ``pipeline`` refuses them.
+``--quant`` takes every mode: the five native int8 modes and the aqt
+modes ``int8`` and ``int8_fwd`` (``ops/aqt.py``). Ranks: ``torchrun
+--nproc-per-node N -m mamba_clip_tpu_torch.cli.main ...`` runs the data
+axis over N processes (``parallel/mesh.py``). ``--hyperparameter-tuning``
+(the optuna, ray and ASHA searches) is not ported yet: ``pipeline``
+refuses it, as it refuses ``--mesh-fsdp``/``--mesh-model`` above 1.
 """
 
 from __future__ import annotations

@@ -156,7 +156,7 @@ class Args:
 
     # -- distributed ---------------------------------------------------------
     dist_url: str = "env://"
-    dist_backend: str = "jax"  # the JAX package's default, kept; ignored here
+    dist_backend: str = "jax"  # JAX's default, kept: nccl on the card, gloo on the CPU
     distributed: bool = False
     ddp_static_graph: bool = False
     no_set_device_rank: bool = False
@@ -201,14 +201,11 @@ IGNORED_FLAGS = {
     "torchcompile": "the steps are eager PyTorch with hand-written kernels; "
                     "nothing is compiled by torch.compile",
     "use_bnb_linear": "bitsandbytes is not used; the int8 modes are --quant",
-    "use_bn_sync": "SyncBatchNorm is a DDP construct; the port runs one "
-                   "process",
+    "use_bn_sync": "BatchNorm always takes the global batch's statistics "
+                   "across the ranks, as the JAX mesh does",
     "ddp_static_graph": "DDP tuning knob; no DDP wrapper exists in the port",
-    "no_set_device_rank": "torch.cuda.set_device plumbing; the port runs "
-                          "one process on one card",
-    "horovod": "alternative torch launcher; the port runs one process",
-    "dist_url": "torch.distributed rendezvous URL; the port runs one process",
-    "dist_backend": "nccl/gloo choice; the port runs one process",
+    "no_set_device_rank": "each rank always takes cuda:<LOCAL_RANK>",
+    "horovod": "alternative torch launcher; the port's ranks are torchrun's",
     "zero_shot": "parsed by the reference and likewise never read "
                  "(cli/main.py:15)",
     "coca_caption_loss_weight": "CoCa loss weights; the reference parses "

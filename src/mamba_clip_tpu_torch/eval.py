@@ -19,8 +19,8 @@ the two curve points around it. One eval step runs under
 ``torch.inference_mode()`` on the batch's device; probabilities and
 targets accumulate on the host as numpy.
 
-One process only: the ``world > 1`` gather of per-host shards waits for the
-parallel layers (ROADMAP.md).
+Several ranks (``world > 1``): each evaluates its shard and the shards are
+combined (:func:`evaluate`); rank 0 logs and writes.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ from .data.loader import device_prefetch
 from .data.metadata import write_csv
 from .losses import clip_loss, cross_entropy_loss
 from .ops.preprocess import eval_preprocess
+from .parallel.collectives import all_gather_, comm_device
 from .utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -139,6 +140,38 @@ def make_eval_step(model, policy, tcfg, stage: int = 1, class_weights=None,
     return stage1_step if stage == 1 else stage2_step
 
 
+def _gather(x: np.ndarray, world: int) -> np.ndarray:
+    """The ``x`` of every rank, stacked (world, ...), through the process
+    group's backend."""
+    t = torch.as_tensor(np.array(x)).to(comm_device())
+    return all_gather_(t, world).cpu().numpy()
+
+
+def _combine_shards(cumulative_loss, num_samples, labeled, probs, targets, world):
+    """The ranks' eval shards combined (JAX ``eval.py``'s world > 1 branch):
+    the loss and sample sums; labeledness agreed first, so that a rank
+    without targets drops them everywhere instead of entering a mismatched
+    collective; probabilities and targets padded to the longest shard,
+    gathered, and cut back to each rank's count, rank-major."""
+    sums = _gather(np.array([cumulative_loss, num_samples], np.float64), world)
+    cumulative_loss, num_samples = float(sums[:, 0].sum()), int(sums[:, 1].sum())
+    lab_all = _gather(np.array(int(labeled and targets is not None), np.int64), world)
+    if probs is not None and not lab_all.all():
+        if targets is not None:
+            logger.warning("eval: some ranks saw no labels; dropping targets "
+                           "globally (loss/pAUC unavailable)")
+        targets, labeled = None, False
+    if probs is not None:
+        counts = _gather(np.array(probs.shape[0], np.int64), world)
+        pad = int(counts.max()) - probs.shape[0]
+        p_all = _gather(np.pad(probs, ((0, pad), (0, 0))), world)
+        probs = np.concatenate([p_all[i, :counts[i]] for i in range(world)])
+        if targets is not None:
+            t_all = _gather(np.pad(targets, (0, pad)), world)
+            targets = np.concatenate([t_all[i, :counts[i]] for i in range(world)])
+    return cumulative_loss, num_samples, labeled, probs, targets
+
+
 def evaluate(
     model,
     state,
@@ -158,13 +191,18 @@ def evaluate(
 ) -> Dict[str, float]:
     """Validation over the full split on ``device``. ``state`` is the
     ``TrainState`` (its model is evaluated) or None (then ``model``).
-    ``tb_writer`` gets each metric as ``val/<name>`` at ``epoch``."""
+    ``tb_writer`` gets each metric as ``val/<name>`` at ``epoch``.
+
+    Every rank evaluates its shard of the split (the loader's full-coverage
+    split: the first n % world ranks carry one more row), and the shards
+    are combined as the JAX package combines them: the scalar sums, the
+    labeledness agreed before any targets collective, and a padded
+    all-gather of the probabilities and the targets. Logging and the
+    writes stay with rank 0."""
     metrics: Dict[str, float] = {}
+    rank = getattr(run_state, "rank", 0) if run_state else 0
     world = getattr(run_state, "world_size", 1) if run_state else 1
-    if world > 1:
-        raise NotImplementedError(
-            "evaluate: combining per-host shards (world > 1) is not ported yet "
-            "(ROADMAP.md, Queue 1, item 8 'Parallel layers')")
+    master = rank == 0
     if "val" not in data and "test" not in data:
         return metrics
     if args.val_frequency and not (
@@ -202,7 +240,7 @@ def evaluate(
                 labeled = False
         cumulative_loss += float(loss) * bs
         num_samples += bs
-        if i % args.log_every_n_steps == 0:
+        if master and i % args.log_every_n_steps == 0:
             logger.info(
                 f"Eval Epoch: {epoch} [{num_samples} / {loader.num_samples}]\t"
                 f"Loss: {cumulative_loss / num_samples:.6f}"
@@ -211,6 +249,9 @@ def evaluate(
     probs = np.concatenate(all_probs, axis=0) if all_probs else None
     targets = (np.concatenate(all_targets, axis=0)
                if labeled and all_targets else None)
+    if world > 1:
+        cumulative_loss, num_samples, labeled, probs, targets = _combine_shards(
+            cumulative_loss, num_samples, labeled, probs, targets, world)
     if labeled:
         metrics["val_loss"] = cumulative_loss / max(num_samples, 1)
     if probs is not None:
@@ -218,7 +259,7 @@ def evaluate(
             probs = np.concatenate([1 - probs, probs], axis=1)
         if targets is not None:  # a label-free test split has no pAUC
             metrics["partial_auc"] = partial_auc(targets, probs[:, 1])
-        if split == "test" and getattr(run_state, "checkpoint_path", None):
+        if master and split == "test" and getattr(run_state, "checkpoint_path", None):
             # per-sample malignancy probabilities for a challenge submission;
             # eval order is sequential, so ids align with the probability rows
             ids = list(getattr(loader.dataset, "ids", range(len(probs))))
@@ -227,6 +268,8 @@ def evaluate(
             write_csv(sub, sub_path)
             logger.info(f"wrote {len(sub)} predictions to {sub_path}")
     metrics.update({"epoch": epoch, "num_samples": num_samples})
+    if not master:
+        return metrics
 
     logger.info(
         f"Eval Epoch: {epoch} "

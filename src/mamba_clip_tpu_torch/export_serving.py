@@ -33,8 +33,9 @@ def main(argv=None):
                    help="checkpoint dir of this package to load params from")
     p.add_argument("--quant", default=None,
                    help="int8_serve: per-channel int8 dots in the towers' Dense "
-                        "layers (int8_fast and int8_fast_attn export too; the "
-                        "int8_delayed modes are training modes and raise)")
+                        "layers (int8_fast, int8_fast_attn and the aqt modes int8 "
+                        "and int8_fwd export too; the int8_delayed modes are "
+                        "training modes and raise)")
     p.add_argument("--num-classes", type=int, default=2)
     p.add_argument("--image-size", type=int, default=224)
     p.add_argument("--context-length", type=int, default=256)

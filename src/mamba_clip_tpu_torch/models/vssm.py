@@ -25,6 +25,10 @@ them leaf by leaf.
   explicit ``torch.Generator`` passed to ``VSSM.forward`` (on the
   activations' device). The masks follow jax.random's distribution, not
   its bits: the two frameworks draw different streams.
+- Under a data axis of several ranks (``parallel/collectives.py``)
+  BatchNorm takes the global batch's statistics and the masks are the
+  rank's rows of the global batch's draw, as one process over the whole
+  batch computes them.
 - ``VSSLayer(use_checkpoint=True)`` recomputes each block in the backward
   (``torch.utils.checkpoint``, the counterpart of ``nn.remat``). A block's
   masks are drawn before the checkpointed function, and its recompute
@@ -50,6 +54,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.qdot import inject, injected
+from ..parallel import collectives
 from ..ops.selective_scan import selective_scan_tm
 
 # std of a standard normal truncated to [-2, 2]
@@ -125,14 +130,18 @@ def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def keep_mask(shape, rate: float, generator: Optional[torch.Generator], device):
-    """A Bernoulli(1 - rate) keep mask of ``shape``, drawn from an explicit
-    generator on ``device`` (``jax.random.bernoulli``'s counterpart: same
-    distribution, another stream)."""
+    """A Bernoulli(1 - rate) keep mask of ``shape`` (batch first), drawn
+    from an explicit generator on ``device`` (``jax.random.bernoulli``'s
+    counterpart: same distribution, another stream); under a data axis the
+    rank's rows of the global batch's draw."""
     if generator is None:
         raise ValueError(
             "dropout and DropPath in training mode draw from an explicit "
             "torch.Generator: pass generator= to the model's forward")
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    shape = tuple(shape)
+    u = collectives.draw_rows(shape[0], lambda n: torch.rand(
+        (n,) + shape[1:], generator=generator, device=device))
+    return u < 1.0 - rate
 
 
 def _apply_keep(x, mask, rate: float):
@@ -318,8 +327,15 @@ class ConvBranch(nn.Module):
                 bn.weight.float(), bn.bias.float(), False, bn.momentum, bn.eps)
             return y.permute(0, 2, 3, 1).to(self.dtype)
         x32 = x.float()
-        mean = x32.mean(dim=(0, 1, 2))
-        var = torch.clamp_min((x32 * x32).mean(dim=(0, 1, 2)) - mean * mean, 0.0)
+        if collectives.active() is None:
+            mean, mean2 = x32.mean(dim=(0, 1, 2)), (x32 * x32).mean(dim=(0, 1, 2))
+        else:
+            # the global batch's statistics: the ranks' sums, with gradient
+            n = x32.shape[0] * x32.shape[1] * x32.shape[2] * collectives.world()
+            sums = collectives.sum_across(
+                torch.cat([x32.sum(dim=(0, 1, 2)), (x32 * x32).sum(dim=(0, 1, 2))]))
+            mean, mean2 = sums[:x32.shape[-1]] / n, sums[x32.shape[-1]:] / n
+        var = torch.clamp_min(mean2 - mean * mean, 0.0)
         if update_stats:
             with torch.no_grad():
                 m = bn.momentum

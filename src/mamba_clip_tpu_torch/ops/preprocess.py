@@ -23,6 +23,8 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ..parallel.collectives import draw_rows
+
 OPENAI_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_STD = (0.26862954, 0.26130258, 0.27577711)
 
@@ -196,10 +198,19 @@ def draw_train_params(
     U(scale), log aspect U(log ratio), a box that falls back to the
     centered full square when it does not fit, its corner uniform over the
     room left; erase area U(0.02, 1/3) of the output, log aspect
-    U(log 0.3, log 1/0.3)."""
+    U(log 0.3, log 1/0.3). Under a data axis of several ranks each draw is
+    the rank's rows of the global batch's draw."""
     dev = generator.device
     f32 = torch.float32
-    u = torch.rand((batch, 4), generator=generator, device=dev, dtype=f32)
+
+    def rand(shape, dtype=f32, normal=False):
+        """``shape`` (batch first) from the generator; under a data axis the
+        rank's rows of the global batch's draw."""
+        fn = torch.randn if normal else torch.rand
+        return draw_rows(batch, lambda n: fn((n,) + shape[1:], generator=generator,
+                                             device=dev, dtype=dtype))
+
+    u = rand((batch, 4))
     target_area = H * W * _uniform(u[:, 0], *scale)
     aspect = torch.exp(_uniform(u[:, 1], math.log(ratio[0]), math.log(ratio[1])))
     w = torch.sqrt(target_area * aspect)
@@ -209,12 +220,12 @@ def draw_train_params(
     w = torch.where(ok, w, side)
     h = torch.where(ok, h, side)
     boxes = torch.stack([u[:, 2] * (H - h), u[:, 3] * (W - w), h, w], dim=1)
-    flip = torch.rand((batch,), generator=generator, device=dev) < hflip
+    flip = rand((batch,)) < hflip
     draws = TrainDraws(boxes=boxes, flip=flip)
     if interpolation == "random":
-        draws.bilinear = torch.rand((batch,), generator=generator, device=dev) < 0.5
+        draws.bilinear = rand((batch,)) < 0.5
     if re_prob > 0.0:
-        e = torch.rand((batch, 5), generator=generator, device=dev, dtype=f32)
+        e = rand((batch, 5))
         area = _uniform(e[:, 1], 0.02, 1.0 / 3.0) * out_size * out_size
         asp = torch.exp(_uniform(e[:, 2], math.log(0.3), math.log(1 / 0.3)))
         eh = torch.sqrt(area / asp)
@@ -222,8 +233,7 @@ def draw_train_params(
         draws.erase = torch.stack(
             [e[:, 3] * (out_size - eh), e[:, 4] * (out_size - ew), eh, ew], dim=1)
         draws.erase_on = e[:, 0] < re_prob
-        draws.noise = torch.randn((batch, out_size, out_size, 3), generator=generator,
-                                  device=dev, dtype=f32)
+        draws.noise = rand((batch, out_size, out_size, 3), normal=True)
     return draws
 
 

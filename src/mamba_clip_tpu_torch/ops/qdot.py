@@ -20,6 +20,10 @@ int8 operands and the same int32 accumulators:
   (``int8_delayed``). Scales get zero gradients.
 
 Gradients are straight-through: quantization is treated as the identity.
+Under a data axis of several ranks (``parallel/collectives.py``) a
+per-tensor absmax of batch rows (an activation's, a cotangent's) and a
+committed delayed scale are the maximum over the ranks, as one process
+over the global batch takes them.
 The rhs of a Dense dot is JAX's ``[K, N]`` kernel, which is the transpose of
 ``nn.Linear.weight``: a per-column scale there is a per-row scale of the
 weight.
@@ -62,6 +66,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import max_across
+
 _EPS = 1e-6
 _P_SCALE = 1.0 / 127.0  # static softmax-probability scale (p in [0, 1])
 _DENSE_PATTERN = "flax Dense contraction (((lhs.ndim-1,), (0,)), ((), ()))"
@@ -81,9 +87,14 @@ def _over_127(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / 127.0)
 
 
-def _absmax_scale(x: torch.Tensor) -> torch.Tensor:
-    """Per-tensor symmetric scale mapping absmax -> 127."""
-    return _over_127(torch.clamp_min(x.float().abs().amax(), _EPS))
+def _absmax_scale(x: torch.Tensor, across: bool = False) -> torch.Tensor:
+    """Per-tensor symmetric scale mapping absmax -> 127; ``across``: ``x``
+    holds batch rows, so the absmax is the maximum over the data axis's
+    ranks (``parallel/collectives.py``)."""
+    am = x.float().abs().amax()
+    if across:
+        am = max_across(am)
+    return _over_127(torch.clamp_min(am, _EPS))
 
 
 def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -182,7 +193,7 @@ def _dense_bwd(ctx, saved, g):
     tensors, unpacked once (a checkpointed recompute allows no second
     unpacking)."""
     ql, sl, qr, sr = saved
-    sg = _absmax_scale(g)
+    sg = _absmax_scale(g, across=True)
     qg = _quantize(g, sg)
     dlhs = (_dense_dlhs_acc(qg, qr).float() * (sg * sr)).to(ctx.dtypes[0])
     drhs = (_dense_drhs_acc(ql, qg).float() * (sl * sg)).to(ctx.dtypes[1])
@@ -200,7 +211,7 @@ def _dense_fwd(ctx, lhs, rhs, sl, sr):
 class _Int8DenseDot(torch.autograd.Function):
     @staticmethod
     def forward(ctx, lhs, rhs):
-        return _dense_fwd(ctx, lhs, rhs, _absmax_scale(lhs), _absmax_scale(rhs))
+        return _dense_fwd(ctx, lhs, rhs, _absmax_scale(lhs, across=True), _absmax_scale(rhs))
 
     @staticmethod
     def backward(ctx, g):
@@ -222,7 +233,7 @@ class _Int8DelayedDot(torch.autograd.Function):
 class _Int8ServeDot(torch.autograd.Function):
     @staticmethod
     def forward(ctx, lhs, rhs):
-        sl = _absmax_scale(lhs)
+        sl = _absmax_scale(lhs, across=True)
         sr = _absmax_scale_cols(rhs)
         ql, qr = _quantize(lhs, sl), _quantize(rhs, sr)
         out = (_dense_acc(ql, qr).float() * (sl * sr)).to(_out_dtype(lhs, rhs))
@@ -429,11 +440,12 @@ def scale_mode(holders: List[nn.Module], mode: Optional[str]):
 
 
 def commit_scales(holders: List[nn.Module]) -> None:
-    """Write the fresh absmax that a recording kept aside into the buffers."""
+    """Write the fresh absmax that a recording kept aside into the buffers
+    (the maximum over the data axis's ranks, so that they stay equal)."""
     with torch.no_grad():
         for m in holders:
             for name, fresh in m._delayed_pending.items():
-                getattr(m, name).copy_(fresh)
+                getattr(m, name).copy_(max_across(fresh))
             m._delayed_pending = {}
 
 

@@ -14,9 +14,10 @@ dots of ``ops/qdot.py``:
 - ``int8_serve``: :class:`~.qdot.Int8ServeDotGeneral`, per-output-channel
   weight scales, for inference.
 
-``int8`` and ``int8_fwd`` run the JAX package through the ``aqt`` library,
-whose calibration and rounding are its own numerics; they are not ported
-and raise.
+- ``int8`` and ``int8_fwd``: the ``aqt`` library's configurations in the
+  JAX package, written out in :mod:`.aqt` (:class:`~.aqt.AqtInt8DotGeneral`,
+  :class:`~.aqt.AqtInt8FwdDotGeneral`). They leave the attention interior
+  as it is.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ def make_dot_general_cls(quant: Optional[str]):
     if quant == "int8_serve":
         return qdot.Int8ServeDotGeneral
     if quant in ("int8", "int8_fwd"):
-        raise NotImplementedError(
-            f"--quant {quant} runs through the aqt library's numerics, not ported yet "
-            "(ROADMAP.md, Queue 1, item 7 'Quantized modes')")
+        from . import aqt
+
+        return aqt.AqtInt8DotGeneral if quant == "int8" else aqt.AqtInt8FwdDotGeneral
     raise ValueError(f"unknown --quant '{quant}'; one of {_VALID} or none")

@@ -1,0 +1,189 @@
+"""The data axis's collectives, and the step's view of the axis.
+
+A port rank is one process on one device; W ranks of B rows each compute
+what one process computes over the W·B rows of the global batch, as the
+JAX package's data-sharded mesh does. A train step opens the axis with
+:func:`data_axis` for its duration; the code below it asks :func:`active`
+and stays a no-op at world 1, so the modules that need the axis (the
+losses, BatchNorm, the random draws, the int8 calibrations) take no extra
+arguments:
+
+- :func:`gather_rows`: the rows of every rank, rank-major, with gradient
+  (the backward sums each rank's slice of the gradient over the ranks);
+- :func:`sum_across`: an all-reduce sum with gradient (BatchNorm's global
+  sums);
+- :func:`max_across`: an all-reduce max without gradient (an absmax taken
+  over the batch rows);
+- :func:`mean_grads`: the gradients averaged over the ranks, one flat
+  all-reduce per dtype;
+- :func:`draw_rows`: a random draw over the global batch, of which the rank
+  keeps its rows, so that every rank takes its slice of one global draw.
+
+The step's collectives go through :func:`all_reduce_` and
+:func:`all_gather_`, on the tensors' own device: ``nccl`` takes the card's
+tensors, and ``gloo`` (the CPU's backend) takes them too, for
+``all_reduce``, ``broadcast`` and ``all_gather`` alike (checked on the H100
+by ``chip_smoke.py`` phase 20), so nothing is staged through the host.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional
+
+import torch
+import torch.distributed as dist
+
+
+@dataclass
+class DataAxis:
+    """A data axis of ``world`` ranks, this process being ``rank``;
+    ``group`` None is the default process group."""
+
+    rank: int
+    world: int
+    group: Optional[object] = None
+
+
+_AXIS: Optional[DataAxis] = None
+
+
+@contextlib.contextmanager
+def data_axis(axis: Optional[DataAxis]):
+    """Make ``axis`` the active data axis inside the block (None, or a
+    world of 1, leaves none active)."""
+    global _AXIS
+    prev = _AXIS
+    _AXIS = axis if axis is not None and axis.world > 1 else None
+    try:
+        yield _AXIS
+    finally:
+        _AXIS = prev
+
+
+def active() -> Optional[DataAxis]:
+    """The active data axis of more than one rank, or None."""
+    return _AXIS
+
+
+# ---------------------------------------------------------------------------
+# backend-aware collectives
+# ---------------------------------------------------------------------------
+
+
+def comm_device(group=None) -> torch.device:
+    """The device the backend's collectives take: the current card for
+    nccl, the host for gloo (which takes the card's tensors too)."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
+    """In-place all-reduce of a contiguous ``t``; returns it."""
+    dist.all_reduce(t, op=op, group=group)
+    return t
+
+
+def all_gather_(t: torch.Tensor, world: int, group=None) -> torch.Tensor:
+    """The ``t`` of every rank, stacked on a new leading axis (world, ...)."""
+    t = t.contiguous()
+    out = torch.empty((world,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+    dist.all_gather(list(out.unbind(0)), t, group=group)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the step's collectives
+# ---------------------------------------------------------------------------
+
+
+class _SumAcross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ax = _AXIS
+        ctx.axis = ax
+        return all_reduce_(x.detach().clone().contiguous(), group=ax.group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone().contiguous(), group=ctx.axis.group)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ax = _AXIS
+        ctx.axis, ctx.rows = ax, x.shape[0]
+        out = all_gather_(x.detach(), ax.world, group=ax.group)
+        return out.reshape((ax.world * x.shape[0],) + tuple(x.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, g):
+        ax = ctx.axis
+        total = all_reduce_(g.clone().contiguous(), group=ax.group)
+        return total[ax.rank * ctx.rows:(ax.rank + 1) * ctx.rows]
+
+
+def sum_across(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the active axis's ranks, with gradient (the
+    backward sums the gradient over the ranks); ``x`` at world 1."""
+    return x if _AXIS is None else _SumAcross.apply(x)
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``x``, rank-major, with gradient; ``x`` at
+    world 1."""
+    return x if _AXIS is None else _GatherRows.apply(x)
+
+
+def max_across(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the active axis's ranks, without
+    gradient; ``x`` at world 1."""
+    if _AXIS is None:
+        return x
+    return all_reduce_(x.detach().clone().contiguous(), op=dist.ReduceOp.MAX,
+                       group=_AXIS.group)
+
+
+def rank_offset(rows: int) -> int:
+    """The global index of this rank's first row, for ``rows`` rows a rank."""
+    return 0 if _AXIS is None else _AXIS.rank * rows
+
+
+def world() -> int:
+    return 1 if _AXIS is None else _AXIS.world
+
+
+def draw_rows(rows: int, draw: Callable[[int], torch.Tensor]) -> torch.Tensor:
+    """``draw(n)`` makes a random tensor of ``n`` leading rows; at world W
+    this rank draws the global W·rows and keeps its own slice, so the ranks
+    together take one draw, as one process over the global batch does."""
+    if _AXIS is None:
+        return draw(rows)
+    lo = _AXIS.rank * rows
+    return draw(_AXIS.world * rows)[lo:lo + rows]
+
+
+def mean_grads(grads: Dict[str, torch.Tensor], axis: Optional[DataAxis] = None
+               ) -> Dict[str, torch.Tensor]:
+    """Each gradient averaged over the ranks of ``axis`` (the active one by
+    default): one flat all-reduce sum per dtype, then a division by W."""
+    ax = axis or _AXIS
+    if ax is None or ax.world == 1:
+        return grads
+    out: Dict[str, torch.Tensor] = {}
+    by_dtype: Dict[torch.dtype, List[str]] = {}
+    for k, g in grads.items():
+        by_dtype.setdefault(g.dtype, []).append(k)
+    for keys in by_dtype.values():
+        flat = torch.cat([grads[k].reshape(-1) for k in keys])
+        all_reduce_(flat, group=ax.group)
+        flat = flat / ax.world
+        i = 0
+        for k in keys:
+            n = grads[k].numel()
+            out[k] = flat[i:i + n].view_as(grads[k])
+            i += n
+    return {k: out[k] for k in grads}

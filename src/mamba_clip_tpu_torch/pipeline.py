@@ -12,12 +12,21 @@ Counterpart of ``mamba_clip_tpu/pipeline.py``:
 - ``--is-test`` without a train split evaluates only;
 - lr is scaled by the world size at entry.
 
-One process on one device. The device is the card: ``--device auto`` and
-``--device cuda`` take ``cuda:0`` and raise when there is none;
-``--device cpu`` (what the tests pass) takes the CPU. Each model is built
-on the host from a generator seeded with ``--seed`` and moved to the
-device in ``prepare_params``. A flag whose feature is not ported yet fails
-when ``pipeline()`` starts, naming the ROADMAP.md item that lifts it.
+One process a device. The device is the card: ``--device auto`` and
+``--device cuda`` take ``cuda:<local rank>`` and raise when there is none;
+``--device cpu`` (what the tests pass) takes the CPU. Ranks: under
+``torchrun --nproc-per-node N -m mamba_clip_tpu_torch.cli.main ...`` the
+process group is made from torchrun's environment (``parallel/mesh.py``:
+nccl on the card, gloo on the CPU, ``--dist-backend`` when it names one of
+them) and the steps run the data axis over the ranks; ``--batch-size`` is
+per rank. Every rank builds the model from the same seed, loads the same
+checkpoint and takes rank 0's parameters; only rank 0 writes (the run
+directory, ``params.txt``, logs, tensorboard, results, checkpoints,
+``--copy-codebase``), and the run name and the resumed checkpoint are
+rank 0's. Each model is built on the host from a generator seeded with
+``--seed`` and moved to the device in ``prepare_params``. A flag whose
+feature is not ported yet fails when ``pipeline()`` starts, naming the
+ROADMAP.md item that lifts it.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ from .eval import evaluate, make_eval_step
 from .models import ClipClassifier, build_classifier, build_clip, lock_mask
 from .ops.flash_attn import resolve_attn_flash
 from .ops.qdot import delayed_holders, init_delayed_scales
+from .parallel.mesh import (MeshSpec, barrier, broadcast_module, broadcast_object, create_mesh,
+                            is_master, maybe_initialize_distributed)
 from .optim import build_optimizer, freeze_submodule_mask, merge_masks
 from .schedules import create_schedule
 from .train import (TrainState, create_train_state, make_classifier_train_step,
@@ -63,14 +74,9 @@ def _not_ported(what: str, item: int, title: str) -> NotImplementedError:
 
 def check_ported(args: Args) -> None:
     """Raise for a flag whose feature the port does not have yet."""
-    if args.quant in ("int8", "int8_fwd"):
-        raise _not_ported(f"--quant {args.quant} (the aqt library's numerics)", 7,
-                          "Quantized modes")
     if args.mesh_fsdp > 1 or args.mesh_model > 1:
         raise _not_ported(f"--mesh-fsdp {args.mesh_fsdp} --mesh-model {args.mesh_model}",
                           8, "Parallel layers")
-    if args.local_loss:
-        raise _not_ported("--local-loss", 8, "Parallel layers")
     if args.remote_sync:
         raise _not_ported("--remote-sync", 9, "HPO, integrations and the remaining utilities")
     if "wandb" in (args.report_to or "").split(","):
@@ -81,32 +87,38 @@ def check_ported(args: Args) -> None:
                           "HPO, integrations and the remaining utilities")
 
 
-def resolve_device(device: str) -> str:
-    """``--device``: ``auto``/``cuda`` -> ``cuda:0``, which must exist;
-    ``cpu`` -> the CPU. Nothing falls back to the CPU unasked."""
+def resolve_device(device: str, local_rank: int = 0) -> str:
+    """``--device``: ``auto``/``cuda`` -> ``cuda:<local_rank>``, which must
+    exist; ``cpu`` -> the CPU. Nothing falls back to the CPU unasked."""
     if device in ("auto", "cuda"):
         if not torch.cuda.is_available():
             raise RuntimeError(
                 f"--device {device}: no CUDA card is available "
                 "(torch.cuda.is_available() is False); pass --device cpu to run on the CPU")
-        return "cuda:0"
+        return f"cuda:{local_rank}"
     if device == "cpu":
         return "cpu"
     raise ValueError(f"--device must be auto|cuda|cpu, got {device!r}")
 
 
 def init_run(args: Args) -> RunState:
-    """Device, rank and logging bring-up: one process, rank 0 of 1."""
+    """Device, rank and logging bring-up: the process group of torchrun's
+    environment when its world is above 1 (``parallel/mesh.py``)."""
     device = resolve_device(args.device)
-    logger_setup(rank=0, log_level=logging.DEBUG if args.debug else logging.INFO)
-    return RunState(rank=0, world_size=1, distributed=False, device=device)
+    rank, local_rank, world = maybe_initialize_distributed(
+        device, args.dist_backend, args.dist_url)
+    device = resolve_device(args.device, local_rank)
+    logger_setup(rank=rank, log_level=logging.DEBUG if args.debug else logging.INFO)
+    return RunState(rank=rank, local_rank=local_rank, world_size=world,
+                    distributed=world > 1, device=device)
 
 
 def setup_paths(args: Args, run: RunState) -> RunState:
-    """Experiment naming and directories, ``params.txt``."""
-    name = args.name or create_log_path(args)
+    """Experiment naming and directories, ``params.txt`` (rank 0 names the
+    run and writes)."""
+    name = args.name or broadcast_object(create_log_path(args))
     log_base = os.path.join(args.logs, name)
-    if args.name is not None and os.path.exists(
+    if is_master(run) and args.name is not None and os.path.exists(
         os.path.join(log_base, "checkpoints")
     ) and args.resume is None:
         raise FileExistsError(
@@ -119,11 +131,12 @@ def setup_paths(args: Args, run: RunState) -> RunState:
     report_to = (args.report_to or "").split(",")
     run.tensorboard = "tensorboard" in report_to
     run.wandb = "wandb" in report_to
-    os.makedirs(run.checkpoint_path, exist_ok=True)
-    if run.tensorboard:
-        os.makedirs(run.tensorboard_path, exist_ok=True)
-    args.dump(os.path.join(log_base, "params.txt"))
-    if args.copy_codebase:
+    if is_master(run):
+        os.makedirs(run.checkpoint_path, exist_ok=True)
+        if run.tensorboard:
+            os.makedirs(run.tensorboard_path, exist_ok=True)
+        args.dump(os.path.join(log_base, "params.txt"))
+    if is_master(run) and args.copy_codebase:
         # snapshot the package source into the run dir
         src_dir = os.path.dirname(os.path.abspath(__file__))
         dst = os.path.join(log_base, "code", "mamba_clip_tpu_torch")
@@ -156,10 +169,14 @@ def parse_aug_cfg(items) -> dict:
 
 
 def setup_train(args: Args, run: RunState, checkpoint_prefix: str = "") -> RunState:
-    """Resume discovery: ``--resume latest`` or an explicit path."""
+    """Resume discovery: ``--resume latest`` (rank 0's find) or an explicit
+    path."""
     resume = args.resume
     if resume == "latest":
-        found = get_latest_checkpoint(run.checkpoint_path, prefix=checkpoint_prefix)
+        found = None
+        if is_master(run):
+            found = get_latest_checkpoint(run.checkpoint_path, prefix=checkpoint_prefix)
+        found = broadcast_object(found)
         run.resume_from = found
         if found:
             logger.info(f"Resuming from latest checkpoint: {found}")
@@ -171,7 +188,7 @@ def setup_train(args: Args, run: RunState, checkpoint_prefix: str = "") -> RunSt
 
 
 def _tb_writer(args: Args, run: RunState):
-    if not run.tensorboard:
+    if not run.tensorboard or not is_master(run):
         return None
     try:
         from torch.utils.tensorboard import SummaryWriter
@@ -208,6 +225,7 @@ def prepare_params(
     takes_text: bool = True,
     class_weights=None,
     init_params: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Model, optimizer, schedule and state assembly on ``run.device``.
     ``init_params`` (a state dict) replaces the model's initial weights;
@@ -216,7 +234,8 @@ def prepare_params(
     package's ``model.init`` sees) and a stage-1 CLIP then takes
     ``--pretrained``. Returns what ``step`` needs: ``state``, ``step_fn``,
     ``schedule``, ``policy``, ``start_epoch``, ``start_batch``, ``writer``,
-    ``mask``."""
+    ``mask``. ``mesh``: the data axis the steps run over; every rank then
+    takes rank 0's parameters and buffers before the optimizer is made."""
     policy = get_policy(args.precision)
     tcfg_train = data.get("tcfg_train")
     model = model.to(run.device)
@@ -232,6 +251,7 @@ def prepare_params(
     # bf16/pure_bf16/pure_fp16 keep the parameters (and so the optimizer
     # moments) in the low-precision type; amp keeps fp32 masters
     policy.cast_params(model)
+    broadcast_module(model)
 
     n_params = sum(p.numel() for p in model.parameters())
     logger.info(f"Model parameters: {n_params / 1e6:.2f}M")
@@ -289,13 +309,14 @@ def prepare_params(
             logger.info(f"Resumed checkpoint (start epoch {start_epoch})")
 
     if stage == 1 and takes_text:
-        step_fn = make_clip_train_step(model, tx, policy, args, tcfg_train, schedule)
+        step_fn = make_clip_train_step(model, tx, policy, args, tcfg_train, schedule,
+                                       mesh=mesh)
     else:
         step_fn = make_classifier_train_step(
             model, tx, policy, args, tcfg_train, schedule,
             class_weights=class_weights if args.class_weighted_loss else None,
             num_classes=args.num_classes or 2,
-            takes_text=takes_text,
+            takes_text=takes_text, mesh=mesh,
         )
     return dict(
         state=state, step_fn=step_fn, schedule=schedule, policy=policy,
@@ -316,19 +337,30 @@ def step(
     stage: int = 1,
     takes_text: bool = True,
     class_weights=None,
+    mesh=None,
 ):
     """Epoch loop of one stage on ``device``. ``params`` holds ``state`` (a
     ``TrainState``), ``step_fn``, ``policy``, ``start_epoch`` and optionally
     ``start_batch`` (a mid-epoch resume) and ``writer``; ``data`` the
-    ``DataInfo`` of each split and ``tcfg_val``. Returns (metrics, state)."""
+    ``DataInfo`` of each split and ``tcfg_val``. ``mesh``: the data axis
+    (``--batch-size`` must divide into its shards). Every rank trains and
+    evaluates; rank 0 writes. Returns (metrics, state)."""
     state: TrainState = params["state"]
     step_fn = params["step_fn"]
     policy = params["policy"]
     writer = params.get("writer")
     tcfg_val = data.get("tcfg_val")
-    results = ResultsWriter(os.path.join(run.checkpoint_path, "results.jsonl"))
+    master = is_master(run)
+    results = (ResultsWriter(os.path.join(run.checkpoint_path, "results.jsonl"))
+               if master else None)
+    n_shards = mesh.shape["data"] * mesh.shape["fsdp"] if mesh is not None else 1
+    if args.batch_size % n_shards:
+        raise ValueError(
+            f"--batch-size {args.batch_size} must be divisible by the "
+            f"{n_shards}-way data sharding of the device mesh"
+        )
     trace_dir = (os.path.join(run.log_path or run.checkpoint_path, "trace")
-                 if getattr(args, "trace", False) else None)
+                 if getattr(args, "trace", False) and master else None)
     cw = class_weights if getattr(args, "class_weighted_loss", False) else None
     eval_step = make_eval_step(model, policy, tcfg_val, stage=stage, class_weights=cw,
                                takes_text=takes_text)
@@ -340,14 +372,15 @@ def step(
             takes_text=takes_text, eval_step=eval_step, device=device, tb_writer=writer)
 
     step_ckptr = None
-    if getattr(args, "checkpoint_steps", 0) > 0:
+    if getattr(args, "checkpoint_steps", 0) > 0 and master:
         step_ckptr = StepCheckpointer(run.checkpoint_path, args, prefix=save_prefix)
 
     metrics = None
     best = None
     start_epoch = params["start_epoch"]
     for epoch in range(start_epoch, args.epochs):
-        logger.info(f"Start epoch {epoch}")
+        if master:
+            logger.info(f"Start epoch {epoch}")
         first = epoch == start_epoch
         state = train_one_epoch(
             step_fn, state, data, epoch, args, seed,
@@ -375,15 +408,15 @@ def step(
         elif _metrics:
             metrics = _metrics
 
-        should_save = completed == args.epochs or (
+        should_save = master and (completed == args.epochs or (
             args.save_frequency > 0 and completed % args.save_frequency == 0
-        )
+        ))
         if should_save:
             save_checkpoint(run.checkpoint_path, state, completed, args,
                             name=f"{save_prefix}epoch_{completed}")
-        if args.delete_previous_checkpoint:
+        if master and args.delete_previous_checkpoint:
             delete_previous_checkpoint(run.checkpoint_path, completed, prefix=save_prefix)
-        if args.save_most_recent:
+        if master and args.save_most_recent:
             save_checkpoint(run.checkpoint_path, state, completed, args,
                             name=f"{save_prefix}{LATEST_CHECKPOINT_NAME}")
     if metrics is None and start_epoch >= args.epochs:
@@ -391,7 +424,7 @@ def step(
         # restored state so the caller gets metrics instead of None
         metrics = run_eval(start_epoch)
     # always leave a stage-latest checkpoint for stage 2 to start from
-    if args.epochs > 0:
+    if master and args.epochs > 0:
         save_checkpoint(run.checkpoint_path, state, args.epochs, args,
                         name=f"{save_prefix}{LATEST_CHECKPOINT_NAME}")
     wait_for_checkpoints()
@@ -399,6 +432,7 @@ def step(
         # the stage's final numbered epoch checkpoint has committed; the
         # surviving mid-epoch checkpoints are now redundant
         step_ckptr.finalize()
+    barrier()  # no rank goes on before rank 0's checkpoints are on disk
     return metrics, state
 
 
@@ -459,6 +493,8 @@ def pipeline(args: Args):
     """Two-stage dispatch; returns the last evaluation's metrics."""
     check_ported(args)
     run = init_run(args)
+    mesh = create_mesh(MeshSpec(fsdp=args.mesh_fsdp or 1, model=args.mesh_model or 1),
+                       world=run.world_size, rank=run.rank)
     warn_ignored_flags(args, logger)
     args = args.replace(lr=args.lr * run.world_size)
     policy = get_policy(args.precision)
@@ -522,7 +558,7 @@ def pipeline(args: Args):
         cw = data["train"].class_weights if "train" in data else None
         stage = 1 if takes_text else 2
         params = prepare_params(args, model, data, run, stage=stage,
-                                takes_text=takes_text, class_weights=cw)
+                                takes_text=takes_text, class_weights=cw, mesh=mesh)
         model = params["state"].model
         if "train" not in data:
             metrics = _evaluate_only(args, run, model, data, params, tcfg_val, stage,
@@ -531,7 +567,7 @@ def pipeline(args: Args):
             metrics, _ = step(
                 args, run, model, data, params, run.device, args.seed,
                 save_prefix=f"stage_{args.stage}_", stage=stage,
-                takes_text=takes_text, class_weights=cw,
+                takes_text=takes_text, class_weights=cw, mesh=mesh,
             )
     elif args.stage == 2:
         tokenizer = get_tokenizer(
@@ -600,7 +636,7 @@ def pipeline(args: Args):
 
         cw = data["train"].class_weights if "train" in data else None
         params = prepare_params(args, model, data, run, stage=2, takes_text=True,
-                                class_weights=cw)
+                                class_weights=cw, mesh=mesh)
         model = params["state"].model
         if "train" not in data:
             metrics = _evaluate_only(args, run, model, data, params, tcfg_val, 2, True, cw)
@@ -608,6 +644,7 @@ def pipeline(args: Args):
             metrics, _ = step(
                 args, run, model, data, params, run.device, args.seed,
                 save_prefix="stage_2_", stage=2, takes_text=True, class_weights=cw,
+                mesh=mesh,
             )
     return metrics
 

@@ -114,7 +114,7 @@ def medmamba_train_setup(batch: int, device="cuda", scan_impl=None, seed: int = 
 def clip_train_setup(batch: int, device="cuda", model_name: str = "biomedclip",
                      attn_impl: str = "flash", seed: int = 0, model_state=None,
                      grad_checkpointing: bool = False, precision: str = "amp",
-                     quant=None, **arg_overrides):
+                     quant=None, mesh=None, **arg_overrides):
     """A full-width CLIP (``precision``: ``amp`` unless asked; the
     parameters in its type, as ``prepare_params`` keeps them) with its
     contrastive train step, through ``build_clip``, ``create_schedule``,
@@ -123,7 +123,8 @@ def clip_train_setup(batch: int, device="cuda", model_name: str = "biomedclip",
     ``seed`` (or ``model_state``); two batches of uint8 images and of
     HashTokenizer tokens of report-like text (context 256, so the key masks
     are real) made from a numpy seed and put on ``device``. ``quant`` as
-    :func:`medmamba_train_setup`'s. ``arg_overrides`` replace entries of
+    :func:`medmamba_train_setup`'s; ``mesh`` the step's data axis
+    (``parallel/mesh.py``). ``arg_overrides`` replace entries of
     ``CLIP_TRAIN_ARGS``. Returns (state, step_fn, batches)."""
     policy = get_policy(precision)
     args = SimpleNamespace(**{**CLIP_TRAIN_ARGS, **arg_overrides})
@@ -141,7 +142,7 @@ def clip_train_setup(batch: int, device="cuda", model_name: str = "biomedclip",
     schedule = create_schedule(args, CLIP_TOTAL_STEPS)
     tx = build_optimizer(args, schedule)
     state = create_train_state(model, tx, policy)
-    step_fn = make_clip_train_step(model, tx, policy, args, tcfg, schedule)
+    step_fn = make_clip_train_step(model, tx, policy, args, tcfg, schedule, mesh=mesh)
     rs = np.random.RandomState(seed)
     S = tcfg.staging_size
     batches = [{

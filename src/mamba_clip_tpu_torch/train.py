@@ -39,8 +39,29 @@ Differences that follow from the framework:
 hook and reads the metrics only where it logs (that read is the loop's one
 synchronisation with the card). On the first batch of a fresh run (step 0)
 of a model with delayed scales it first calls the step's
-``calibrate_quant``. The mesh (``mesh=``, ``--local-loss``) is not ported
-yet (ROADMAP.md).
+``calibrate_quant``.
+
+The data axis (``mesh=`` of more than one rank, ``parallel/mesh.py``): a
+step over W ranks of B rows each computes what one rank computes over the
+W·B rows, gradients included. Each step opens the axis
+(``collectives.data_axis``) for its duration, and under it:
+
+- the losses gather the features of every rank with gradient
+  (``--local-loss``: each rank's rows against the gathered columns; the
+  ranks' losses are averaged); the weighted cross-entropy takes both of
+  its sums over the global batch;
+- the gradients are averaged over the ranks before the global norm, the
+  clipping and the update, so every rank applies the same update;
+- BatchNorm takes the global batch's statistics (its sums all-reduced with
+  gradient), and the running statistics come out equal on every rank;
+- the preprocess, dropout, patch-dropout and DropPath draws are slices of
+  one global draw from the step's generators;
+- the delayed int8 scales and every absmax taken over batch rows are the
+  maximum over the ranks; the fp16 loss scale's finiteness is decided on
+  the averaged gradients, so every rank skips the same steps.
+
+Under ``--accum-freq N`` micro-batch j is every rank's j-th micro-batch,
+rank-major, and its features are gathered into the global feature bank.
 """
 
 from __future__ import annotations
@@ -60,6 +81,7 @@ from .models.clip import clamp_logit_scale
 from .ops.preprocess import train_preprocess
 from .ops.qdot import commit_scales, delayed_holders, delayed_scales, scale_mode
 from .optim import AdamState, global_norm
+from .parallel.collectives import data_axis, gather_rows, mean_grads
 from .utils.logging import get_logger
 from .utils.precision import LossScaleState, Policy, init_loss_scale, update_loss_scale
 
@@ -235,6 +257,19 @@ def _calibrate(model: nn.Module, holders, quant_keys, forward) -> None:
     commit_scales(holders)
 
 
+def _mesh_axis(mesh):
+    """The data axis of ``mesh`` when it has more than one rank, else None;
+    an fsdp or model axis above 1 raises (not ported)."""
+    if mesh is None:
+        return None
+    shape = mesh.shape
+    if shape.get("fsdp", 1) > 1 or shape.get("model", 1) > 1:
+        raise NotImplementedError(
+            "a mesh with an fsdp or model axis above 1 is not ported yet "
+            "(ROADMAP.md, Queue 1, item 8 'Parallel layers')")
+    return mesh.axis() if shape.get("data", 1) > 1 else None
+
+
 def _preprocess_train(images_u8, generator, tcfg, policy: Policy):
     return train_preprocess(
         images_u8, generator,
@@ -276,11 +311,12 @@ def make_clip_train_step(
 
     ``fn.calibrate_quant(state, batch, seed) -> state``: one forward on the
     step's images and tokens that re-anchors the delayed int8 scales (module
-    docstring), no optimizer step."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: the sharded train step and --local-loss are not ported yet "
-            "(ROADMAP.md, Queue 1, item 8 'Parallel layers')")
+    docstring), no optimizer step.
+
+    ``mesh``: the data axis (module docstring); ``--local-loss`` takes the
+    per-rank logits when the axis has more than one rank."""
+    axis = _mesh_axis(mesh)
+    use_local = axis is not None and bool(getattr(args, "local_loss", False))
     use_siglip = bool(args.siglip)
     accum = max(int(args.accum_freq), 1)
     ls = policy.loss_scale
@@ -289,16 +325,25 @@ def make_clip_train_step(
                      and getattr(args, "lock_image_freeze_bn_stats", False))
     holders, quant_keys = delayed_holders(model), set(delayed_scales(model))
 
-    def contrastive(out):
+    def contrastive(out, gathered: bool = False):
+        """The loss of the rank; ``gathered``: the features are the global
+        batch's already (the feature bank)."""
+        ax = {} if axis is None or gathered else {"axis_name": "data"}
         if use_siglip:
             bias = out.get("logit_bias")
             if bias is None:
                 bias = torch.zeros((), device=out["logit_scale"].device)
             return siglip_loss(out["image_features"], out["text_features"],
-                               out["logit_scale"], bias)
-        return clip_loss(out["image_features"], out["text_features"], out["logit_scale"])
+                               out["logit_scale"], bias, **ax)
+        if ax and use_local:
+            ax["local_loss"] = True
+        return clip_loss(out["image_features"], out["text_features"], out["logit_scale"], **ax)
 
     def step_fn(state: TrainState, batch, seed: int):
+        with data_axis(axis):
+            return _step(state, batch, seed)
+
+    def _step(state: TrainState, batch, seed: int):
         model = state.model
         model.train()
         dev = batch["image"].device
@@ -343,17 +388,18 @@ def make_clip_train_step(
                 outs = [encode(sl) for sl in slices]
                 for k, b in buffers.items():
                     b.copy_(stats[k])
-            bank = {key: [o[key] for o in outs] for key in ("image_features", "text_features")}
+            bank = {key: [gather_rows(o[key]) for o in outs]
+                    for key in ("image_features", "text_features")}
             loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
             for j, sl in enumerate(slices):
                 with scale_mode(holders, "record"):
                     out = encode(sl)
-                    full = {key: torch.cat(rows[:j] + [out[key]] + rows[j + 1:])
+                    full = {key: torch.cat(rows[:j] + [gather_rows(out[key])] + rows[j + 1:])
                             for key, rows in bank.items()}
                     full["logit_scale"] = out["logit_scale"]
                     if "logit_bias" in out:
                         full["logit_bias"] = out["logit_bias"]
-                    scaled = contrastive(full) * ls_
+                    scaled = contrastive(full, gathered=True) * ls_
                     scaled.backward()
                 commit_scales(holders)  # micro-batch j+1 quantizes with j's absmax
                 loss_sum += scaled.detach()
@@ -361,9 +407,11 @@ def make_clip_train_step(
         logit_scale = out["logit_scale"].detach().clone()
         for k, b in frozen_stats.items():
             buffers[k].copy_(b)
+        if axis is not None:
+            loss = mean_grads({"loss": loss})["loss"]
 
-        new_state, grads, extra = _finish_step(state, _collect_grads(params), tx, ls_, dyn,
-                                               clamp=True)
+        new_state, grads, extra = _finish_step(state, mean_grads(_collect_grads(params)), tx,
+                                               ls_, dyn, clamp=True)
         for k, p in params.items():
             p.grad = grads[k].to(p.dtype)
         metrics = {"loss": loss, "logit_scale": logit_scale, **extra}
@@ -376,6 +424,10 @@ def make_clip_train_step(
     def calibrate_quant(state, batch, seed):
         """Re-anchor the delayed scales on one real batch: the step's images
         (its preprocess stream) and tokens, its dropout stream."""
+        with data_axis(axis):
+            return _calibrate_quant(state, batch, seed)
+
+    def _calibrate_quant(state, batch, seed):
         model = state.model
         model.train()
         gens = step_generators(seed, state.step, batch["image"].device)
@@ -399,6 +451,7 @@ def make_classifier_train_step(
     class_weights: Optional[np.ndarray] = None,
     num_classes: int = 2,
     takes_text: bool = True,
+    mesh=None,
 ):
     """Stage-2 CE train step. Returns ``fn(state, batch, seed) -> (state,
     metrics)``; ``batch`` holds uint8 ``image`` (B, H, W, 3) and int
@@ -410,7 +463,9 @@ def make_classifier_train_step(
     averages their gradients. After the step each parameter's ``.grad``
     holds the gradient the optimizer was given (averaged, unscaled), in the
     parameter's type.
-    ``fn.calibrate_quant`` as :func:`make_clip_train_step`'s."""
+    ``fn.calibrate_quant`` as :func:`make_clip_train_step`'s; ``mesh``: the
+    data axis (module docstring)."""
+    axis = _mesh_axis(mesh)
     ls = policy.loss_scale
     holders, quant_keys = delayed_holders(model), set(delayed_scales(model))
     dynamic = bool(policy.dynamic_loss_scale)
@@ -418,8 +473,13 @@ def make_classifier_train_step(
     weights = None
     if class_weights is not None:
         weights = torch.as_tensor(np.asarray(class_weights, np.float32))
+    ax_name = "data" if axis is not None else None
 
     def step_fn(state: TrainState, batch, seed: int):
+        with data_axis(axis):
+            return _step(state, batch, seed)
+
+    def _step(state: TrainState, batch, seed: int):
         model = state.model
         model.train()
         dev = batch["image"].device
@@ -449,14 +509,17 @@ def make_classifier_train_step(
             inputs = (images[sl], tokens[sl]) if takes_text else (images[sl],)
             with scale_mode(holders, "record"):
                 logits = model(*inputs, generator=gens["dropout"])
-                scaled = cross_entropy_loss(logits, tgt[sl], weight=w) * ls_
+                scaled = cross_entropy_loss(logits, tgt[sl], weight=w,
+                                            axis_name=ax_name) * ls_
                 scaled.backward()
             commit_scales(holders)
             loss_sum += scaled.detach()
-        grads = _collect_grads(params)
+        grads = mean_grads(_collect_grads(params))
         if accum > 1:
             grads = {k: g / accum for k, g in grads.items()}
         loss = loss_sum / (ls_ * accum)
+        if axis is not None:
+            loss = mean_grads({"loss": loss})["loss"]
 
         new_state, grads, extra = _finish_step(state, grads, tx, ls_, dyn)
         for k, p in params.items():
@@ -470,6 +533,10 @@ def make_classifier_train_step(
 
     def calibrate_quant(state, batch, seed):
         """See :func:`make_clip_train_step`'s ``calibrate_quant``."""
+        with data_axis(axis):
+            return _calibrate_quant(state, batch, seed)
+
+    def _calibrate_quant(state, batch, seed):
         model = state.model
         model.train()
         gens = step_generators(seed, state.step, batch["image"].device)
@@ -533,6 +600,7 @@ def train_one_epoch(
     loader.start_batch = start_batch
     sample_digits = math.ceil(math.log10(max(loader.num_samples, 1) + 1))
     world = getattr(run_state, "world_size", 1) if run_state else 1
+    master = (getattr(run_state, "rank", 0) if run_state else 0) == 0
 
     batch_time_m, data_time_m = AverageMeter(), AverageMeter()
     losses_m: Dict[str, AverageMeter] = {}
@@ -600,13 +668,14 @@ def train_one_epoch(
                 info = " ".join(
                     f"{k}: {m.val:#.5g}" for k, m in sorted(losses_m.items())
                 )
-                logger.info(
-                    f"Train Epoch: {epoch} [{n_done:>{sample_digits}}/"
-                    f"{loader.num_samples} ({pct:.0f}%)] {info} "
-                    f"data: {data_time_m.avg:.3f}s "
-                    f"batch: {batch_time_m.val:.3f}s "
-                    f"samples/s: {sps:.1f} samples/s/device: {sps / max(world, 1):.1f}"
-                )
+                if master:
+                    logger.info(
+                        f"Train Epoch: {epoch} [{n_done:>{sample_digits}}/"
+                        f"{loader.num_samples} ({pct:.0f}%)] {info} "
+                        f"data: {data_time_m.avg:.3f}s "
+                        f"batch: {batch_time_m.val:.3f}s "
+                        f"samples/s: {sps:.1f} samples/s/device: {sps / max(world, 1):.1f}"
+                    )
                 if tb_writer is not None:
                     gstep = num_batches * epoch + i
                     for k, v in metrics.items():

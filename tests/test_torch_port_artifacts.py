@@ -346,9 +346,13 @@ def test_refusals_match_jax(tmp_path, mm):
         with pytest.raises(ValueError) as got:
             export_serving(str(tmp_path / "q"), "medmamba", quant=quant, precision="fp32")
         assert str(got.value) == str(want.value)
-    for quant in ("int8", "int8_fwd"):  # the aqt modes; int8_serve exports
-        with pytest.raises(NotImplementedError, match="item 7 'Quantized modes'"):
-            export_serving(str(tmp_path / "q"), "medmamba", quant=quant)
+    for quant in ("int8", "int8_fwd"):  # the aqt modes export, as int8_serve does
+        out = str(tmp_path / f"aqt_{quant}")
+        man = export_serving(out, "medmamba", variables=mm.model.state_dict(), quant=quant,
+                             **MM_KW)
+        assert man["quant"] == quant
+        loaded = load_serving(out, device="cpu")
+        assert loaded["manifest"]["quant"] == quant
     with pytest.raises(NotImplementedError, match="item 8 'Parallel layers'"):
         export_serving(str(tmp_path / "dp"), "medmamba", data_shards=8)
     # a sharded manifest, a JAX artifact, a module that does not match

@@ -204,15 +204,26 @@ def test_resume_latest_in_an_empty_logs_dir_starts_fresh(tiny, tmp_path):
     assert _rows(os.path.join(tmp_path, "fresh")) == [m]
 
 
+# --quant int8|int8_fwd and --local-loss run now (test_torch_port_aqt_modes.py,
+# test_torch_port_data_axis.py and below); their cases hold them beside an
+# axis that is still refused, which fails first
 UNPORTED = {
-    "quant": (["--quant", "int8"], 7),
+    "quant": (["--quant", "int8", "--mesh-fsdp", "2"], 8),
     "mesh_fsdp": (["--mesh-fsdp", "2"], 8),
     "mesh_model": (["--mesh-model", "2"], 8),
-    "local_loss": (["--local-loss"], 8),
+    "local_loss": (["--local-loss", "--mesh-model", "2"], 8),
     "remote_sync": (["--remote-sync", "/nowhere"], 9),
     "report_to_wandb": (["--report-to", "tensorboard,wandb"], 9),
     "hyperparameter_tuning": (["--hyperparameter-tuning"], 9),
 }
+
+
+def test_local_loss_in_a_world_of_one_is_the_global_loss(tiny, tmp_path):
+    """``--local-loss`` runs; in one process the rank's rows are the whole
+    batch, so the run is the one without it, metric for metric."""
+    m_local = main(_argv(tmp_path, "--stage", "1", "--local-loss", "--name", "local"))
+    m_plain = main(_argv(tmp_path, "--stage", "1", "--name", "plain"))
+    assert m_local == m_plain and np.isfinite(m_local["val_loss"])
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED))

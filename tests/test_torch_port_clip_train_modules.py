@@ -88,11 +88,17 @@ def test_contrastive_losses_match_jax(case):
 
 
 def test_losses_refuse_the_mesh_branches():
+    """The mesh branches are ported (two ranks against JAX's shard_map in
+    test_torch_port_data_axis.py); outside a data axis of several ranks
+    ``axis_name`` and ``local_loss`` leave the loss of the whole batch as it
+    is, bit for bit."""
     img, txt, scale, bias = (torch.tensor(a) for a in _features(seed=4))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tlosses.clip_loss(img, txt, scale, axis_name="data", local_loss=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tlosses.siglip_loss(img, txt, scale, bias, axis_name="data")
+    for local in (False, True):
+        assert torch.equal(tlosses.clip_loss(img, txt, scale, axis_name="data",
+                                             local_loss=local),
+                           tlosses.clip_loss(img, txt, scale))
+    assert torch.equal(tlosses.siglip_loss(img, txt, scale, bias, axis_name="data"),
+                       tlosses.siglip_loss(img, txt, scale, bias))
 
 
 # --- lock_mask ------------------------------------------------------------

@@ -355,14 +355,24 @@ def test_clip_step_refuses_the_mesh_and_calibrate_quant():
     args = Args(batch_size=BATCH, epochs=1)
     pol = get_policy("fp32")
     tcfg = get_transform_config(AUG, IMAGE, is_train=True)
+    # the data axis is ported (test_torch_port_data_axis.py); a mesh with an
+    # fsdp axis is not
+    from mamba_clip_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+
     with pytest.raises(NotImplementedError, match="item 8"):
-        ttrain.make_clip_train_step(model, None, pol, args, tcfg, mesh=object())
+        ttrain.make_clip_train_step(model, None, pol, args, tcfg,
+                                    mesh=SimpleNamespace(shape={"data": 1, "fsdp": 2}))
+    with pytest.raises(NotImplementedError, match="item 8"):
+        create_mesh(MeshSpec(fsdp=2))
     # calibrate_quant is ported (test_torch_port_quant_modes.py); the aqt
-    # modes, whose delayed scales it would re-anchor, are not
+    # modes build, and keep no delayed scales for it to re-anchor
+    from mamba_clip_tpu_torch.ops.qdot import delayed_holders
+
     for quant in ("int8", "int8_fwd"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            tclip.build_clip("biomedclip", image_size=32, context_length=16, vocab_size=128,
-                             quant=quant)
+        built = tclip.build_clip("biomedclip", image_size=32, context_length=16,
+                                 vocab_size=128, quant=quant)
+        assert not delayed_holders(built)
+        assert any(type(m).__name__.startswith("AqtInt8") for m in built.modules())
     args = Args(batch_size=BATCH, epochs=1, accum_freq=3)
     g = torch.Generator().manual_seed(0)
     model = tclip.ClipModel(tvit.VisionTransformer(**VIT, generator=g),

@@ -123,13 +123,16 @@ def test_params_txt_and_json_are_byte_equal(tmp_path):
 
 
 def test_ignored_flags_and_their_warnings():
-    assert set(tcfg.IGNORED_FLAGS) == set(jcfg.IGNORED_FLAGS)
+    # the port's ranks take --dist-url and --dist-backend (parallel/mesh.py);
+    # JAX ignores them
+    assert set(tcfg.IGNORED_FLAGS) == set(jcfg.IGNORED_FLAGS) - {"dist_url", "dist_backend"}
     assert not any("tpu" in why.lower() for why in tcfg.IGNORED_FLAGS.values())
     log = logging.getLogger("test-port-ignored")
     kw = dict(horovod=True, torchcompile=True, dist_backend="nccl", zero_shot=True)
     hit_t = tcfg.warn_ignored_flags(tcfg.Args(**kw), log)
     hit_j = jcfg.warn_ignored_flags(jcfg.Args(**kw), log)
-    assert hit_t == hit_j and set(hit_t) == set(kw)
+    assert hit_t == [k for k in hit_j if k != "dist_backend"]
+    assert set(hit_j) == set(kw)
     assert tcfg.warn_ignored_flags(tcfg.Args(), log) == []
 
 

@@ -256,7 +256,7 @@ def test_evaluate_matches_jax_on_the_same_split_and_weights(stage, tmp_path):
     assert teval.evaluate(tm, None, {}, 2, args, None, None, device="cpu") == {}
 
 
-def test_evaluate_unlabeled_split_single_column_probs_and_world():
+def test_evaluate_unlabeled_split_single_column_probs_and_world(monkeypatch):
     args = _eval_args(2)
     pol, tcfg = get_policy("fp32"), get_transform_config(None, IMAGE, is_train=False)
     _, _, tm = _classifier_pair(seed=2)
@@ -288,11 +288,18 @@ def test_evaluate_unlabeled_split_single_column_probs_and_world():
                          device="cpu")
     assert 0.0 <= got["partial_auc"] <= 0.2 and got["val_loss"] == 0.0
 
+    # world > 1 combines the ranks' shards (two gloo ranks against world 1
+    # in test_torch_port_data_axis.py); here a stand-in gather hands rank 0
+    # its own shard twice: the sums double, the metrics stay
     class Two:
-        world_size, rank = 2, 0
+        world_size, rank, checkpoint_path = 2, 0, None
 
-    with pytest.raises(NotImplementedError, match="world > 1"):
-        teval.evaluate(tm, None, tdata, 2, args, pol, tcfg, run_state=Two(), device="cpu")
+    base = teval.evaluate(tm, None, tdata, 2, args, pol, tcfg, device="cpu")
+    monkeypatch.setattr(teval, "_gather", lambda x, world: np.stack([np.asarray(x)] * world))
+    two = teval.evaluate(tm, None, tdata, 2, args, pol, tcfg, run_state=Two(), device="cpu")
+    assert two["num_samples"] == 2 * base["num_samples"]
+    assert two["val_loss"] == pytest.approx(base["val_loss"], rel=1e-12)
+    assert two["partial_auc"] == base["partial_auc"]
 
 
 def test_frozen_clip_still_runs_in_training_mode():

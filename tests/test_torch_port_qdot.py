@@ -13,7 +13,7 @@ both sides; the JAX side runs jitted, as the train steps run it. Gates:
 Also: the batched fp32 route is exact against an int32 einsum at T = 257
 (the longest attention contraction of the towers) and refuses a longer
 one than it can sum exactly; ``int_mm``'s padding is exact on ragged
-shapes; the Dense-pattern refusal, the ``int8``/``int8_fwd`` refusal and
+shapes; the Dense-pattern refusal, the ``int8``/``int8_fwd`` mapping to the aqt dots and
 the unknown-mode error.
 """
 
@@ -298,8 +298,18 @@ def test_dense_pattern_refusal_matches_jax():
 
 @pytest.mark.parametrize("quant", ["int8", "int8_fwd"])
 def test_aqt_modes_refuse_naming_item_7(quant):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
-        tquant.make_dot_general_cls(quant)
+    """The aqt modes no longer refuse: they map to the dots of
+    ``ops/aqt.py`` (held against the aqt library in test_torch_port_aqt.py),
+    which take the Dense pattern only and leave the interior alone."""
+    from mamba_clip_tpu_torch.ops import aqt as taqt
+
+    cls = tquant.make_dot_general_cls(quant)
+    assert cls is {"int8": taqt.AqtInt8DotGeneral, "int8_fwd": taqt.AqtInt8FwdDotGeneral}[quant]
+    assert issubclass(cls, tq._DenseDotGeneral)
+    assert not tquant.attn_int8(quant) and not tquant.attn_int8_delayed(quant)
+    lhs = torch.ones((2, 3, 4))
+    with pytest.raises(NotImplementedError, match=f"{cls.__name__} supports only"):
+        cls()(lhs, torch.ones((4, 5)), (((1,), (0,)), ((), ())))
 
 
 def test_mode_map_and_unknown_mode_match_jax():

@@ -474,7 +474,8 @@ def test_pipeline_runs_both_stages_under_int8_delayed(tmp_path, monkeypatch):
     """``--quant`` reaches stage 1 and stage 2 through the CLI's ``main()``
     and ``pipeline()``: the
     small CLIP is built with the mode, calibrated on its first batch, and
-    its checkpoints carry the delayed state; ``int8`` still refuses. JAX's
+    its checkpoints carry the delayed state; the aqt modes ``int8`` and
+    ``int8_fwd`` run stage 1 too, with no delayed state to carry. JAX's
     stage 2 cannot run this mode: its ``prepare_params`` gets the grafted
     ``init_params`` and no ``init_quant_stats`` (JAX ``pipeline.py``
     :749-753, :302-303), so the classifier's apply finds no ``quant``
@@ -510,8 +511,11 @@ def test_pipeline_runs_both_stages_under_int8_delayed(tmp_path, monkeypatch):
     assert len(saved["quant_stats"]) == 2 * 2 * 4 + 2 * 2 * 4 + 2  # blocks x Denses + patch
     assert not any("amax" in k for k in saved["batch_stats"])
     for q in ("int8", "int8_fwd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, item 7"):
-            main(argv[:-1] + [q, "--stage", "1"])
+        m = main(argv[:-1] + [q, "--stage", "1", "--name", f"aqt_{q}"])
+        assert np.isfinite(m["val_loss"]) and built[-1] == q
+        saved = torch.load(os.path.join(tmp_path, f"aqt_{q}", "checkpoints",
+                                        "stage_1_epoch_latest", "state.pt"), weights_only=True)
+        assert not saved.get("quant_stats")
     # JAX's stage 2: the state it builds holds no quant collection
     from flax.errors import ScopeCollectionNotFound
     from mamba_clip_tpu.models.heads import ClipClassifier as JClassifier

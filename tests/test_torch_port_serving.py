@@ -165,14 +165,18 @@ def test_bridge_refuses_missing_and_extra_leaves(slice_pair):
 
 
 def test_entry_points_refuse_unported_modes():
-    with pytest.raises(NotImplementedError, match="Quantized modes"):
-        make_serving_fns("biomedclip", quant="int8", device="cpu")
+    """The aqt modes serve (against JAX in test_torch_port_aqt_modes.py);
+    an unknown interior, a training mode and an unknown precision raise."""
+    model, fns, meta = make_serving_fns("medmamba", quant="int8", device="cpu",
+                                        precision="fp32", image_size=32, scan_impl="plain")
+    assert meta["quant"] == "int8"
+    assert any(type(m).__name__ == "AqtInt8DotGeneral" for m in model.modules())
     with pytest.raises(ValueError, match="einsum|flash"):
         make_serving_fns("biomedclip", attn_impl="bogus", device="cpu")
     with pytest.raises(ValueError, match="TRAINING mode"):
         make_serving_fns("medmamba", quant="int8_delayed", device="cpu")
-    with pytest.raises(NotImplementedError, match="Quantized modes"):
-        build_classifier("medmamba", quant="int8_fwd")
+    assert any(type(m).__name__ == "AqtInt8FwdDotGeneral"
+               for m in build_classifier("medmamba", quant="int8_fwd").modules())
     with pytest.raises(ValueError, match="unknown precision"):
         make_serving_fns("medmamba", precision="bogus", device="cpu")
 

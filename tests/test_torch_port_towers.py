@@ -246,18 +246,18 @@ def test_build_clip_refuses_flash_with_int8_attention(quant):
     with pytest.raises(ValueError) as j_err:
         jclip.build_clip("biomedclip", quant=quant, attn_flash=True, **small)
     assert str(t_err.value) == str(j_err.value)
-    # without flash the mode builds (test_torch_port_quant_modes.py); the
-    # aqt modes still refuse
+    # without flash the mode builds (test_torch_port_quant_modes.py); so
+    # do the aqt modes, with flash or without (they leave the interior alone)
     tclip.build_clip("biomedclip", quant=quant, **small)
-    with pytest.raises(NotImplementedError, match="Quantized modes"):
-        tclip.build_clip("biomedclip", quant="int8", **small)
+    tclip.build_clip("medmamba", quant="int8", attn_flash=True, **small)
 
 
 @pytest.mark.parametrize("kw", [dict(attn_int8=True), dict(attn_int8_delayed=True)])
 def test_training_and_quant_modes_raise(kw):
     """The int8 interiors build (they are held against JAX in
-    test_torch_port_quant_modes.py); the aqt dots, which the towers would
-    take beside them, raise. The training modes (patch dropout, gradient
+    test_torch_port_quant_modes.py), and so do the aqt dots beside them: the
+    towers' Dense layers take them and the interior keeps its own mode. The
+    training modes (patch dropout, gradient
     checkpointing, ``attn_remat``) are ported and tested in
     test_torch_port_clip_train_modules.py."""
     from mamba_clip_tpu_torch.ops.quant import make_dot_general_cls
@@ -268,8 +268,11 @@ def test_training_and_quant_modes_raise(kw):
                              and a.int8_delayed_interior == ("attn_int8_delayed" in kw)
                              for a in attns)
     for quant in ("int8", "int8_fwd"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tvit.VisionTransformer(**VIT, **kw, dot_general_cls=make_dot_general_cls(quant))
+        cls = make_dot_general_cls(quant)
+        tower = tvit.VisionTransformer(**VIT, **kw, dot_general_cls=cls)
+        assert any(isinstance(m, cls) for m in tower.modules())
+        assert all(a.int8_interior == ("attn_int8" in kw)
+                   for a in tower.modules() if isinstance(a, tvit.FusedAttention))
 
 
 def test_bridge_refuses_left_over_and_missing_leaves():
