@@ -339,7 +339,45 @@ on failure:
    refusal fails the phase). The one process runs in a one-rank NCCL
    world, which also runs the collective helpers and ``broadcast_object``
    on the card's tensors. Prints a ``data_axis`` JSON line;
-21. prints the kernels line (twelve entries: the two scan kernels, the
+21. hyperparameter search: (a) the CLI's ``main()`` with
+   ``--hyperparameter-tuning --hyperparameter-strategy asha`` over
+   full-width medmamba (``--synthetic-data``, ``amp``, image 224, 2 trials,
+   2 epochs, batch 64, 128 train and 64 validation samples): one trial
+   pruned at epoch 1, the winner's history 2 entries and the pruned one's
+   1, a finite ``val_loss``, 6 steps of 14 + 14 scan launches and 3
+   evaluations of 14 forward launches, each trial-epoch timed; (b) a
+   ``TrialRunner`` of the same flags steps one epoch (2 x (14 + 14) + 14)
+   and saves; a fresh one restores it: parameters, buffers, moments, count,
+   step and epoch bit for bit; (c) ``--hyperparameter-strategy optuna`` and
+   ``ray``: where ``find_spec`` finds no package, an ``ImportError`` that
+   names it and no launch; where it finds one, the phase says so and runs
+   its search (1 trial, 1 epoch). Prints an ``hpo`` JSON line;
+22. the utilities, every count set to 0 just before each run and read just
+   after: (a) behind a ``find_spec("fsspec")`` check, the CLI on the
+   medmamba classifier (1 epoch, 2 steps of 14 + 14, an evaluation of 14)
+   with ``--remote-sync file://<temp dir>`` every second; once its epoch
+   checkpoint is mirrored byte for byte, the local checkpoints are deleted
+   and ``--resume latest`` of the same name must log the remote one,
+   evaluate it without a step (14 launches) and give the first run's
+   metrics bit for bit; without fsspec, the run must raise ``remote sync
+   startup validation failed`` with a logged line naming fsspec, and the
+   phase says which branch ran; (b) ``--report-to wandb`` runs to its end
+   with one warning where wandb is not installed (an installed one runs
+   with ``WANDB_MODE=disabled``); (c) ``profile_step`` traces 3 steps of the
+   full-width flash contrastive step (after 3 warm-up steps): its
+   attribution table printed, the hand-written class 72 kernels a step,
+   the flash counters 24 + 24 + 24 a traced step and no scan, the classes
+   summing to the profiler's device total within 1e-3. Prints a
+   ``utilities`` JSON line;
+23. the VSSM decoder at full width, mirroring medmamba's encoder:
+   ``VSSLayerUp(upsample=True)`` from 7x7x512 to 256, 128 and 64 channels
+   (depths 8, 2, 2) and ``FinalPatchExpand2D(dim_scale=4)`` to
+   224x224x16, batch 8, amp, random weights from seed 0, training mode:
+   one forward and backward makes 12 forward and 12 backward scan
+   launches; each recorded scan's output and its 7 gradients are held
+   against the plain loop on its own inputs at 5e-4; ms forward and ms
+   forward + backward. Prints a ``decoder`` JSON line;
+24. prints the kernels line (twelve entries: the two scan kernels, the
    roofline's chain kernel, and each flash kernel as three entries, one a
    body and type: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
@@ -352,7 +390,7 @@ on failure:
    the ceilings phase 11 measured, its shares of both, and its instances;
    the forward's tensor-core entries are serving's pair, their training
    launches under ``training``; each scan entry with its instances; the
-   launches include phases 19 and 20's, those of phase 20's rank processes
+   launches include phases 19-23's, those of phase 20's rank processes
    counted there), then the device line last.
 
 Phases 1-10 run at the depth and iteration counts they had before phases
@@ -2622,6 +2660,401 @@ def axis_phase(card):
     return line, launches, bodies
 
 
+class LaunchTally:
+    """Every count set to 0 just before a driven call and read just after,
+    with the launches it must make; the totals over the calls, by counter
+    and by flash body."""
+
+    def __init__(self, counters, phase):
+        self.reset, self.read, self.bodies = counters
+        self.phase = phase
+        self.total = {k: 0 for k in self.read()}
+        self.total_bodies = {k: {"tensor_cores": 0, "cuda_cores": 0}
+                             for k in ("fwd", "dkv", "dq")}
+
+    def add(self, counts, bodies):
+        for k in self.total:
+            self.total[k] += counts[k]
+        for k, by in bodies.items():
+            for body, c in by.items():
+                self.total_bodies[k][body] += c
+
+    def __call__(self, what, fn, want):
+        """``fn()``; fails unless its launches are ``want`` (0 for a counter
+        not named), every flash launch on the tensor cores."""
+        import torch
+
+        self.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        counts, bodies = self.read(), self.bodies()
+        full = {k: want.get(k, 0) for k in counts}
+        if counts != full or any(by["cuda_cores"] for by in bodies.values()):
+            fail(f"{self.phase} {what}: launches {counts}, by body {bodies}; expected {full} "
+                 "on the tensor cores")
+        self.add(counts, bodies)
+        return out
+
+
+def hpo_phase(card, reset_counts, read_counts, flash_bodies):
+    """Phase 21: the native ASHA search through the CLI at full width, a
+    TrialRunner's save and restore, and the optuna and ray gates, each gate
+    as the module docstring says. Returns (the ``hpo`` line's fields, the
+    launches by counter, the flash launches by body)."""
+    import numpy as np
+    import torch
+
+    from mamba_clip_tpu_torch import eval as eval_mod
+    from mamba_clip_tpu_torch.config import parse_args
+    from mamba_clip_tpu_torch.integrations import runner as runner_mod
+
+    counters = (reset_counts, read_counts, flash_bodies)
+    tally = LaunchTally(counters, "hpo")
+    logs = tempfile.mkdtemp(prefix="chip_smoke_hpo_")
+    flags = ["--synthetic-data", "--model", "medmamba", "--precision", "amp",
+             "--training-iterations", "2", "--epochs", "2", "--batch-size", "64",
+             "--train-num-samples", "128", "--val-num-samples", "64", "--workers", "4",
+             "--log-every-n-steps", "1", "--logs", logs, "--seed", "0"]
+    asha = ["--hyperparameter-tuning", "--hyperparameter-strategy", "asha"] + flags
+    per_step = {"scan_fwd": 14, "scan_bwd": 14}
+    line = {"card": card}
+    try:
+        # (a) the search through the CLI: the trial-epochs timed, each
+        # evaluation's launches recorded (TrialRunner.step calls eval.evaluate)
+        epochs, evals = [], []
+        orig_step, orig_eval = runner_mod.TrialRunner.step, eval_mod.evaluate
+
+        def timed_step(self):
+            t0 = time.perf_counter()
+            out = orig_step(self)
+            torch.cuda.synchronize()
+            epochs.append({"trial": self.trial_id, "s": time.perf_counter() - t0})
+            return out
+
+        def counted_eval(*a, **k):
+            c0 = read_counts()
+            out = orig_eval(*a, **k)
+            torch.cuda.synchronize()
+            evals.append({k_: v - c0[k_] for k_, v in read_counts().items()})
+            return out
+
+        runner_mod.TrialRunner.step, eval_mod.evaluate = timed_step, counted_eval
+        try:
+            rec = run_cli(counters, "asha", asha)
+        finally:
+            runner_mod.TrialRunner.step, eval_mod.evaluate = orig_step, orig_eval
+        tally.add(rec["total"], rec["total_bodies"])
+        result = rec["metrics"]
+        best, pruned = result["best_trial"], result["pruned"]
+        hist = result["history"]
+        if len(pruned) != 1 or best == pruned[0] or len(hist[best]) != 2 \
+                or len(hist[pruned[0]]) != 1:
+            fail(f"hpo asha: best {best}, pruned {pruned}, history lengths "
+                 f"{[len(h) for h in hist]}; expected one trial pruned at epoch 1 and the "
+                 "winner trained 2 epochs")
+        if not np.isfinite(result["best_metrics"]["val_loss"]):
+            fail(f"hpo asha: best metrics {result['best_metrics']}")
+        no_launch = {k: 0 for k in rec["total"]}
+        steps = [st["launches"] for st in rec["steps"]]
+        # 3 trial-epochs of 2 steps (128 samples at batch 64), each followed
+        # by an evaluation of 1 batch
+        if len(steps) != 6 or any(st != {**no_launch, **per_step} for st in steps):
+            fail(f"hpo asha: launches a step {steps}, expected 6 x {per_step}")
+        if len(evals) != 3 or any(ev != {**no_launch, "scan_fwd": 14} for ev in evals):
+            fail(f"hpo asha: launches an evaluation {evals}, expected 3 x 14 forward")
+        want_total = {**no_launch, "scan_fwd": 6 * 14 + 3 * 14, "scan_bwd": 6 * 14}
+        if rec["total"] != want_total:
+            fail(f"hpo asha: launches {rec['total']}, expected {want_total}")
+        line["asha"] = {
+            "wall_s": rec["wall_s"], "best_trial": best, "pruned": pruned,
+            "val_loss": [[float(m["val_loss"]) for m in h] for h in hist],
+            "trial_epoch_ms": [1e3 * e["s"] for e in epochs],
+            "ms_per_step": [1e3 * st["s"] for st in rec["steps"]],
+            "launches": rec["total"]}
+        say(f"hpo asha: {rec['wall_s']:.1f} s, trial {best} best, {pruned} pruned; trial-epochs "
+            f"{[round(1e3 * e['s'], 1) for e in epochs]} ms; val_loss {line['asha']['val_loss']}")
+
+        # (b) a TrialRunner saves after one epoch; a fresh one restores it
+        args = parse_args(flags)
+        r1 = runner_mod.TrialRunner(args, trial_id=0)
+        tally("TrialRunner.step", r1.step, {"scan_fwd": 2 * 14 + 14, "scan_bwd": 2 * 14})
+        path = r1.save(tempfile.mkdtemp(prefix="trial_", dir=logs))
+        r2 = runner_mod.TrialRunner(args, trial_id=0)
+        r2.restore(path)
+        a, b = r1.model.state_dict(), r2.model.state_dict()
+        s1, s2 = r1.params["state"], r2.params["state"]
+        same = (a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+                and all(torch.equal(v, s2.opt_state.mu[k]) and
+                        torch.equal(s1.opt_state.nu[k], s2.opt_state.nu[k])
+                        for k, v in s1.opt_state.mu.items()))
+        if not (same and r2.epoch == r1.epoch == 1 and s2.step == s1.step == 2
+                and s2.opt_state.count == s1.opt_state.count):
+            fail(f"hpo TrialRunner: the restore differs (bit for bit: {same}, epoch "
+                 f"{r2.epoch}, step {s2.step})")
+        line["trial_runner_restore_bit_for_bit"] = True
+        say(f"hpo TrialRunner: saved after epoch 1 ({path}) and restored bit for bit")
+        del r1, r2, s1, s2, a, b
+
+        # (c) the optuna and ray strategies: their gates, or their search
+        line["gates"] = {}
+        for name in ("optuna", "ray"):
+            argv = ["--hyperparameter-tuning", "--hyperparameter-strategy", name] + flags
+            if importlib.util.find_spec(name) is None:
+                rec = run_cli(counters, name, argv, raises=ImportError)
+                if f"{name}" not in rec["error"] or rec["total"] != no_launch:
+                    fail(f"hpo {name}: {rec['error']} does not name the package, or launched "
+                         f"{rec['total']}")
+                line["gates"][name] = rec["error"]
+                say(f"hpo {name}: not installed here; the strategy raises {rec['error']}")
+            else:
+                say(f"hpo {name}: installed here; running its search")
+                rec = run_cli(counters, name,
+                              argv + ["--training-iterations", "1", "--epochs", "1"])
+                tally.add(rec["total"], rec["total_bodies"])
+                line["gates"][name] = f"ran: {rec['metrics']}"
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+    return line, tally.total, tally.total_bodies
+
+
+def utilities_phase(card, reset_counts, read_counts, flash_bodies):
+    """Phase 22: ``--remote-sync`` then ``--resume latest`` from the remote
+    copy, ``--report-to wandb``, and ``profile_step`` on the flash
+    contrastive step, each gate as the module docstring says. Returns (the
+    ``utilities`` line's fields, the launches by counter, the flash
+    launches by body)."""
+    import numpy as np
+    import torch
+
+    from mamba_clip_tpu_torch.checkpoint import RemoteSyncThread
+    from mamba_clip_tpu_torch.profile_step import profile_step
+    from mamba_clip_tpu_torch.utils.profiling import HAND_WRITTEN, classify_op
+
+    counters = (reset_counts, read_counts, flash_bodies)
+    tally = LaunchTally(counters, "utilities")
+    logs = tempfile.mkdtemp(prefix="chip_smoke_util_")
+    flags = ["--synthetic-data", "--model-stage-1", "medmamba", "--precision", "amp",
+             "--batch-size", "64", "--epochs", "1", "--train-num-samples", "128",
+             "--val-num-samples", "64", "--workers", "4", "--logs", logs,
+             "--log-every-n-steps", "1"]
+    step = {"scan_fwd": 14, "scan_bwd": 14}
+    line = {"card": card}
+
+    def stop_sync_threads():
+        for t in threading.enumerate():
+            if isinstance(t, RemoteSyncThread):
+                t.stop()
+                t.join(timeout=30)
+
+    try:
+        # (a) the remote sync, behind fsspec
+        remote = os.path.join(logs, "remote")
+        sync = ["--name", "sync", "--remote-sync", f"file://{remote}"]
+        if importlib.util.find_spec("fsspec") is None:
+            rec = run_cli(counters, "remote sync without fsspec", flags + sync,
+                          raises=RuntimeError)
+            named = [ln for ln in rec["lines"] if "fsspec" in ln]
+            if "remote sync startup validation failed" not in rec["error"] or not named:
+                fail(f"utilities remote sync: {rec['error']}; no line names fsspec")
+            line["remote_sync"] = {"branch": "no fsspec", "error": rec["error"],
+                                   "logged": named}
+            say(f"utilities remote sync: fsspec is not installed here; {rec['error']}, "
+                f"logged {named}")
+        else:
+            try:
+                rec1 = run_cli(counters, "remote sync", flags + sync + [
+                    "--remote-sync-frequency", "1"])
+                check_cli_steps(rec1, "remote sync", 2, step, {"scan_fwd": 14}, 1)
+                tally.add(rec1["total"], rec1["total_bodies"])
+                ckpts = os.path.join(logs, "sync", "checkpoints")
+                local = os.path.join(ckpts, "stage_1_epoch_1", "state.pt")
+                mirror = os.path.join(remote, "sync", "checkpoints", "stage_1_epoch_1",
+                                      "state.pt")
+                t0 = time.perf_counter()
+                while time.perf_counter() - t0 < 120 and not (
+                        os.path.exists(mirror)
+                        and os.path.getsize(mirror) == os.path.getsize(local)):
+                    time.sleep(0.2)
+                stop_sync_threads()
+                wait_s = time.perf_counter() - t0
+                with open(local, "rb") as f, open(mirror, "rb") as g:
+                    if f.read() != g.read():
+                        fail("utilities remote sync: the mirrored checkpoint differs")
+                for n in os.listdir(ckpts):
+                    if n.startswith("stage_1_epoch"):
+                        shutil.rmtree(os.path.join(ckpts, n))
+                rec2 = run_cli(counters, "resume latest from the remote copy",
+                               flags + sync + ["--resume", "latest"])
+                want = f"Resuming from latest checkpoint: file://{remote}/sync/checkpoints/" \
+                       "stage_1_epoch_1"
+                if want not in rec2["lines"] or rec2["steps"] \
+                        or rec2["total"] != {**{k: 0 for k in rec2["total"]}, "scan_fwd": 14}:
+                    fail(f"utilities remote resume: {len(rec2['steps'])} steps, launches "
+                         f"{rec2['total']}, '{want}' logged: {want in rec2['lines']}")
+                if rec2["metrics"] != rec1["metrics"]:
+                    fail(f"utilities remote resume: metrics {rec2['metrics']} against the "
+                         f"run that wrote the checkpoint {rec1['metrics']}")
+                tally.add(rec2["total"], rec2["total_bodies"])
+            finally:
+                stop_sync_threads()
+            line["remote_sync"] = {"branch": "fsspec", "run_s": rec1["wall_s"],
+                                   "mirror_wait_s": wait_s, "resume_s": rec2["wall_s"],
+                                   "metrics_bit_for_bit": True}
+            say(f"utilities remote sync: run {rec1['wall_s']:.1f} s, checkpoint mirrored "
+                f"{wait_s:.1f} s after it, resumed from file://{remote}: the metrics bit "
+                "for bit")
+
+        # (b) --report-to wandb: one warning where wandb is not installed (a
+        # wandb that is installed runs with WANDB_MODE=disabled: no network)
+        has_wandb = importlib.util.find_spec("wandb") is not None
+        mode = os.environ.get("WANDB_MODE")
+        if has_wandb:
+            os.environ["WANDB_MODE"] = "disabled"
+        try:
+            rec = run_cli(counters, "report to wandb", flags + ["--report-to", "wandb"])
+        finally:
+            if has_wandb and mode is None:
+                del os.environ["WANDB_MODE"]
+            elif has_wandb:
+                os.environ["WANDB_MODE"] = mode
+        check_cli_steps(rec, "report to wandb", 2, step, {"scan_fwd": 14}, 1)
+        tally.add(rec["total"], rec["total_bodies"])
+        warned = [ln for ln in rec["lines"] if "wandb" in ln]
+        if not has_wandb and warned != ["wandb requested via --report-to but not installed"]:
+            fail(f"utilities wandb: warnings {warned}, expected one")
+        line["wandb"] = {"installed": has_wandb, "warnings": warned, "wall_s": rec["wall_s"]}
+        say(f"utilities wandb: installed {has_wandb}; ran in {rec['wall_s']:.1f} s; {warned}")
+
+        # (c) profile_step on the flash contrastive step of full-width BiomedCLIP
+        gc.collect()
+        torch.cuda.empty_cache()
+        steps = 3
+        # 3 warm-up steps and the traced ones
+        r = tally("profile_step", lambda: profile_step("biomedclip", 64, "amp", "flash",
+                                                       steps=steps, top=12),
+                  {"fwd": 24 * (3 + steps), "dkv": 24 * (3 + steps), "dq": 24 * (3 + steps)})
+        say(r["table"])
+        want = {"selective_scan_fwd": 0, "selective_scan_bwd": 0, "flash_attn_fwd": 24 * steps,
+                "flash_attn_bwd_dkv": 24 * steps, "flash_attn_bwd_dq": 24 * steps}
+        total_ms = sum(ms for _, ms, _ in r["rows"])
+        if r["launches"] != want or r["hand_written_per_step"] != 72:
+            fail(f"profile_step: the hand-written class has {r['hand_written_per_step']} "
+                 f"kernels a step, the counters {r['launches']}; expected 72 and {want}")
+        if abs(total_ms - r["device_ms_per_step"]) > 1e-3 * r["device_ms_per_step"] \
+                or not np.isfinite(r["loss"]):
+            fail(f"profile_step: the classes sum to {total_ms} ms a step, the trace's device "
+                 f"total is {r['device_ms_per_step']} ms (loss {r['loss']})")
+        other = sorted(((us / steps / 1e3, n) for n, us in r["times"].items()
+                        if classify_op(n) == "other"), reverse=True)[:8]
+        say("profile_step: the costliest kernels of class other: "
+            + "; ".join(f"{ms:.3f} ms {n[:90]}" for ms, n in other))
+        line["profile_step"] = {
+            "rows": [[c, ms, n] for c, ms, n in r["rows"]], "other_kernels": other,
+            "device_ms_per_step": r["device_ms_per_step"], "classes_ms": total_ms,
+            "wall_ms_per_step_traced": r["wall_ms_per_step"], "hand_written": HAND_WRITTEN,
+            "hand_written_per_step": r["hand_written_per_step"], "loss": r["loss"]}
+    finally:
+        shutil.rmtree(logs, ignore_errors=True)
+    return line, tally.total, tally.total_bodies
+
+
+def decoder_phase(card, reset_counts, read_counts, flash_bodies):
+    """Phase 23: the VSSM decoder at full width, each gate as the module
+    docstring says. Returns (the ``decoder`` line's fields, the launches by
+    counter, the flash launches by body)."""
+    import torch
+
+    from mamba_clip_tpu_torch.models import vssm
+    from mamba_clip_tpu_torch.ops.selective_scan import (_scan_tm_plain, _scan_tm_plain_bwd,
+                                                         selective_scan_bwd,
+                                                         selective_scan_fwd)
+
+    tally = LaunchTally((reset_counts, read_counts, flash_bodies), "decoder")
+    g = torch.Generator().manual_seed(0)
+    cdt = torch.bfloat16  # amp: fp32 parameters, bf16 compute
+    decoder = torch.nn.Sequential(
+        vssm.VSSLayerUp(256, 8, upsample=True, dtype=cdt, generator=g),
+        vssm.VSSLayerUp(128, 2, upsample=True, dtype=cdt, generator=g),
+        vssm.VSSLayerUp(64, 2, upsample=True, dtype=cdt, generator=g),
+        vssm.FinalPatchExpand2D(64, dim_scale=4, dtype=cdt, generator=g),
+    ).cuda().train()
+    n_params = sum(p.numel() for p in decoder.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(8, 7, 7, 512, generator=gen, device="cuda")
+    w = torch.randn(8, 224, 224, 16, generator=gen, device="cuda")
+
+    calls = []
+    scan = vssm.selective_scan_tm
+
+    def recording_scan(u, delta, A, B, C, D=None, delta_bias=None, delta_softplus=False,
+                       impl=None):
+        y = scan(u, delta, A, B, C, D, delta_bias, delta_softplus, impl)
+        rec = {"args": [t.detach().contiguous() for t in (u, delta, A, B, C, D, delta_bias)],
+               "softplus": delta_softplus, "y": y.detach()}
+        y.register_hook(lambda g_: rec.update(dy=g_.detach().float().contiguous()))
+        calls.append(rec)
+        return y
+
+    def fwd_bwd():
+        xi = x.clone().requires_grad_(True)
+        out = decoder(xi)
+        (out.float() * w).sum().backward()
+        return out, xi.grad
+
+    vssm.selective_scan_tm = recording_scan
+    try:
+        out, dx = tally("forward and backward", fwd_bwd, {"scan_fwd": 12, "scan_bwd": 12})
+    finally:
+        vssm.selective_scan_tm = scan
+    if tuple(out.shape) != (8, 224, 224, 16) or not torch.isfinite(out).all() \
+            or not torch.isfinite(dx).all():
+        fail(f"decoder: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}, "
+             f"input gradient finite {bool(torch.isfinite(dx).all())}")
+    if len(calls) != 12 or any("dy" not in c for c in calls):
+        fail(f"decoder: {len(calls)} scans with {sum('dy' in c for c in calls)} gradients, "
+             "expected 12")
+    worst_f = worst_b = 0.0
+    shapes = []
+    for c in calls:
+        u, delta, A, B, C, D, bias = c["args"]
+        args = (u, delta, A.float().contiguous(), B, C, D.float(), bias.float())
+        with torch.no_grad():
+            y_p, hck_p = _scan_tm_plain(*args, c["softplus"], return_hck=True)
+        (rel_f, _), = rel_errs([c["y"]], [y_p])
+        _, hck = selective_scan_fwd(*args, c["softplus"], with_hck=True)
+        g_k = selective_scan_bwd(*args, c["softplus"], c["dy"], hck)
+        g_p = _scan_tm_plain_bwd(*args, c["softplus"], c["dy"], hck_p)
+        rel_b = max(r for r, _ in rel_errs(g_k, g_p))
+        shapes.append([u.shape[0], u.shape[2], u.shape[3], str(u.dtype)])
+        say(f"decoder scan B={u.shape[0]} L={u.shape[2]} DG={u.shape[3]} {u.dtype}: forward "
+            f"rel_err {rel_f:.2e}, backward {rel_b:.2e} "
+            f"{'ok' if max(rel_f, rel_b) <= GATE_REL else 'FAIL'}")
+        if not max(rel_f, rel_b) <= GATE_REL:
+            fail(f"decoder: a scan disagrees with the plain loop on its own inputs: forward "
+                 f"{rel_f:.3e}, backward {rel_b:.3e}")
+        worst_f, worst_b = max(worst_f, rel_f), max(worst_b, rel_b)
+    del calls, out, dx
+
+    def forward():
+        with torch.no_grad():
+            decoder(x)
+
+    def forward_backward():
+        decoder.zero_grad(set_to_none=True)
+        out = decoder(x)
+        (out.float() * w).sum().backward()
+
+    ms_f = cuda_ms(forward, 5)
+    ms_fb = cuda_ms(forward_backward, 5)
+    line = {"card": card, "parameters": n_params, "batch": 8, "input": [8, 7, 7, 512],
+            "output": [8, 224, 224, 16], "scan_shapes": shapes,
+            "scan_fwd_max_rel_err": worst_f, "scan_bwd_max_rel_err": worst_b,
+            "ms_forward": ms_f, "ms_forward_backward": ms_fb}
+    say(f"decoder: {n_params / 1e6:.2f} M parameters, batch 8, 7x7x512 -> 224x224x16: "
+        f"forward {ms_f:.2f} ms, forward + backward {ms_fb:.2f} ms on {card}")
+    return line, tally.total, tally.total_bodies
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one card.")
     ap.add_argument("--clip-check-seeds", type=int, nargs="+", default=None,
@@ -4269,7 +4702,37 @@ def main(argv=None) -> None:
     axis_line["phase_s"] = time.perf_counter() - t20
     say(json.dumps({"data_axis": axis_line}))
 
-    # 21. kernels line, then the device line. Each attention kernel as three
+    # 21. the native ASHA search through the CLI at full width, a TrialRunner's
+    # save and restore, and the optuna and ray gates, through the scan kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    t21 = time.perf_counter()
+    hpo_line, hpo_launches, hpo_bodies = hpo_phase(card, reset_counts, read_counts,
+                                                   flash_bodies)
+    hpo_line["phase_s"] = time.perf_counter() - t21
+    say(json.dumps({"hpo": hpo_line}))
+
+    # 22. the utilities: --remote-sync and a resume from the remote copy,
+    # --report-to wandb, and profile_step's attribution of the flash
+    # contrastive step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t22 = time.perf_counter()
+    util_line, util_launches, util_bodies = utilities_phase(card, reset_counts, read_counts,
+                                                            flash_bodies)
+    util_line["phase_s"] = time.perf_counter() - t22
+    say(json.dumps({"utilities": util_line}))
+
+    # 23. the VSSM decoder at full width through both scan kernels
+    gc.collect()
+    torch.cuda.empty_cache()
+    t23 = time.perf_counter()
+    dec_line, dec_launches, dec_bodies = decoder_phase(card, reset_counts, read_counts,
+                                                       flash_bodies)
+    dec_line["phase_s"] = time.perf_counter() - t23
+    say(json.dumps({"decoder": dec_line}))
+
+    # 24. kernels line, then the device line. Each attention kernel as three
     # entries, one a body and type: the tensor cores in bf16 (what serving and
     # training under amp and pure_bf16 run, its launches from the main path),
     # the tensor cores in fp16 (training under fp16 and pure_fp16, its
@@ -4289,17 +4752,18 @@ def main(argv=None) -> None:
                    "medmamba_clip_train": mm_train_bodies, "clip_train_fp32": fp32_bodies,
                    "cli": cli_bodies, "serving_http": http_bodies, "real_data": real_bodies,
                    "quant": quant_bodies, "aqt": aqt_bodies, "data_axis": axis_bodies,
+                   "hpo": hpo_bodies, "utilities": util_bodies, "decoder": dec_bodies,
                    # phase 18's bf16 launches; its fp16 ones are the fp16 entries'
                    "precision": {k: {"tensor_cores": by["tensor_cores"] - fp16_launches[k],
                                      "cuda_cores": by["cuda_cores"]}
                                  for k, by in prec_bodies.items()}}
     main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2", "cli",
                           "serving_http", "real_data", "quant", "precision", "aqt",
-                          "data_axis"),
+                          "data_axis", "utilities"),
                   "dkv": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
-                          "precision", "aqt", "data_axis"),
+                          "precision", "aqt", "data_axis", "utilities"),
                   "dq": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
-                         "precision", "aqt", "data_axis")}
+                         "precision", "aqt", "data_axis", "utilities")}
     flash_launches = {key: {"tensor_cores": sum(flash_paths[p][key]["tensor_cores"]
                                                 for p in paths),
                             "tensor_cores_fp16": fp16_launches[key],
@@ -4389,14 +4853,19 @@ def main(argv=None) -> None:
         "replaces": "src/mamba_clip_tpu/ops/selective_scan.py:194",
         "launches": (launches + train_fwd + cli_launches["scan_fwd"]
                      + http_launches["scan_fwd"] + quant_launches["scan_fwd"]
-                     + prec_launches["scan_fwd"] + aqt_launches["scan_fwd"]),
+                     + prec_launches["scan_fwd"] + aqt_launches["scan_fwd"]
+                     + hpo_launches["scan_fwd"] + util_launches["scan_fwd"]
+                     + dec_launches["scan_fwd"]),
         "launches_by_path": {"serve": launches, "train": train_fwd, "clip_serve": clip_scans,
                              "medmamba_clip_image_embed": mm_launches["image_embed"]["scan"],
                              "cli": cli_launches["scan_fwd"],
                              "serving_http": http_launches["scan_fwd"],
                              "quant": quant_launches["scan_fwd"],
                              "precision": prec_launches["scan_fwd"],
-                             "aqt": aqt_launches["scan_fwd"]},
+                             "aqt": aqt_launches["scan_fwd"],
+                             "hpo": hpo_launches["scan_fwd"],
+                             "utilities": util_launches["scan_fwd"],
+                             "decoder": dec_launches["scan_fwd"]},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": fwd_k,
@@ -4411,13 +4880,18 @@ def main(argv=None) -> None:
         "source": "src/mamba_clip_tpu_torch/csrc/selective_scan_bwd.cu",
         "replaces": "src/mamba_clip_tpu/ops/selective_scan.py:243",
         "launches": (train_bwd + cli_launches["scan_bwd"] + quant_launches["scan_bwd"]
-                     + prec_launches["scan_bwd"] + aqt_launches["scan_bwd"]),
+                     + prec_launches["scan_bwd"] + aqt_launches["scan_bwd"]
+                     + hpo_launches["scan_bwd"] + util_launches["scan_bwd"]
+                     + dec_launches["scan_bwd"]),
         "launches_by_path": {"serve": serve_bwd, "train": train_bwd,
                              "cli": cli_launches["scan_bwd"],
                              "serving_http": http_launches["scan_bwd"],
                              "quant": quant_launches["scan_bwd"],
                              "precision": prec_launches["scan_bwd"],
-                             "aqt": aqt_launches["scan_bwd"]},
+                             "aqt": aqt_launches["scan_bwd"],
+                             "hpo": hpo_launches["scan_bwd"],
+                             "utilities": util_launches["scan_bwd"],
+                             "decoder": dec_launches["scan_bwd"]},
         "max_abs_err": bwd_abs,
         "max_rel_err": bwd_rel,
         "ms": bwd_k_step,

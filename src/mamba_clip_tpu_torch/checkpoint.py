@@ -1,10 +1,11 @@
 """Checkpointing and resume discovery.
 
 Counterpart of ``mamba_clip_tpu/checkpoint.py``: ``natural_key``,
-``get_latest_checkpoint`` (local), ``parse_step_checkpoint``,
+``get_latest_checkpoint``, ``parse_step_checkpoint``,
 ``validate_step_resume``, ``save_checkpoint``, ``load_checkpoint``,
-``load_params_only``, ``StepCheckpointer``, ``delete_previous_checkpoint``
-and ``wait_for_checkpoints``.
+``load_params_only``, ``StepCheckpointer``, ``delete_previous_checkpoint``,
+``wait_for_checkpoints``, ``remote_sync``, ``RemoteSyncThread`` and
+``start_sync_process``.
 
 The payload is the JAX package's: parameters, the Adam moments and count,
 batch statistics (the model's buffers but its delayed int8 scales), step,
@@ -29,15 +30,23 @@ paths joined with ``/``, Flax layouts) into a port ``ClipModel``, through
 ``convert.py``'s name and layout rules, with ``_cubic_resize_matrix`` and
 ``resample_pos_embed`` for a ViT grid at another ``--force-image-size``.
 
-``remote_sync`` is not ported (ROADMAP.md, Queue 1, item 9).
+The remote sync of ``--remote-sync``: ``remote_sync`` copies a run
+directory to an fsspec URL (or a local directory) one pass at a time,
+``RemoteSyncThread``/``start_sync_process`` repeat it in the background,
+and ``get_latest_checkpoint(remote=True)`` discovers checkpoints there.
+``load_checkpoint`` and ``load_params_only`` read a checkpoint under a URL
+(``<protocol>://...``) through fsspec; a plain path loads from the disk.
+``fsspec`` is imported inside these functions only.
 """
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
 import shutil
+import threading
 from dataclasses import replace
 from typing import Dict, Optional
 
@@ -111,15 +120,22 @@ def natural_key(s: str):
 def get_latest_checkpoint(
     path: str, remote: bool = False, prefix: str = ""
 ) -> Optional[str]:
-    """Newest ``[<prefix>]epoch_<N>`` checkpoint under the local directory
-    `path`. Checkpoints are written as ``stage_<S>_epoch_<N>``, so
-    discovery matches numbered epochs with the given stage prefix and skips
+    """Newest ``[<prefix>]epoch_<N>`` checkpoint under `path`, a local
+    directory or, with ``remote``, an fsspec URL (a local directory too).
+    Checkpoints are written as ``stage_<S>_epoch_<N>``, so discovery
+    matches numbered epochs with the given stage prefix and skips
     ``epoch_latest``."""
+    names = []
     if remote:
-        raise NotImplementedError(
-            "get_latest_checkpoint(remote=True): remote checkpoint directories are "
-            "not ported yet (ROADMAP.md, Queue 1, item 9)")
-    names = os.listdir(path) if os.path.isdir(path) else []
+        import fsspec
+
+        fs, root = fsspec.core.url_to_fs(path)
+        try:
+            names = [os.path.basename(p.rstrip("/")) for p in fs.ls(root, detail=False)]
+        except FileNotFoundError:
+            return None
+    elif os.path.isdir(path):
+        names = os.listdir(path)
     cands = [n for n in names if n.startswith(prefix) and _EPOCH_RE.search(n)]
     if not cands:
         return None
@@ -186,7 +202,18 @@ def save_checkpoint(
     return path
 
 
+def _is_url(path: str) -> bool:
+    return "://" in path
+
+
 def _read(path: str) -> dict:
+    """The payload of the checkpoint directory ``path``: a local path, or a
+    URL read through fsspec."""
+    if _is_url(path):
+        import fsspec
+
+        with fsspec.open(f"{path.rstrip('/')}/{STATE_FILE}", "rb") as f:
+            return torch.load(io.BytesIO(f.read()), map_location="cpu", weights_only=True)
     return torch.load(os.path.join(os.path.abspath(path), STATE_FILE), map_location="cpu",
                       weights_only=True)
 
@@ -218,7 +245,8 @@ def load_checkpoint(path: str, state, allow_partial: bool = False):
     resume keeps the hard error: silently resetting the Adam moments
     behind a warning corrupts the run."""
     wait_for_checkpoints()
-    path = os.path.abspath(path)
+    if not _is_url(path):
+        path = os.path.abspath(path)
     restored = _read(path)
     model = state.model
     params = dict(model.named_parameters())
@@ -344,6 +372,75 @@ def delete_previous_checkpoint(ckpt_dir: str, epoch: int, prefix: str = "") -> N
     prev = os.path.join(ckpt_dir, f"{prefix}epoch_{epoch - 1}")
     if os.path.isdir(prev):
         shutil.rmtree(prev)
+
+
+def remote_sync(local_dir: str, remote_dir: str, protocol: str = "fsspec") -> bool:
+    """One sync pass: copy new and changed files of ``local_dir`` to
+    ``remote_dir``; True unless the pass failed. Skipped: ``epoch_latest``,
+    files of the same size as their remote copy, and mid-epoch step
+    checkpoints (``--checkpoint-steps``): they rotate, the local ring
+    deletes them seconds after they are made and the deletion is never
+    mirrored, so a synced one would be a stale step directory that remote
+    ``--resume latest`` discovery sorts as newest. A size probe that fails
+    uploads anyway; a file that vanishes mid-walk is skipped."""
+    try:
+        import fsspec
+
+        rfs, rroot = fsspec.core.url_to_fs(remote_dir)
+        for dirpath, _, filenames in os.walk(local_dir):
+            for fn in filenames:
+                lpath = os.path.join(dirpath, fn)
+                rel = os.path.relpath(lpath, local_dir)
+                if "epoch_latest" in rel or _STEP_SKIP_RE.search(rel):
+                    continue
+                rpath = os.path.join(rroot, rel)
+                try:
+                    if rfs.exists(rpath) and rfs.size(rpath) == os.path.getsize(lpath):
+                        continue
+                except FileNotFoundError:
+                    pass  # the probe raced a delete; upload
+                except Exception as e:
+                    # a transient probe failure: upload anyway, put()
+                    # overwrites, so the worst case is an unchanged file
+                    # copied again
+                    logger.warning(f"remote probe failed for {rel}: {e}")
+                try:
+                    rfs.makedirs(os.path.dirname(rpath), exist_ok=True)
+                    rfs.put(lpath, rpath)
+                except FileNotFoundError:
+                    continue  # a rotating file vanished mid-walk
+        return True
+    except Exception as e:
+        logger.error(f"remote sync failed: {e}")
+        return False
+
+
+class RemoteSyncThread(threading.Thread):
+    """Runs :func:`remote_sync` every ``frequency`` seconds until
+    :meth:`stop` (a daemon thread)."""
+
+    def __init__(self, local_dir: str, remote_dir: str, frequency: int = 300,
+                 protocol: str = "fsspec"):
+        super().__init__(daemon=True)
+        self.local_dir = local_dir
+        self.remote_dir = remote_dir
+        self.frequency = frequency
+        self.protocol = protocol
+        self._halt = threading.Event()  # Thread reserves ``_stop``
+
+    def run(self):
+        while not self._halt.wait(self.frequency):
+            remote_sync(self.local_dir, self.remote_dir, self.protocol)
+
+    def stop(self):
+        self._halt.set()
+
+
+def start_sync_process(local_dir, remote_dir, frequency=300, protocol="fsspec"):
+    """Start and return a :class:`RemoteSyncThread`."""
+    t = RemoteSyncThread(local_dir, remote_dir, frequency, protocol)
+    t.start()
+    return t
 
 
 def _cubic_resize_matrix(n_in: int, n_out: int) -> np.ndarray:

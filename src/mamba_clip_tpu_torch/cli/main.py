@@ -1,4 +1,4 @@
-"""CLI entry point: parse the flags, run the pipeline.
+"""CLI entry point: parse the flags, run the pipeline or a search.
 
 Counterpart of ``mamba_clip_tpu/cli/main.py``, flag for flag: the parser
 is generated from the ``Args`` dataclass (``config.py``), the same as the
@@ -12,8 +12,11 @@ JAX package's. Run on the card (the default ``--device auto``) or, with
 modes ``int8`` and ``int8_fwd`` (``ops/aqt.py``). Ranks: ``torchrun
 --nproc-per-node N -m mamba_clip_tpu_torch.cli.main ...`` runs the data
 axis over N processes (``parallel/mesh.py``). ``--hyperparameter-tuning``
-(the optuna, ray and ASHA searches) is not ported yet: ``pipeline``
-refuses it, as it refuses ``--mesh-fsdp``/``--mesh-model`` above 1.
+runs a search instead of the pipeline, by ``--hyperparameter-strategy``:
+``asha``, the native ASHA search (``integrations/ray.py::
+native_asha_pipeline``), ``optuna`` and ``ray`` (each needs its package,
+and names it where it is missing). ``pipeline`` refuses only
+``--mesh-fsdp``/``--mesh-model`` above 1.
 """
 
 from __future__ import annotations
@@ -28,12 +31,29 @@ arg_parser = _arg_parser
 
 
 def main(argv: Optional[List[str]] = None):
-    """Parse ``argv`` (the process's arguments when None) and run
-    ``pipeline``, which refuses a flag whose feature is not ported yet,
-    ``--hyperparameter-tuning`` among them."""
+    """Parse ``argv`` (the process's arguments when None); run the search
+    of ``--hyperparameter-strategy`` under ``--hyperparameter-tuning``,
+    else ``pipeline``. Returns what that returns."""
+    args = parse_args(argv)
+    if args.hyperparameter_tuning:
+        if args.hyperparameter_strategy == "optuna":
+            from ..integrations.optuna import optuna_pipeline
+
+            return optuna_pipeline(args)
+        elif args.hyperparameter_strategy == "ray":
+            from ..integrations.ray import ray_tune_pipeline
+
+            return ray_tune_pipeline(args)
+        elif args.hyperparameter_strategy == "asha":
+            from ..integrations.ray import native_asha_pipeline
+
+            return native_asha_pipeline(args)
+        raise ValueError(
+            f"unknown hyperparameter strategy: {args.hyperparameter_strategy}"
+        )
     from ..pipeline import pipeline
 
-    return pipeline(parse_args(argv))
+    return pipeline(args)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@ auto-named children, so each leaf maps by its path:
 
 - ``ConvBranch_0`` -> ``conv_branch``, ``BatchNorm_k`` -> ``bn{k}``,
   ``Conv_k`` -> ``conv{k}``;
-- Dense ``kernel`` (in, out) -> ``weight`` (out, in);
+- Dense ``kernel`` (in, out) -> ``weight`` (out, in), the VSSM decoder's
+  ``expand`` (``PatchExpand2D``, ``FinalPatchExpand2D``) among them;
 - Conv ``kernel`` HWIO -> ``weight`` OIHW (depthwise (3, 3, 1, C) ->
   (C, 1, 3, 3));
 - Embed ``embedding`` (vocab, width) -> ``weight`` as it is;

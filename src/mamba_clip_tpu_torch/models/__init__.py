@@ -29,10 +29,13 @@ from .vssm import (
     SS2D,
     VSSM,
     ConvBranch,
+    FinalPatchExpand2D,
     PatchEmbed2D,
+    PatchExpand2D,
     PatchMerging2D,
     SSConvSSM,
     VSSLayer,
+    VSSLayerUp,
     medmamba,
 )
 
@@ -43,6 +46,7 @@ __all__ = [
     "MlpBlock", "TextBert", "BertBlock",
     "ClipClassifier", "MambaVisionClassifier", "VSSM", "SS2D", "SSConvSSM", "ConvBranch",
     "VSSLayer", "PatchEmbed2D", "PatchMerging2D", "medmamba",
+    "PatchExpand2D", "FinalPatchExpand2D", "VSSLayerUp",
     "build_classifier", "init_model",
 ]
 

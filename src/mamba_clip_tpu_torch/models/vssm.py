@@ -1,8 +1,9 @@
 """VSSM ("medmamba") classifier, in PyTorch.
 
-Counterpart of the classification path of ``mamba_clip_tpu/models/vssm.py``:
-``SS2D``, ``ConvBranch``, ``SSConvSSM``, ``PatchEmbed2D``, ``PatchMerging2D``,
-``VSSLayer``, ``VSSM`` and ``medmamba``, with the same names, child names
+Counterpart of ``mamba_clip_tpu/models/vssm.py``: ``SS2D``, ``ConvBranch``,
+``SSConvSSM``, ``PatchEmbed2D``, ``PatchMerging2D``, ``VSSLayer``, ``VSSM``,
+``medmamba`` and the decoder's ``PatchExpand2D``, ``FinalPatchExpand2D`` and
+``VSSLayerUp``, with the same names, child names
 and parameter shapes, so that ``convert.py`` maps a Flax variable tree onto
 them leaf by leaf.
 
@@ -40,7 +41,14 @@ them leaf by leaf.
   injects it into: ``in_proj`` and ``out_proj`` of every SS2D and the
   patch merges' ``reduction``. The per-direction einsum projections, the
   scan, the convolutions and the fp32 ``head`` stay unquantized, as there.
-- The decoder parts belong to later work.
+- The decoder modules ``PatchExpand2D``, ``FinalPatchExpand2D`` and
+  ``VSSLayerUp`` (the classification path does not run them) take the
+  reference's channel counts: ``PatchExpand2D(dim)`` turns 2*dim channels
+  into dim at twice the resolution, ``FinalPatchExpand2D(dim,
+  dim_scale=4)`` dim channels into dim/4 at four times it, and
+  ``VSSLayerUp(dim, upsample=True)`` takes 2*dim channels; the Flax
+  modules read the channels off their input, so both agree wherever the
+  reference's shapes hold.
 """
 
 from __future__ import annotations
@@ -445,6 +453,42 @@ class PatchMerging2D(nn.Module):
         return _linear(x, self.reduction, self.dtype)
 
 
+class PatchExpand2D(nn.Module):
+    """Decoder upsample: Linear ``expand`` C -> dim_scale*C (no bias), depth
+    to space by ``dim_scale``, LayerNorm ``norm`` over the C/dim_scale
+    channels. C, the input's channels, is ``in_dim``: 2*dim unless given."""
+
+    def __init__(self, dim: int, dim_scale: int = 2, in_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        c = in_dim or 2 * dim
+        self.dim_scale = dim_scale
+        self.dtype = dtype
+        self.expand = nn.Linear(c, dim_scale * c, bias=False)
+        _trunc_normal_(self.expand.weight, 0.02, generator)
+        self.norm = nn.LayerNorm(c // dim_scale, eps=1e-5)
+
+    def forward(self, x):
+        B, H, W, C = x.shape
+        s = self.dim_scale
+        x = _linear(x, self.expand, self.dtype)
+        x = x.reshape(B, H, W, s, s, C // s).permute(0, 1, 3, 2, 4, 5)
+        x = x.reshape(B, H * s, W * s, C // s)
+        return _layer_norm_f32(x, self.norm).to(self.dtype)
+
+
+class FinalPatchExpand2D(PatchExpand2D):
+    """The decoder's last upsample: :class:`PatchExpand2D` by ``dim_scale``
+    4 on ``dim`` input channels (``in_dim`` unless given)."""
+
+    def __init__(self, dim: int, dim_scale: int = 4, in_dim: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(dim, dim_scale, in_dim=in_dim or dim, dtype=dtype,
+                         generator=generator)
+
+
 def _checkpointed_block(block: SSConvSSM, x, masks):
     """``block(x, masks)`` under ``torch.utils.checkpoint``: only the first
     run, the forward, updates BatchNorm's running statistics; the recompute
@@ -504,6 +548,37 @@ class VSSLayer(nn.Module):
         if self.downsample is not None:
             x = self.downsample(x)
         return x
+
+
+class VSSLayerUp(VSSLayer):
+    """Decoder stage: with ``upsample``, a :class:`PatchExpand2D`
+    ``upsample`` from 2*dim channels to dim at twice the resolution, then
+    ``depth`` SSConvSSM blocks (``block{i}``) at dim, recomputed in the
+    backward under ``use_checkpoint``; no downsample."""
+
+    def __init__(
+        self,
+        dim: int,
+        depth: int,
+        d_state: int = 16,
+        attn_drop: float = 0.0,
+        drop_path: Sequence[float] = (),
+        upsample: bool = False,
+        use_checkpoint: bool = False,
+        dtype: torch.dtype = torch.float32,
+        scan_impl: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        up = PatchExpand2D(dim, dtype=dtype, generator=generator) if upsample else None
+        super().__init__(dim, depth, d_state=d_state, attn_drop=attn_drop,
+                         drop_path=drop_path, use_checkpoint=use_checkpoint, dtype=dtype,
+                         scan_impl=scan_impl, generator=generator)
+        self.upsample = up
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if self.upsample is not None:
+            x = self.upsample(x)
+        return super().forward(x, generator)
 
 
 class VSSM(nn.Module):

@@ -24,9 +24,12 @@ checkpoint and takes rank 0's parameters; only rank 0 writes (the run
 directory, ``params.txt``, logs, tensorboard, results, checkpoints,
 ``--copy-codebase``), and the run name and the resumed checkpoint are
 rank 0's. Each model is built on the host from a generator seeded with
-``--seed`` and moved to the device in ``prepare_params``. A flag whose
-feature is not ported yet fails when ``pipeline()`` starts, naming the
-ROADMAP.md item that lifts it.
+``--seed`` and moved to the device in ``prepare_params``. ``--remote-sync``
+mirrors the run directory to an fsspec URL or a directory, and ``--resume
+latest`` looks there first; ``--report-to wandb`` logs to wandb where it
+is installed (one warning and no-ops where not). A flag whose feature is
+not ported yet (an fsdp or a model axis above 1) fails when ``pipeline()``
+starts, naming the ROADMAP.md item that lifts it.
 """
 
 from __future__ import annotations
@@ -39,8 +42,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from .checkpoint import (StepCheckpointer, delete_previous_checkpoint, get_latest_checkpoint,
-                         load_checkpoint, load_params_only, parse_step_checkpoint,
-                         save_checkpoint, validate_step_resume, wait_for_checkpoints)
+                         load_checkpoint, load_params_only, parse_step_checkpoint, remote_sync,
+                         save_checkpoint, start_sync_process, validate_step_resume,
+                         wait_for_checkpoints)
 from .config import Args, RunState, warn_ignored_flags
 from .data.loader import get_data
 from .data.metadata import get_metadata, undersample_data
@@ -56,6 +60,7 @@ from .optim import build_optimizer, freeze_submodule_mask, merge_masks
 from .schedules import create_schedule
 from .train import (TrainState, create_train_state, make_classifier_train_step,
                     make_clip_train_step, train_one_epoch)
+from .utils import wandb_utils
 from .utils.logging import ResultsWriter, create_log_path, get_logger, logger_setup
 from .utils.precision import get_policy
 
@@ -73,18 +78,11 @@ def _not_ported(what: str, item: int, title: str) -> NotImplementedError:
 
 
 def check_ported(args: Args) -> None:
-    """Raise for a flag whose feature the port does not have yet."""
+    """Raise for a flag whose feature the port does not have yet: an fsdp
+    or a model axis above 1."""
     if args.mesh_fsdp > 1 or args.mesh_model > 1:
         raise _not_ported(f"--mesh-fsdp {args.mesh_fsdp} --mesh-model {args.mesh_model}",
                           8, "Parallel layers")
-    if args.remote_sync:
-        raise _not_ported("--remote-sync", 9, "HPO, integrations and the remaining utilities")
-    if "wandb" in (args.report_to or "").split(","):
-        raise _not_ported("--report-to wandb", 9,
-                          "HPO, integrations and the remaining utilities")
-    if args.hyperparameter_tuning:
-        raise _not_ported("--hyperparameter-tuning", 9,
-                          "HPO, integrations and the remaining utilities")
 
 
 def resolve_device(device: str, local_rank: int = 0) -> str:
@@ -169,13 +167,22 @@ def parse_aug_cfg(items) -> dict:
 
 
 def setup_train(args: Args, run: RunState, checkpoint_prefix: str = "") -> RunState:
-    """Resume discovery: ``--resume latest`` (rank 0's find) or an explicit
-    path."""
+    """Resume discovery and the remote sync's start. ``--resume latest``
+    (rank 0's find) looks under ``--remote-sync``'s copy of the run first
+    and then in the run's own directory; an explicit path is taken as it
+    is. With ``--remote-sync``, rank 0 syncs the run directory once, which
+    must succeed, and then keeps syncing it in a background thread every
+    ``--remote-sync-frequency`` seconds."""
     resume = args.resume
     if resume == "latest":
         found = None
         if is_master(run):
-            found = get_latest_checkpoint(run.checkpoint_path, prefix=checkpoint_prefix)
+            if args.remote_sync:
+                found = get_latest_checkpoint(
+                    os.path.join(args.remote_sync, run.name, "checkpoints"),
+                    remote=True, prefix=checkpoint_prefix)
+            if found is None:
+                found = get_latest_checkpoint(run.checkpoint_path, prefix=checkpoint_prefix)
         found = broadcast_object(found)
         run.resume_from = found
         if found:
@@ -184,6 +191,13 @@ def setup_train(args: Args, run: RunState, checkpoint_prefix: str = "") -> RunSt
             logger.info("No latest checkpoint found; starting fresh.")
     elif resume:
         run.resume_from = resume
+
+    if args.remote_sync and is_master(run):
+        remote_dir = os.path.join(args.remote_sync, run.name)
+        if not remote_sync(run.log_path, remote_dir, args.remote_sync_protocol):
+            raise RuntimeError("remote sync startup validation failed")
+        start_sync_process(run.log_path, remote_dir, args.remote_sync_frequency,
+                           args.remote_sync_protocol)
     return run
 
 
@@ -364,6 +378,8 @@ def step(
     cw = class_weights if getattr(args, "class_weighted_loss", False) else None
     eval_step = make_eval_step(model, policy, tcfg_val, stage=stage, class_weights=cw,
                                takes_text=takes_text)
+    if run.wandb and master:
+        wandb_utils.init_wandb(args, run)
 
     def run_eval(epoch):
         return evaluate(
@@ -432,6 +448,8 @@ def step(
         # the stage's final numbered epoch checkpoint has committed; the
         # surviving mid-epoch checkpoints are now redundant
         step_ckptr.finalize()
+    if run.wandb and master:
+        wandb_utils.finish()
     barrier()  # no rank goes on before rank 0's checkpoints are on disk
     return metrics, state
 

@@ -149,6 +149,17 @@ def logger_setup(
     return root
 
 
+def warning_once(logger: logging.Logger, msg: str) -> None:
+    """Emit a warning only the first time ``msg`` is seen on ``logger``."""
+    key = f"{logger.name}:{msg}"
+    if key not in _seen_warnings:
+        _seen_warnings.add(key)
+        logger.warning(msg)
+
+
+_seen_warnings: set = set()
+
+
 def create_log_path(args: Any, latest: bool = False,
                     containing: Optional[str] = None) -> str:
     """Experiment-name scheme ``date-model-lr-b-j-p[-trial]``.

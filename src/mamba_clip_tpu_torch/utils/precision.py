@@ -1,7 +1,7 @@
 """Mixed-precision policy mapping, in torch dtypes.
 
 Counterpart of ``mamba_clip_tpu/utils/precision.py``: ``Policy``,
-``_POLICIES``, ``get_policy``, and the dynamic loss-scale state of the fp16
+``_POLICIES``, ``get_policy``, ``get_input_dtype``, and the dynamic loss-scale state of the fp16
 modes (``LossScaleState``, ``init_loss_scale``, ``update_loss_scale``:
 torch ``GradScaler`` semantics). ``amp`` is bf16 compute over fp32
 parameters; the modules cast at each use site (``dtype=cdt`` in the JAX
@@ -96,3 +96,8 @@ def get_policy(precision: str) -> Policy:
         raise ValueError(
             f"unknown precision '{precision}'; one of {sorted(_POLICIES)}"
         ) from None
+
+
+def get_input_dtype(precision: str) -> torch.dtype:
+    """The type a ``--precision`` casts model inputs to: its compute type."""
+    return get_policy(precision).compute_dtype

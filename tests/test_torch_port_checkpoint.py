@@ -255,8 +255,15 @@ def test_names_natural_order_and_discovery_equal_jax(tmp_path):
             assert (tckpt.get_latest_checkpoint(str(d), prefix=prefix)
                     == jckpt.get_latest_checkpoint(str(d), prefix=prefix)), (upto, prefix)
     assert tckpt.get_latest_checkpoint(str(d), prefix="stage_1_") == str(d / "stage_1_epoch_10")
-    with pytest.raises(NotImplementedError, match="remote"):
-        tckpt.get_latest_checkpoint("s3://bucket/run", remote=True)
+    # remote discovery (--remote-sync) over a local fsspec path, and a missing one
+    for prefix in ("", "stage_1_", "stage_2_", "stage_3_"):
+        assert (tckpt.get_latest_checkpoint(str(d), remote=True, prefix=prefix)
+                == jckpt.get_latest_checkpoint(str(d), remote=True, prefix=prefix)
+                == tckpt.get_latest_checkpoint(str(d), prefix=prefix)), prefix
+    assert tckpt.get_latest_checkpoint(f"file://{d}", remote=True, prefix="stage_1_") \
+        == f"file://{d}/stage_1_epoch_10"
+    assert tckpt.get_latest_checkpoint(str(tmp_path / "none"), remote=True) is None
+    assert jckpt.get_latest_checkpoint(str(tmp_path / "none"), remote=True) is None
 
 
 def test_train_state_from_jax_carries_the_moments_and_the_step():

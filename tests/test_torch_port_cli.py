@@ -25,6 +25,8 @@ import contextlib
 import json
 import logging
 import os
+import sys
+import threading
 import time
 
 import numpy as np
@@ -206,15 +208,19 @@ def test_resume_latest_in_an_empty_logs_dir_starts_fresh(tiny, tmp_path):
 
 # --quant int8|int8_fwd and --local-loss run now (test_torch_port_aqt_modes.py,
 # test_torch_port_data_axis.py and below); their cases hold them beside an
-# axis that is still refused, which fails first
+# axis that is still refused, which fails first. Item 9's flags run
+# (test_an_item_9_flag_runs)
 UNPORTED = {
     "quant": (["--quant", "int8", "--mesh-fsdp", "2"], 8),
     "mesh_fsdp": (["--mesh-fsdp", "2"], 8),
     "mesh_model": (["--mesh-model", "2"], 8),
     "local_loss": (["--local-loss", "--mesh-model", "2"], 8),
-    "remote_sync": (["--remote-sync", "/nowhere"], 9),
-    "report_to_wandb": (["--report-to", "tensorboard,wandb"], 9),
-    "hyperparameter_tuning": (["--hyperparameter-tuning"], 9),
+}
+ITEM_9 = {
+    "remote_sync": ["--remote-sync", "REMOTE"],
+    "report_to_wandb": ["--report-to", "tensorboard,wandb"],
+    "hyperparameter_tuning": ["--hyperparameter-tuning", "--hyperparameter-strategy", "asha",
+                              "--training-iterations", "2", "--epochs", "2"],
 }
 
 
@@ -233,6 +239,34 @@ def test_an_unported_flag_fails_first_naming_its_item(tmp_path, flag):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1, item {item} "):
         main(argv)
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("flag", sorted(ITEM_9))
+def test_an_item_9_flag_runs(tiny, tmp_path, monkeypatch, flag):
+    """The flags that failed first until item 9 was ported run: the run
+    directory mirrored to ``--remote-sync``, a run reporting to wandb
+    where wandb is not installed, and the ASHA search (the trials'
+    classifier a small VSSM)."""
+    from mamba_clip_tpu_torch import models as tmodels
+    from mamba_clip_tpu_torch.checkpoint import RemoteSyncThread
+    from mamba_clip_tpu_torch.models.vssm import VSSM
+
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    monkeypatch.setattr(tmodels, "build_classifier", lambda name, generator=None, **kw: VSSM(
+        depths=(1, 1), dims=(8, 16), d_state=4, num_classes=2, generator=generator))
+    remote = tmp_path / "remote"
+    extra = [str(remote) if a == "REMOTE" else a for a in ITEM_9[flag]]
+    try:
+        m = main(_argv(tmp_path / "logs", "--stage", "1", "--name", "r", *extra))
+    finally:
+        for t in threading.enumerate():
+            if isinstance(t, RemoteSyncThread):
+                t.stop()
+    if flag == "hyperparameter_tuning":
+        assert len(m["pruned"]) == 1 and np.isfinite(m["best_metrics"]["val_loss"])
+    else:
+        assert np.isfinite(m["val_loss"]) and _rows(tmp_path / "logs" / "r") == [m]
+    assert os.path.exists(remote / "r" / "params.txt") == (flag == "remote_sync")
 
 
 @pytest.mark.parametrize("flag", ["precision_bf16", "precision_pure_bf16",

@@ -38,6 +38,8 @@ in ``tests/test_torch_port_flash_fp16.py``):
   JAX's ``compress_params`` of the same bf16 weights.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -71,11 +73,13 @@ from mamba_clip_tpu_torch.models import heads as theads
 from mamba_clip_tpu_torch.models import text_bert as tbert
 from mamba_clip_tpu_torch.models import vit as tvit
 from mamba_clip_tpu_torch.ops import quant as tquant
-from mamba_clip_tpu_torch.ops import selective_scan as tscan
 from mamba_clip_tpu_torch.optim import build_optimizer
 from mamba_clip_tpu_torch.schedules import create_schedule
 from mamba_clip_tpu_torch.serving import export_serving, load_serving, make_serving_fns
 from mamba_clip_tpu_torch.utils.precision import get_policy
+
+# the module: the package exports the function ``selective_scan`` under its name
+tscan = importlib.import_module("mamba_clip_tpu_torch.ops.selective_scan")
 
 # The plain paths are Python loops of small tensor ops: one intra-op thread
 # runs them as fast as eight alone, and keeps them from stalling (up to ten

@@ -17,6 +17,8 @@ counter must not move; the CUDA kernel itself is held against the plain
 loop on the card by chip_smoke.py.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,13 +27,15 @@ import torch
 from mamba_clip_tpu.ops.selective_scan import selective_scan as jax_scan_cm
 from mamba_clip_tpu.ops.selective_scan import selective_scan_flops as jax_flops
 from mamba_clip_tpu.ops.selective_scan import selective_scan_tm as jax_scan
-from mamba_clip_tpu_torch.ops import selective_scan as port
 from mamba_clip_tpu_torch.ops.selective_scan import (
     selective_scan,
     selective_scan_flops,
     selective_scan_fwd,
     selective_scan_tm,
 )
+
+# the module: the package exports the function ``selective_scan`` under its name
+port = importlib.import_module("mamba_clip_tpu_torch.ops.selective_scan")
 
 # The plain paths are Python loops of small tensor ops: one intra-op thread
 # runs them as fast as eight alone, and keeps them from stalling (up to ten

@@ -168,7 +168,10 @@ def test_cuda_route_writes_hck_only_for_training(monkeypatch):
     forward wrapper is called without ``hck`` (serving keeps its bytes),
     with grad it is called with ``hck`` and the backward wrapper gets that
     ``hck``; the gradients equal the plain route's exactly."""
-    from mamba_clip_tpu_torch.ops import selective_scan as ss
+    import importlib
+
+    # the module: the package exports the function ``selective_scan`` under its name
+    ss = importlib.import_module("mamba_clip_tpu_torch.ops.selective_scan")
 
     calls = []
 
