@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards 4    # the four-card run of the mesh axes alone
 
 Run from the root of a checkout on a machine with a CUDA card and
 ``nvcc``. It imports nothing of JAX. Phases, each of which exits non-zero
@@ -377,7 +378,18 @@ on failure:
    launches; each recorded scan's output and its 7 gradients are held
    against the plain loop on its own inputs at 5e-4; ms forward and ms
    forward + backward. Prints a ``decoder`` JSON line;
-24. prints the kernels line (twelve entries: the two scan kernels, the
+24. the fsdp and model axes: two gloo ranks sharing the card run the
+   full-width contrastive step with flash (amp) from the same weights and
+   seeds as one process at 64 rows, at (fsdp 2), 32 rows a rank, and at
+   (model 2), 64 rows on both: the ranks' losses and gathered parameter
+   digest identical, both within 2^-7 of one process's after 2 steps, 24 +
+   24 + 24 flash launches a rank and a step on the tensor cores; the state
+   bytes a rank against one process's, ms a step, the collectives' ms (two
+   ranks on one card: not a scaling number), the peak a rank, and whether
+   gloo takes the card's tensors for a reduce-scatter (the port's
+   ``reduce_scatter_`` path by backend is printed). Prints a ``mesh_axes``
+   JSON line;
+25. prints the kernels line (twelve entries: the two scan kernels, the
    roofline's chain kernel, and each flash kernel as three entries, one a
    body and type: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
@@ -390,8 +402,19 @@ on failure:
    the ceilings phase 11 measured, its shares of both, and its instances;
    the forward's tensor-core entries are serving's pair, their training
    launches under ``training``; each scan entry with its instances; the
-   launches include phases 19-23's, those of phase 20's rank processes
-   counted there), then the device line last.
+   launches include phases 19-24's, those of phases 20 and 24's rank
+   processes counted there), then the device line last.
+
+``--cards 4`` runs only the four-card run (it fails on fewer than 4
+cards): four NCCL ranks, one a card, run the full-width contrastive step
+at 64 rows a batch shard at (data 4), (fsdp 4), (data 2, fsdp 2) and
+(data 2, model 2) (and (data 4) at 32 rows, the global batch of (data 2,
+model 2)), 3 warm-up and 5 timed steps each, and the medmamba classifier
+step at (data 2, fsdp 2): the ranks alike bit for bit, the sharded shapes'
+losses and digest within 2^-7 of (data 4) at the same global batch, 24 +
+24 + 24 flash (14 + 14 scan) launches a rank and a step; for each shape ms
+a step, the collectives' ms, the peak and the state bytes a rank. Prints a
+``mesh_axes_cards`` JSON line and the device line.
 
 Phases 1-10 run at the depth and iteration counts they had before phases
 11-13 were added.
@@ -2516,12 +2539,25 @@ def _axis_rank(rank, world, port, backend, modes, q):
 
 def param_digest(model, stride: int = 997):
     """Every ``stride``-th entry of each parameter, in fp32, as one numpy
-    vector: what phase 20 compares across ranks and with one process."""
+    vector: what phases 20 and 24 compare across ranks and with one process.
+    A sharded model's parameters are gathered first (a collective: every
+    rank of its mesh calls it)."""
     import torch
+
+    from mamba_clip_tpu_torch.parallel.sharding import full_params
 
     with torch.no_grad():
         return torch.cat([p.detach().float().flatten()[::stride]
-                          for p in model.parameters()]).cpu().numpy()
+                          for p in full_params(model).values()]).cpu().numpy()
+
+
+def state_bytes(state) -> int:
+    """The bytes a rank holds between steps: its parameters (shards where
+    sharded), buffers and AdamW moments."""
+    model = state.model
+    tensors = [*model.parameters(), *model.buffers(), *state.opt_state.mu.values(),
+               *state.opt_state.nu.values()]
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def free_port() -> int:
@@ -2532,15 +2568,17 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(world, backend, modes=(False, True), timeout=600):
-    """``_axis_rank`` on ``world`` processes (spawned, on a free local
-    port), each joined with a timeout of its own; their results by rank."""
+def run_ranks(world, backend, modes=(False, True), timeout=600, target=None):
+    """``target`` (``_axis_rank`` by default) on ``world`` processes
+    (spawned, on a free local port), each joined with a timeout of its own;
+    their results by rank. ``modes`` is what the target takes after the
+    backend."""
     import multiprocessing as mp
 
     port = free_port()
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
-    procs = [ctx.Process(target=_axis_rank, args=(r, world, port, backend, modes, q))
+    procs = [ctx.Process(target=target or _axis_rank, args=(r, world, port, backend, modes, q))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -2658,6 +2696,309 @@ def axis_phase(card):
     say(f"data axis: gloo takes CUDA tensors as they are: {taken} "
         "(the port hands gloo the card's tensors)")
     return line, launches, bodies
+
+
+def _mesh_case(case, rank):
+    """One case of phase 24 or of the four-card run on this rank: the contrastive (or the
+    medmamba classifier) step at full width on ``case["shape"]`` = (data,
+    fsdp, model) over the rows of the rank's batch index, from the weights
+    and batches of seed 0; 2 steps whose losses, launches and gathered
+    parameter digest are kept, warm-up steps to ``case["warm"]``,
+    ``case["timed"]`` timed steps, then one step with every collective timed
+    apart. Returns its readings."""
+    import torch
+    import torch.distributed as dist
+
+    from mamba_clip_tpu_torch.ops.flash_attn import (flash_attn_bwd_dkv, flash_attn_bwd_dq,
+                                                     flash_attn_fwd)
+    from mamba_clip_tpu_torch.ops.selective_scan import selective_scan_bwd, selective_scan_fwd
+    from mamba_clip_tpu_torch.parallel import collectives as coll
+    from mamba_clip_tpu_torch.parallel import sharding
+    from mamba_clip_tpu_torch.parallel.mesh import MeshSpec, create_mesh
+    from mamba_clip_tpu_torch.profile_train import clip_train_setup, medmamba_train_setup
+
+    mesh = create_mesh(MeshSpec(*case["shape"]))
+    setup = clip_train_setup if case["kind"] == "clip" else medmamba_train_setup
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step_fn, batches = setup(case["global"], mesh=mesh)
+    ax = mesh.axis()
+    per = case["global"] // ax.world
+    mine = [{k: v[ax.rank * per:(ax.rank + 1) * per] for k, v in b.items()} for b in batches]
+    wrappers = {"fwd": flash_attn_fwd, "dkv": flash_attn_bwd_dkv, "dq": flash_attn_bwd_dq,
+                "scan_fwd": selective_scan_fwd, "scan_bwd": selective_scan_bwd}
+    for w in wrappers.values():
+        w.launches = 0
+        for body in getattr(w, "launches_by_body", {}):
+            w.launches_by_body[body] = 0
+    losses, gns = [], []
+    for i in range(2):
+        state, m = step_fn(state, mine[i], 0)
+        losses.append(float(m["loss"]))
+        gns.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    bodies = {k: dict(w.launches_by_body) for k, w in wrappers.items()
+              if hasattr(w, "launches_by_body")}
+    digest = param_digest(state.model)
+    held = state_bytes(state)
+    for i in range(2, case["warm"]):
+        state, _ = step_fn(state, mine[i % 2], 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(case["timed"]):
+        state, m = step_fn(state, mine[i % 2], 0)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / case["timed"]
+    spent = {"ms": 0.0, "calls": 0}
+
+    def timed(fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent["ms"] += (time.perf_counter() - t) * 1e3
+            spent["calls"] += 1
+            return r
+        return wrapped
+
+    real = [(mod, n, getattr(mod, n)) for mod, names in (
+        (coll, ("all_reduce_", "all_gather_", "reduce_scatter_")),
+        (sharding, ("all_reduce_", "all_gather_", "reduce_scatter_"))) for n in names]
+    for mod, n, f in real:
+        setattr(mod, n, timed(f))
+    try:
+        state, _ = step_fn(state, mine[0], 0)
+        torch.cuda.synchronize()
+    finally:
+        for mod, n, f in real:
+            setattr(mod, n, f)
+    out = {"shape": list(case["shape"]), "global_rows": case["global"], "rows": per,
+           "losses": losses, "grad_norms": gns, "digest": digest, "counts": counts,
+           "bodies": bodies, "state_bytes": held, "ms_per_step": step_ms,
+           "collectives_ms_per_step": spent["ms"], "collective_calls_per_step": spent["calls"],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "reduce_scatter": dist.get_backend(mesh.groups["fsdp"]) if mesh.fsdp > 1 else None}
+    del state, step_fn, batches, mine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_rank(rank, world, port, backend, cases, q):
+    """One rank of phase 24 (gloo, every rank on card 0) or of the four-card
+    run (nccl, rank r on card r): each case of ``cases`` in turn
+    (``_mesh_case``); under gloo first whether it takes the card's tensors
+    for a reduce-scatter. Puts (rank, result, error) on ``q``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(SRC))
+        logging.disable(logging.INFO)
+        import torch
+        import torch.distributed as dist
+
+        from mamba_clip_tpu_torch.ops import cuda_build
+
+        torch.cuda.set_device(rank if backend == "nccl" else 0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        for k in ("selective_scan_fwd", "selective_scan_bwd", "flash_attn_fwd",
+                  "flash_attn_bwd"):
+            cuda_build.load(k)
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world)
+        out = {"backend": backend, "card": torch.cuda.current_device()}
+        if backend == "gloo":
+            try:  # the answer is the finding
+                t = torch.ones(2 * world, device="cuda")
+                got = torch.empty(2, device="cuda")
+                dist.reduce_scatter_tensor(got, t)
+                torch.cuda.synchronize()
+                out["gloo_reduce_scatter_cuda"] = bool(torch.all(got == world))
+            except Exception as e:
+                out["gloo_reduce_scatter_cuda"] = f"{type(e).__name__}: {str(e)[:160]}"
+        for case in cases:
+            out[case["name"]] = _mesh_case(case, rank)
+        dist.destroy_process_group()
+        q.put((rank, out, None))
+    except BaseException:
+        q.put((rank, None, traceback.format_exc()))
+
+
+def _mesh_gates(what, ranks, ref, want, gate=None):
+    """Fails unless the ranks agree bit for bit (losses and gathered digest),
+    each launched ``want`` (the first 2 steps; flash on the tensor cores),
+    and, with a reference, the losses and digest are within 2^-7 of it.
+    Returns (loss rel, digest rel)."""
+    import numpy as np
+
+    gate = gate or CLIP_TRAIN_REL
+    r0 = ranks[0]
+    for r in ranks:
+        if r["losses"] != r0["losses"] or not np.array_equal(r["digest"], r0["digest"]):
+            fail(f"{what}: the ranks differ: losses {[x['losses'] for x in ranks]}")
+        counts = {k: r["counts"][k] for k in want}
+        if counts != want or any(by["cuda_cores"] for by in r["bodies"].values()):
+            fail(f"{what}: a rank launched {r['counts']} ({r['bodies']}), expected {want} "
+                 "with every flash launch on the tensor cores")
+        if not all(math.isfinite(x) for x in r["losses"] + r["grad_norms"]):
+            fail(f"{what}: non-finite losses {r['losses']} or grad norms {r['grad_norms']}")
+    if ref is None:
+        return None, None
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], ref["losses"]))
+    dig = float(np.abs(r0["digest"] - ref["digest"]).max() / np.abs(ref["digest"]).max())
+    if loss_rel > gate or dig > gate:
+        fail(f"{what}: losses {r0['losses']} against {ref['losses']} (rel {loss_rel:.2e}), "
+             f"digest rel {dig:.2e} (bound 2^-7)")
+    return loss_rel, dig
+
+
+def _mesh_row(r, ranks):
+    """The printed readings of one case: rank 0's, and every rank's ms,
+    collectives' ms and peak."""
+    return {"shape": r["shape"], "global_rows": r["global_rows"], "rows_a_rank": r["rows"],
+            "losses": r["losses"], "grad_norms": r["grad_norms"],
+            "ms_per_step": [x["ms_per_step"] for x in ranks],
+            "collectives_ms_per_step": [x["collectives_ms_per_step"] for x in ranks],
+            "collective_calls_per_step": r["collective_calls_per_step"],
+            "peak_bytes": [x["peak_bytes"] for x in ranks],
+            "state_bytes": [x["state_bytes"] for x in ranks],
+            "reduce_scatter_backend": r["reduce_scatter"]}
+
+
+def mesh_phase(card):
+    """Phase 24: the fsdp and model axes on two gloo ranks sharing the card,
+    against one process at 64 rows. Returns (the ``mesh_axes`` line's
+    fields, the ranks' flash launches by body)."""
+    import torch
+
+    from mamba_clip_tpu_torch.profile_train import clip_train_setup
+
+    line = {"card": card, "note": "two gloo ranks share one card: not a scaling number"}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step_fn, batches = clip_train_setup(64)
+    losses = []
+    for i in range(2):
+        state, m = step_fn(state, batches[i], 0)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batches[0], 0)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    one = {"losses": losses, "digest": param_digest(state.model),
+           "ms_per_step": (time.perf_counter() - t0) * 1e3,
+           "state_bytes": state_bytes(state),
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del state, step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    line["one_process"] = {k: v for k, v in one.items() if k != "digest"}
+    cases = [{"name": "fsdp2", "kind": "clip", "shape": (1, 2, 1), "global": 64, "warm": 2,
+              "timed": 1},
+             {"name": "model2", "kind": "clip", "shape": (1, 1, 2), "global": 64, "warm": 2,
+              "timed": 1}]
+    ranks = run_ranks(2, "gloo", cases, target=_mesh_rank)
+    want = {"fwd": 48, "dkv": 48, "dq": 48}
+    bodies = {k: {"tensor_cores": 0, "cuda_cores": 0} for k in want}
+    for case in cases:
+        rs = [r[case["name"]] for r in ranks]
+        loss_rel, dig = _mesh_gates(f"mesh {case['name']}", rs, one, want)
+        for r in rs:
+            for k in want:
+                for body, c in r["bodies"][k].items():
+                    bodies[k][body] += c
+        row = _mesh_row(rs[0], rs)
+        row.update(loss_rel=loss_rel, digest_rel_max=dig,
+                   state_bytes_share=rs[0]["state_bytes"] / one["state_bytes"])
+        line[case["name"]] = row
+        say(f"mesh {case['name']} {case['shape']}: 2 gloo ranks x {rs[0]['rows']} rows against "
+            f"one process x 64: losses {[round(x, 5) for x in rs[0]['losses']]} / "
+            f"{[round(x, 5) for x in one['losses']]} (rel {loss_rel:.2e}), digest rel "
+            f"{dig:.2e}, ranks identical; state {rs[0]['state_bytes'] / 1e9:.3f} GB a rank "
+            f"against {one['state_bytes'] / 1e9:.3f} GB; {rs[0]['ms_per_step']:.1f} ms a step "
+            f"a rank ({rs[0]['collectives_ms_per_step']:.1f} ms in "
+            f"{rs[0]['collective_calls_per_step']} collectives) against "
+            f"{one['ms_per_step']:.1f} ms in one process; peak "
+            f"{rs[0]['peak_bytes'] / 1e9:.2f} GB a rank; reduce-scatter through "
+            f"{rs[0]['reduce_scatter']}")
+    line["gloo_reduce_scatter_cuda"] = ranks[0]["gloo_reduce_scatter_cuda"]
+    say(f"mesh: gloo's reduce_scatter on the card's tensors: "
+        f"{line['gloo_reduce_scatter_cuda']}")
+    return line, bodies
+
+
+def cards_main(cards: int) -> None:
+    """The four-card run alone (``--cards 4``): four NCCL ranks, one a card, run the
+    full-width contrastive step at 64 rows a batch shard at (data 4), (fsdp
+    4), (data 2, fsdp 2) and (data 2, model 2), and the medmamba classifier
+    step at (data 2, fsdp 2); fails on fewer cards."""
+    try:
+        import torch
+    except ImportError as e:
+        fail(f"cannot import {e.name}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test runs on the card only")
+    if torch.cuda.device_count() < cards:
+        fail(f"--cards {cards}: {torch.cuda.device_count()} card(s) here")
+    sys.path.insert(0, str(SRC))
+    from mamba_clip_tpu_torch.ops import cuda_build
+
+    card = nvidia_smi("name,power.limit")
+    say(card)
+    say(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.device_count()} cards")
+    built = ("selective_scan_fwd", "selective_scan_bwd", "flash_attn_fwd", "flash_attn_bwd")
+    t0 = time.time()
+    for k in built:
+        cuda_build.library_path(k).unlink(missing_ok=True)
+    with ThreadPoolExecutor(len(built)) as pool:
+        for f in [pool.submit(cuda_build.build, k) for k in built]:
+            f.result()
+    say(f"build: {', '.join(built)} in {time.time() - t0:.1f} s")
+
+    def clip(name, shape, rows):
+        return {"name": name, "kind": "clip", "shape": shape,
+                "global": rows * shape[0] * shape[1], "warm": 3, "timed": 5}
+
+    cases = [clip("data4", (4, 1, 1), 64), clip("fsdp4", (1, 4, 1), 64),
+             clip("data2_fsdp2", (2, 2, 1), 64), clip("data4_128", (4, 1, 1), 32),
+             clip("data2_model2", (2, 1, 2), 64),
+             {"name": "medmamba_data2_fsdp2", "kind": "cls", "shape": (2, 2, 1),
+              "global": 256, "warm": 3, "timed": 5}]
+    t0 = time.perf_counter()
+    ranks = run_ranks(cards, "nccl", cases, target=_mesh_rank, timeout=700)
+    line = {"card": card, "cards": cards, "backend": "nccl"}
+    flash = {"fwd": 48, "dkv": 48, "dq": 48}
+    for case, ref in (("data4", None), ("fsdp4", "data4"), ("data2_fsdp2", "data4"),
+                      ("data4_128", None), ("data2_model2", "data4_128"),
+                      ("medmamba_data2_fsdp2", None)):
+        rs = [r[case] for r in ranks]
+        want = flash if case.startswith(("data", "fsdp")) else {"scan_fwd": 28,
+                                                                 "scan_bwd": 28}
+        loss_rel, dig = _mesh_gates(f"{cards} cards {case}", rs,
+                                    ranks[0][ref] if ref else None, want)
+        row = _mesh_row(rs[0], rs)
+        row.update(reference=ref, loss_rel=loss_rel, digest_rel_max=dig)
+        line[case] = row
+        say(f"{cards} cards {case} {rs[0]['shape']}: {rs[0]['rows']} rows a batch shard, "
+            f"{rs[0]['global_rows']} global; losses {[round(x, 5) for x in rs[0]['losses']]}"
+            + (f" against {ref}'s (rel {loss_rel:.2e}, digest rel {dig:.2e})" if ref else "")
+            + f"; ms a step {[round(x['ms_per_step'], 1) for x in rs]}, collectives "
+            f"{[round(x['collectives_ms_per_step'], 1) for x in rs]} ms in "
+            f"{rs[0]['collective_calls_per_step']} calls; peak "
+            f"{[round(x['peak_bytes'] / 1e9, 2) for x in rs]} GB; state "
+            f"{[round(x['state_bytes'] / 1e9, 3) for x in rs]} GB a rank")
+    line["phase_s"] = time.perf_counter() - t0
+    say(json.dumps({"mesh_axes_cards": line}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
 
 
 class LaunchTally:
@@ -3061,11 +3402,18 @@ def main(argv=None) -> None:
                     help="run only phase 10's batch-8 check, at these seeds")
     ap.add_argument("--src", default=str(SRC),
                     help="with --clip-check-seeds: the src/ directory whose package is checked")
+    ap.add_argument("--cards", type=int, default=1,
+                    help="4: run only the four-card run of the mesh axes (NCCL, one rank a "
+                         "card); it fails on fewer cards")
     args = ap.parse_args(argv)
     if args.clip_check_seeds is not None:
         return clip_check_only(args.clip_check_seeds, Path(args.src).resolve())
+    if args.cards not in (1, 4):
+        fail(f"--cards {args.cards}: 1 (every phase on one card) or 4 (the four-card run)")
     if not (SRC / "mamba_clip_tpu_torch").is_dir():
         fail(f"{SRC / 'mamba_clip_tpu_torch'} not found: run from a checkout of the repository")
+    if args.cards == 4:
+        return cards_main(args.cards)
     try:
         import numpy as np
         import torch
@@ -4732,7 +5080,16 @@ def main(argv=None) -> None:
     dec_line["phase_s"] = time.perf_counter() - t23
     say(json.dumps({"decoder": dec_line}))
 
-    # 24. kernels line, then the device line. Each attention kernel as three
+    # 24. the fsdp and model axes: two gloo ranks on the card, (fsdp 2) and
+    # (model 2), against one process (their launches counted in the ranks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t24 = time.perf_counter()
+    mesh_line, mesh_bodies = mesh_phase(card)
+    mesh_line["phase_s"] = time.perf_counter() - t24
+    say(json.dumps({"mesh_axes": mesh_line}))
+
+    # 25. kernels line, then the device line. Each attention kernel as three
     # entries, one a body and type: the tensor cores in bf16 (what serving and
     # training under amp and pure_bf16 run, its launches from the main path),
     # the tensor cores in fp16 (training under fp16 and pure_fp16, its
@@ -4753,17 +5110,18 @@ def main(argv=None) -> None:
                    "cli": cli_bodies, "serving_http": http_bodies, "real_data": real_bodies,
                    "quant": quant_bodies, "aqt": aqt_bodies, "data_axis": axis_bodies,
                    "hpo": hpo_bodies, "utilities": util_bodies, "decoder": dec_bodies,
+                   "mesh_axes": mesh_bodies,
                    # phase 18's bf16 launches; its fp16 ones are the fp16 entries'
                    "precision": {k: {"tensor_cores": by["tensor_cores"] - fp16_launches[k],
                                      "cuda_cores": by["cuda_cores"]}
                                  for k, by in prec_bodies.items()}}
     main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2", "cli",
                           "serving_http", "real_data", "quant", "precision", "aqt",
-                          "data_axis", "utilities"),
+                          "data_axis", "utilities", "mesh_axes"),
                   "dkv": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
-                          "precision", "aqt", "data_axis", "utilities"),
+                          "precision", "aqt", "data_axis", "utilities", "mesh_axes"),
                   "dq": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
-                         "precision", "aqt", "data_axis", "utilities")}
+                         "precision", "aqt", "data_axis", "utilities", "mesh_axes")}
     flash_launches = {key: {"tensor_cores": sum(flash_paths[p][key]["tensor_cores"]
                                                 for p in paths),
                             "tensor_cores_fp16": fp16_launches[key],

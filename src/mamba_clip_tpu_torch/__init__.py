@@ -4,12 +4,13 @@ The JAX package ``mamba_clip_tpu`` is the reference; this package mirrors
 its names, flags and module layout: the two-stage pipeline (stage-1
 contrastive CLIP, stage-2 classifier head, pAUC evaluation) through
 ``cli/main.py``, checkpoints with resume and remote sync, the quantized
-modes and low-precision policies, the data axis across processes,
+modes and low-precision policies, the mesh axes across processes,
 serving artifacts and the HTTP host, and the hyperparameter searches
 (``integrations/``). Plain tensor code is PyTorch, and each Pallas kernel
 of the JAX package is a CUDA kernel written for Hopper (``csrc/``), built
-with ``nvcc`` at first use. Not ported yet: the fsdp and model axes and
-``ops/sharded_scan.py`` (ROADMAP.md, Queue 1, item 8).
+with ``nvcc`` at first use. The data, fsdp and model axes run over
+ranks (``parallel/``). Not ported yet: ``ops/sharded_scan.py`` (ROADMAP.md,
+Queue 1, item 8).
 """
 
 __version__ = "0.1.0"

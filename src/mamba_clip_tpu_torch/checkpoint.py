@@ -24,6 +24,12 @@ updates parameters in place.
 Everything is fp32 or integer and goes to disk and back unchanged, so a
 state restored from a step checkpoint continues bit for bit.
 
+A state sharded over the fsdp or model axes (``parallel/sharding.py``)
+keeps the one-file format: every rank gathers the whole parameters and
+moments (``save_checkpoint`` is then called on every rank, and rank 0
+writes), and a load reads the whole file on every rank and keeps the
+rank's slices, so a run resumes at another mesh shape.
+
 The pretrained path: ``load_torch_clip`` reads the ``.npz`` that
 ``tools/convert_weights.py`` writes from an open_clip checkpoint (Flax
 paths joined with ``/``, Flax layouts) into a port ``ClipModel``, through
@@ -56,6 +62,7 @@ from torch import nn
 
 from .ops.qdot import delayed_scales
 from .optim import AdamState
+from .parallel.sharding import full_moments, full_params, plan_of, shard_of
 from .utils.logging import get_logger
 from .utils.precision import LossScaleState
 
@@ -166,19 +173,27 @@ def save_checkpoint(
     epoch: int,
     args=None,
     name: Optional[str] = None,
-) -> str:
+    write: bool = True,
+) -> Optional[str]:
     """Write ``epoch_<N>`` (or ``name``) under ``ckpt_dir`` and return its
     path; save_frequency and delete-previous are honoured at the call site.
-    The save has committed when the call returns."""
+    The save has committed when the call returns. A sharded state is
+    gathered first, a collective: every rank calls the function, and only
+    the one with ``write`` writes (the others return None)."""
+    model = state.model
+    plan = plan_of(model)
+    if not write and plan is None:
+        return None
+    params = _to_host(full_params(model))
+    mu, nu = (_to_host(full_moments(m, plan)) for m in (state.opt_state.mu, state.opt_state.nu))
+    if not write:
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     tag = name or f"epoch_{epoch}"
     path = os.path.abspath(os.path.join(ckpt_dir, tag))
-    model = state.model
     payload = {
-        "params": _to_host(dict(model.named_parameters())),
-        "opt_state": {"count": int(state.opt_state.count),
-                      "mu": _to_host(state.opt_state.mu),
-                      "nu": _to_host(state.opt_state.nu)},
+        "params": params,
+        "opt_state": {"count": int(state.opt_state.count), "mu": mu, "nu": nu},
         "batch_stats": _to_host(_buffers(model)),
         "step": int(state.step),
         "epoch": int(epoch),
@@ -234,10 +249,20 @@ def _copy_into(named: Dict[str, torch.Tensor], saved: Dict[str, torch.Tensor], w
             t.copy_(saved[k])
 
 
+def _local(saved: Dict[str, torch.Tensor], model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The rank's slices of whole saved parameters (or moments) of a
+    sharded ``model``; ``saved`` itself otherwise."""
+    plan = plan_of(model)
+    if plan is None:
+        return saved
+    return {k: shard_of(v, plan.placements.get(k), plan.mesh).clone() for k, v in saved.items()}
+
+
 def load_checkpoint(path: str, state, allow_partial: bool = False):
     """Restore into an existing ``TrainState``: the parameters and buffers
     are copied into its model in place, the moments onto the parameters'
-    devices. Returns (state, start_epoch).
+    devices. Returns (state, start_epoch). A sharded state keeps the
+    rank's slices of the whole tensors.
 
     ``allow_partial`` permits a params-only restore when the saved optimizer
     state does not match this run's optimizer; only safe for eval-only
@@ -250,10 +275,11 @@ def load_checkpoint(path: str, state, allow_partial: bool = False):
     restored = _read(path)
     model = state.model
     params = dict(model.named_parameters())
-    _copy_into(params, restored["params"], "parameters", path)
+    _copy_into(params, _local(restored["params"], model), "parameters", path)
     _copy_into(_buffers(model), restored["batch_stats"], "buffers", path)
 
-    saved_opt = restored["opt_state"]
+    saved_opt = dict(restored["opt_state"])
+    saved_opt.update({m: _local(saved_opt[m], model) for m in ("mu", "nu")})
     fresh = state.opt_state
     matches = (set(saved_opt["mu"]) == set(fresh.mu) and all(
         tuple(saved_opt["mu"][k].shape) == tuple(fresh.mu[k].shape) for k in fresh.mu))
@@ -306,7 +332,8 @@ def load_params_only(path: str, module: nn.Module) -> nn.Module:
     in place (stage 2 takes stage 1's latest CLIP this way)."""
     wait_for_checkpoints()
     restored = _read(path)
-    _copy_into(dict(module.named_parameters()), restored["params"], "parameters", path)
+    _copy_into(dict(module.named_parameters()), _local(restored["params"], module),
+               "parameters", path)
     _copy_into(_buffers(module), restored.get("batch_stats", {}), "buffers", path)
     return module
 
@@ -321,18 +348,23 @@ class StepCheckpointer:
     the stage's final numbered epoch checkpoint exists.
     """
 
-    def __init__(self, ckpt_dir: str, args=None, prefix: str = ""):
+    def __init__(self, ckpt_dir: str, args=None, prefix: str = "", write: bool = True):
         self.ckpt_dir = ckpt_dir
         self.args = args
         self.prefix = prefix
+        self.write = write
         self._ring: list = []
 
     def __call__(self, state, epoch: int, batches_done: int,
-                 num_batches: Optional[int] = None) -> str:
+                 num_batches: Optional[int] = None) -> Optional[str]:
+        """Save; a sharded state is gathered on every rank, and only a
+        writer (``write``) writes and rotates."""
         path = save_checkpoint(
             self.ckpt_dir, state, epoch, self.args,
-            name=f"{self.prefix}epoch_{epoch}_step_{batches_done}",
+            name=f"{self.prefix}epoch_{epoch}_step_{batches_done}", write=self.write,
         )
+        if path is None:
+            return None
         # sidecar: the loader geometry the batch offset is meaningful in;
         # a resume validates it
         with open(path + ".meta.json", "w") as f:

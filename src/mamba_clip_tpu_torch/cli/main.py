@@ -10,13 +10,14 @@ JAX package's. Run on the card (the default ``--device auto``) or, with
 
 ``--quant`` takes every mode: the five native int8 modes and the aqt
 modes ``int8`` and ``int8_fwd`` (``ops/aqt.py``). Ranks: ``torchrun
---nproc-per-node N -m mamba_clip_tpu_torch.cli.main ...`` runs the data
-axis over N processes (``parallel/mesh.py``). ``--hyperparameter-tuning``
-runs a search instead of the pipeline, by ``--hyperparameter-strategy``:
+--nproc-per-node N -m mamba_clip_tpu_torch.cli.main ...`` runs N
+processes laid out as (data, fsdp, model) by ``--mesh-fsdp`` and
+``--mesh-model`` (``parallel/mesh.py``). ``--hyperparameter-tuning`` runs
+a search instead of the pipeline, by ``--hyperparameter-strategy``:
 ``asha``, the native ASHA search (``integrations/ray.py::
 native_asha_pipeline``), ``optuna`` and ``ray`` (each needs its package,
-and names it where it is missing). ``pipeline`` refuses only
-``--mesh-fsdp``/``--mesh-model`` above 1.
+and names it where it is missing). ``pipeline`` refuses only ``--quant``
+under ``--mesh-model`` above 1.
 """
 
 from __future__ import annotations

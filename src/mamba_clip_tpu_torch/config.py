@@ -103,7 +103,7 @@ class Args:
     attn_impl: str = "einsum"  # einsum|flash
 
     # -- device mesh -------------------------------------------------------
-    # devices lay out as data x fsdp x model (not ported yet: one device)
+    # the ranks lay out as data x fsdp x model (parallel/mesh.py)
     mesh_fsdp: int = 1
     mesh_model: int = 1
 

@@ -20,7 +20,11 @@ the two curve points around it. One eval step runs under
 targets accumulate on the host as numpy.
 
 Several ranks (``world > 1``): each evaluates its shard and the shards are
-combined (:func:`evaluate`); rank 0 logs and writes.
+combined (:func:`evaluate`); rank 0 logs and writes. Over a mesh with an
+fsdp or a model axis the shards are the batch axis's (data × fsdp; the
+model peers evaluate the same rows), combined over its group, and the
+sharded parameters are gathered for the evaluation
+(``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from .data.metadata import write_csv
 from .losses import clip_loss, cross_entropy_loss
 from .ops.preprocess import eval_preprocess
 from .parallel.collectives import all_gather_, comm_device
+from .parallel.sharding import gathered, plan_of
 from .utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -140,34 +145,39 @@ def make_eval_step(model, policy, tcfg, stage: int = 1, class_weights=None,
     return stage1_step if stage == 1 else stage2_step
 
 
-def _gather(x: np.ndarray, world: int) -> np.ndarray:
-    """The ``x`` of every rank, stacked (world, ...), through the process
-    group's backend."""
-    t = torch.as_tensor(np.array(x)).to(comm_device())
-    return all_gather_(t, world).cpu().numpy()
+def _gather(x: np.ndarray, world: int, group=None) -> np.ndarray:
+    """The ``x`` of every rank of ``group`` (None: the default group),
+    stacked (world, ...), through the process group's backend."""
+    t = torch.as_tensor(np.array(x)).to(comm_device(group))
+    return all_gather_(t, world, group=group).cpu().numpy()
 
 
-def _combine_shards(cumulative_loss, num_samples, labeled, probs, targets, world):
+def _combine_shards(cumulative_loss, num_samples, labeled, probs, targets, world, group=None):
     """The ranks' eval shards combined (JAX ``eval.py``'s world > 1 branch):
     the loss and sample sums; labeledness agreed first, so that a rank
     without targets drops them everywhere instead of entering a mismatched
     collective; probabilities and targets padded to the longest shard,
-    gathered, and cut back to each rank's count, rank-major."""
-    sums = _gather(np.array([cumulative_loss, num_samples], np.float64), world)
+    gathered, and cut back to each rank's count, rank-major; over
+    ``group`` (a batch axis's) when one is given."""
+
+    def gather(x):
+        return _gather(x, world) if group is None else _gather(x, world, group)
+
+    sums = gather(np.array([cumulative_loss, num_samples], np.float64))
     cumulative_loss, num_samples = float(sums[:, 0].sum()), int(sums[:, 1].sum())
-    lab_all = _gather(np.array(int(labeled and targets is not None), np.int64), world)
+    lab_all = gather(np.array(int(labeled and targets is not None), np.int64))
     if probs is not None and not lab_all.all():
         if targets is not None:
             logger.warning("eval: some ranks saw no labels; dropping targets "
                            "globally (loss/pAUC unavailable)")
         targets, labeled = None, False
     if probs is not None:
-        counts = _gather(np.array(probs.shape[0], np.int64), world)
+        counts = gather(np.array(probs.shape[0], np.int64))
         pad = int(counts.max()) - probs.shape[0]
-        p_all = _gather(np.pad(probs, ((0, pad), (0, 0))), world)
+        p_all = gather(np.pad(probs, ((0, pad), (0, 0))))
         probs = np.concatenate([p_all[i, :counts[i]] for i in range(world)])
         if targets is not None:
-            t_all = _gather(np.pad(targets, (0, pad)), world)
+            t_all = gather(np.pad(targets, (0, pad)))
             targets = np.concatenate([t_all[i, :counts[i]] for i in range(world)])
     return cumulative_loss, num_samples, labeled, probs, targets
 
@@ -198,7 +208,8 @@ def evaluate(
     are combined as the JAX package combines them: the scalar sums, the
     labeledness agreed before any targets collective, and a padded
     all-gather of the probabilities and the targets. Logging and the
-    writes stay with rank 0."""
+    writes stay with rank 0. A sharded model is evaluated gathered, and
+    its shards of the split are the batch axis's."""
     metrics: Dict[str, float] = {}
     rank = getattr(run_state, "rank", 0) if run_state else 0
     world = getattr(run_state, "world_size", 1) if run_state else 1
@@ -219,6 +230,17 @@ def evaluate(
     if net is None:
         net = model
     net.eval()
+    plan, group = plan_of(net), None
+    if plan is not None:
+        world, group = plan.mesh.axis().world, plan.mesh.axis().group
+    with gathered(net):
+        return _evaluate(net, step, data, epoch, args, stage, master, world, group, run_state,
+                         results_writer, tb_writer, device)
+
+
+def _evaluate(net, step, data, epoch, args, stage, master, world, group, run_state,
+              results_writer, tb_writer, device):
+    metrics: Dict[str, float] = {}
 
     split = "val" if "val" in data else "test"
     loader = data[split].loader
@@ -251,7 +273,7 @@ def evaluate(
                if labeled and all_targets else None)
     if world > 1:
         cumulative_loss, num_samples, labeled, probs, targets = _combine_shards(
-            cumulative_loss, num_samples, labeled, probs, targets, world)
+            cumulative_loss, num_samples, labeled, probs, targets, world, group)
     if labeled:
         metrics["val_loss"] = cumulative_loss / max(num_samples, 1)
     if probs is not None:

@@ -63,6 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.qdot import inject, injected
 from ..parallel import collectives
+from ..parallel.sharding import column_parallel
 from ..ops.selective_scan import selective_scan_tm
 
 # std of a standard normal truncated to [-2, 2]
@@ -96,9 +97,15 @@ def _lecun_normal_(w: torch.Tensor, generator) -> torch.Tensor:
 def _linear(x, layer: nn.Linear, dtype):
     """``nn.Dense(dtype=dtype)``: x and the weight cast to ``dtype`` first,
     then the dot (the int8 dot injected into ``layer``, if any, which
-    quantizes the cast values), then the bias."""
+    quantizes the cast values), then the bias. A kernel whose output
+    features are split over the model axis (``parallel/sharding.py``) runs
+    column-parallel: this rank's columns, gathered, then the whole bias."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
     x, w = x.to(dtype), layer.weight.to(dtype)
+    axis = getattr(layer.weight, "column_parallel", None)
+    if axis is not None:
+        out = column_parallel(x, w, axis)
+        return out if bias is None else out + bias
     dot = injected(layer)
     if dot is None:
         return F.linear(x, w, bias)

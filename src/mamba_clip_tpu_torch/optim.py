@@ -35,6 +35,12 @@ train step rounds ``p + u`` back to ``p``'s type (``optax.apply_updates``).
 The transform is functional like optax's: ``init(params)`` gives the
 state, ``update(grads, state, params)`` the additive updates and the next
 state; the train step adds the updates to the parameters in place.
+
+Sharded state (the fsdp and model axes, ``parallel/sharding.py``): the
+update runs on the rank's shards of the parameters, moments and gradients,
+elementwise as on whole leaves; the clipping norm takes each leaf's sum of
+squares over its shard and sums it over that leaf's shard group, and a
+replicated leaf counts once (``update(..., plan=...)``).
 """
 
 from __future__ import annotations
@@ -90,12 +96,31 @@ def _scalar(x: float, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(x, dtype=dtype)
 
 
-def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """``optax.global_norm``: sqrt of the sum of squares of every entry.
-    Each tensor's squares are rounded to its type and summed in fp32, the
-    sum rounded to its type (``jnp.sum``); the sums add in their promoted
-    type, the square root is taken in that type."""
-    return torch.sqrt(sum(torch.sum(t * t, dtype=torch.float32).to(t.dtype) for t in tensors))
+def global_norm(tensors, plan=None) -> torch.Tensor:
+    """``optax.global_norm``: sqrt of the sum of squares of every entry of
+    ``tensors`` (an iterable, or a ``{name: tensor}`` dict). Each tensor's
+    squares are rounded to its type and summed in fp32, the sum rounded to
+    its type (``jnp.sum``); the sums add in their promoted type, the square
+    root is taken in that type.
+
+    With a shard ``plan`` (``parallel/sharding.ShardPlan``), ``tensors`` is
+    a ``{name: shard}`` dict: a sharded leaf's fp32 sum over its shard is
+    summed over its axis's group (one all-reduce an axis) before it is
+    rounded; a replicated leaf counts once."""
+    if plan is None:
+        values = tensors.values() if isinstance(tensors, Mapping) else tensors
+        return torch.sqrt(sum(torch.sum(t * t, dtype=torch.float32).to(t.dtype)
+                              for t in values))
+    from .parallel.collectives import all_reduce_
+
+    sums = {k: torch.sum(t * t, dtype=torch.float32) for k, t in tensors.items()}
+    for axis in ("fsdp", "model"):
+        keys = [k for k in sums if (plan.placements.get(k) or ("",))[0] == axis]
+        if keys:
+            total = all_reduce_(torch.stack([sums[k] for k in keys]),
+                                group=plan.axis(axis).group)
+            sums.update(zip(keys, total.unbind(0)))
+    return torch.sqrt(sum(sums[k].to(t.dtype) for k, t in tensors.items()))
 
 
 @dataclass
@@ -126,11 +151,13 @@ class AdamW:
             mu={k: torch.zeros_like(params[k]) for k in names},
             nu={k: torch.zeros_like(params[k]) for k in names})
 
-    def update(self, grads: Params, state: AdamState, params: Params):
+    def update(self, grads: Params, state: AdamState, params: Params, plan=None):
+        """``plan``: the shard plan of sharded ``grads`` and ``params``
+        (the module docstring)."""
         names = list(state.mu)
         g = {k: grads[k] for k in names}
         if self.clip_norm is not None:
-            norm = global_norm(g.values())
+            norm = global_norm(g, plan)
             keep = norm < _weak(self.clip_norm, norm)
             g = {k: torch.where(keep, t, (t / norm.to(t.dtype)) * _weak(self.clip_norm, t))
                  for k, t in g.items()}

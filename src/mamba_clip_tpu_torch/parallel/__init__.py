@@ -1,4 +1,5 @@
-"""The data axis across processes: ranks, the mesh and its collectives."""
+"""Ranks, the (data, fsdp, model) mesh, its collectives and the sharded
+state."""
 
 from .mesh import (
     DATA_AXIS,
@@ -7,16 +8,17 @@ from .mesh import (
     MeshSpec,
     broadcast_object,
     create_mesh,
+    data_sharding,
     is_master,
     local_batch_slice,
     maybe_initialize_distributed,
+    param_sharding,
+    replicated,
     world_info_from_env,
 )
 
 __all__ = [
     "DATA_AXIS", "FSDP_AXIS", "MODEL_AXIS", "MeshSpec", "broadcast_object",
-    "create_mesh", "is_master", "local_batch_slice", "maybe_initialize_distributed",
-    "world_info_from_env",
-    # not ported yet: data_sharding, param_sharding and replicated, the
-    # placements of the fsdp and model axes (ROADMAP.md, Queue 1, item 8a)
+    "create_mesh", "data_sharding", "is_master", "local_batch_slice",
+    "maybe_initialize_distributed", "param_sharding", "replicated", "world_info_from_env",
 ]

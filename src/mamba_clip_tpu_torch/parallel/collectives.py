@@ -19,11 +19,15 @@ arguments:
 - :func:`draw_rows`: a random draw over the global batch, of which the rank
   keeps its rows, so that every rank takes its slice of one global draw.
 
-The step's collectives go through :func:`all_reduce_` and
-:func:`all_gather_`, on the tensors' own device: ``nccl`` takes the card's
-tensors, and ``gloo`` (the CPU's backend) takes them too, for
-``all_reduce``, ``broadcast`` and ``all_gather`` alike (checked on the H100
-by ``chip_smoke.py`` phase 20), so nothing is staged through the host.
+The step's collectives go through :func:`all_reduce_`,
+:func:`all_gather_` and :func:`reduce_scatter_`, on the tensors' own
+device: ``nccl`` takes the card's tensors, and ``gloo`` (the CPU's
+backend) takes them too, for ``all_reduce``, ``broadcast``,
+``all_gather`` and ``reduce_scatter`` alike (checked on the H100 by
+``chip_smoke.py`` phases 20 and 24), so nothing is staged through the
+host. The axis of a step is the batch
+axis of the mesh (data × fsdp, ``Mesh.axis``); the fsdp and model axes'
+groups are used by ``parallel/sharding.py``.
 """
 
 from __future__ import annotations
@@ -91,6 +95,18 @@ def all_gather_(t: torch.Tensor, world: int, group=None) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty((world,) + tuple(t.shape), dtype=t.dtype, device=t.device)
     dist.all_gather(list(out.unbind(0)), t, group=group)
+    return out
+
+
+def reduce_scatter_(t: torch.Tensor, world: int, group=None) -> torch.Tensor:
+    """The sum over the group's ``world`` ranks of a flat ``t`` of
+    ``world·n`` entries, of which this rank (its index in the group) keeps
+    its ``n``: entries [i·n, (i + 1)·n). Both backends take it, gloo on the
+    card's tensors too (``chip_smoke.py`` phase 24)."""
+    t = t.contiguous()
+    out = torch.empty(t.numel() // world, dtype=t.dtype, device=t.device)
+    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    scatter(out, t, group=group)
     return out
 
 

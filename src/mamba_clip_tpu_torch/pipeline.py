@@ -27,9 +27,14 @@ rank 0's. Each model is built on the host from a generator seeded with
 ``--seed`` and moved to the device in ``prepare_params``. ``--remote-sync``
 mirrors the run directory to an fsspec URL or a directory, and ``--resume
 latest`` looks there first; ``--report-to wandb`` logs to wandb where it
-is installed (one warning and no-ops where not). A flag whose feature is
-not ported yet (an fsdp or a model axis above 1) fails when ``pipeline()``
-starts, naming the ROADMAP.md item that lifts it.
+is installed (one warning and no-ops where not). ``--mesh-fsdp`` and
+``--mesh-model`` lay the ranks out as (data, fsdp, model)
+(``parallel/mesh.py``): the loader splits the rows by the batch index (the
+model peers read the same rows), the state is sharded
+(``parallel/sharding.py``), and every rank takes part in a checkpoint's
+save, which rank 0 writes. What is not ported yet (``--quant`` under a
+model axis) fails when ``pipeline()`` starts, naming the ROADMAP.md item
+that lifts it.
 """
 
 from __future__ import annotations
@@ -56,6 +61,7 @@ from .ops.flash_attn import resolve_attn_flash
 from .ops.qdot import delayed_holders, init_delayed_scales
 from .parallel.mesh import (MeshSpec, barrier, broadcast_module, broadcast_object, create_mesh,
                             is_master, maybe_initialize_distributed)
+from .parallel.sharding import plan_of
 from .optim import build_optimizer, freeze_submodule_mask, merge_masks
 from .schedules import create_schedule
 from .train import (TrainState, create_train_state, make_classifier_train_step,
@@ -78,10 +84,10 @@ def _not_ported(what: str, item: int, title: str) -> NotImplementedError:
 
 
 def check_ported(args: Args) -> None:
-    """Raise for a flag whose feature the port does not have yet: an fsdp
-    or a model axis above 1."""
-    if args.mesh_fsdp > 1 or args.mesh_model > 1:
-        raise _not_ported(f"--mesh-fsdp {args.mesh_fsdp} --mesh-model {args.mesh_model}",
+    """Raise for a flag whose feature the port does not have yet: the int8
+    dots of ``--quant`` under a model axis above 1."""
+    if args.quant and args.mesh_model > 1:
+        raise _not_ported(f"--quant {args.quant} under --mesh-model {args.mesh_model}",
                           8, "Parallel layers")
 
 
@@ -248,8 +254,10 @@ def prepare_params(
     package's ``model.init`` sees) and a stage-1 CLIP then takes
     ``--pretrained``. Returns what ``step`` needs: ``state``, ``step_fn``,
     ``schedule``, ``policy``, ``start_epoch``, ``start_batch``, ``writer``,
-    ``mask``. ``mesh``: the data axis the steps run over; every rank then
-    takes rank 0's parameters and buffers before the optimizer is made."""
+    ``mask``. ``mesh``: the mesh the steps run over; every rank then
+    takes rank 0's parameters and buffers, and the state is placed on the
+    mesh's fsdp and model axes (JAX ``pipeline.py``'s ``param_sharding``),
+    before the optimizer state is made and a checkpoint restored."""
     policy = get_policy(args.precision)
     tcfg_train = data.get("tcfg_train")
     model = model.to(run.device)
@@ -298,7 +306,7 @@ def prepare_params(
     if frozen:
         mask = merge_masks(mask, freeze_submodule_mask(named, frozen))
     tx = build_optimizer(args, schedule, trainable_mask=mask)
-    state = create_train_state(model, tx, policy)
+    state = create_train_state(model, tx, policy, mesh=mesh)
 
     start_epoch = 0
     start_batch = 0
@@ -356,9 +364,10 @@ def step(
     """Epoch loop of one stage on ``device``. ``params`` holds ``state`` (a
     ``TrainState``), ``step_fn``, ``policy``, ``start_epoch`` and optionally
     ``start_batch`` (a mid-epoch resume) and ``writer``; ``data`` the
-    ``DataInfo`` of each split and ``tcfg_val``. ``mesh``: the data axis
-    (``--batch-size`` must divide into its shards). Every rank trains and
-    evaluates; rank 0 writes. Returns (metrics, state)."""
+    ``DataInfo`` of each split and ``tcfg_val``. ``mesh``: the mesh
+    (``--batch-size`` must divide into its data × fsdp shards). Every rank
+    trains and evaluates; rank 0 writes, and every rank takes part in the
+    save of a sharded state. Returns (metrics, state)."""
     state: TrainState = params["state"]
     step_fn = params["step_fn"]
     policy = params["policy"]
@@ -387,9 +396,17 @@ def step(
             results_writer=results, class_weights=cw,
             takes_text=takes_text, eval_step=eval_step, device=device, tb_writer=writer)
 
+    # a sharded state is gathered on every rank for a save, which rank 0 writes
+    saver = master or plan_of(state.model) is not None
+
+    def save(state, epoch, name):
+        if saver:
+            save_checkpoint(run.checkpoint_path, state, epoch, args, name=name, write=master)
+
     step_ckptr = None
-    if getattr(args, "checkpoint_steps", 0) > 0 and master:
-        step_ckptr = StepCheckpointer(run.checkpoint_path, args, prefix=save_prefix)
+    if getattr(args, "checkpoint_steps", 0) > 0 and saver:
+        step_ckptr = StepCheckpointer(run.checkpoint_path, args, prefix=save_prefix,
+                                      write=master)
 
     metrics = None
     best = None
@@ -424,27 +441,22 @@ def step(
         elif _metrics:
             metrics = _metrics
 
-        should_save = master and (completed == args.epochs or (
-            args.save_frequency > 0 and completed % args.save_frequency == 0
-        ))
-        if should_save:
-            save_checkpoint(run.checkpoint_path, state, completed, args,
-                            name=f"{save_prefix}epoch_{completed}")
+        if completed == args.epochs or (
+                args.save_frequency > 0 and completed % args.save_frequency == 0):
+            save(state, completed, f"{save_prefix}epoch_{completed}")
         if master and args.delete_previous_checkpoint:
             delete_previous_checkpoint(run.checkpoint_path, completed, prefix=save_prefix)
-        if master and args.save_most_recent:
-            save_checkpoint(run.checkpoint_path, state, completed, args,
-                            name=f"{save_prefix}{LATEST_CHECKPOINT_NAME}")
+        if args.save_most_recent:
+            save(state, completed, f"{save_prefix}{LATEST_CHECKPOINT_NAME}")
     if metrics is None and start_epoch >= args.epochs:
         # resuming a finished run: nothing left to train; still evaluate the
         # restored state so the caller gets metrics instead of None
         metrics = run_eval(start_epoch)
     # always leave a stage-latest checkpoint for stage 2 to start from
-    if master and args.epochs > 0:
-        save_checkpoint(run.checkpoint_path, state, args.epochs, args,
-                        name=f"{save_prefix}{LATEST_CHECKPOINT_NAME}")
+    if args.epochs > 0:
+        save(state, args.epochs, f"{save_prefix}{LATEST_CHECKPOINT_NAME}")
     wait_for_checkpoints()
-    if step_ckptr is not None:
+    if step_ckptr is not None and master:
         # the stage's final numbered epoch checkpoint has committed; the
         # surviving mid-epoch checkpoints are now redundant
         step_ckptr.finalize()
@@ -455,11 +467,15 @@ def step(
 
 
 def _build_data(args: Args, run: RunState, tokenizer, tcfg_train, tcfg_val,
-                model_context: int = 256) -> Dict[str, Any]:
+                model_context: int = 256, mesh=None) -> Dict[str, Any]:
     """The splits of a run: the ISIC files' metadata (``get_metadata``, then
     ``undersample_data`` under ``--undersample``), or ``--synthetic-data``.
     The ``--text-context`` trim is measured on the splits' metadata (the
-    distribution the synthetic dataset draws for a synthetic run)."""
+    distribution the synthetic dataset draws for a synthetic run). The
+    rows are split over ``mesh``'s batch axis (the rank and world without
+    one)."""
+    shard = (dict(rank=mesh.axis().rank, world_size=mesh.axis().world) if mesh is not None
+             else dict(rank=run.rank, world_size=run.world_size))
 
     def resolve_ctx(mds):
         # train/val reports carry the diagnosis sentence at stage 1, the
@@ -482,7 +498,7 @@ def _build_data(args: Args, run: RunState, tokenizer, tcfg_train, tcfg_val,
         else:
             resolve_ctx([])
         data = get_data(args, tokenizer=tokenizer, staging_size=tcfg_train.staging_size,
-                        rank=run.rank, world_size=run.world_size)
+                        **shard)
     else:
         train_md, val_md, test_md = get_metadata(args)
         if args.undersample and train_md is not None:
@@ -490,8 +506,7 @@ def _build_data(args: Args, run: RunState, tokenizer, tcfg_train, tcfg_val,
         resolve_ctx([(train_md, "train"), (val_md, "val"), (test_md, "test")])
         data = get_data(args, train_metadata=train_md, val_metadata=val_md,
                         test_metadata=test_md, tokenizer=tokenizer,
-                        staging_size=tcfg_train.staging_size,
-                        rank=run.rank, world_size=run.world_size)
+                        staging_size=tcfg_train.staging_size, **shard)
     data["tcfg_train"] = tcfg_train
     data["tcfg_val"] = tcfg_val
     return data
@@ -570,6 +585,7 @@ def pipeline(args: Args):
         data = _build_data(
             args, run, tokenizer, tcfg_train, tcfg_val,
             model_context=getattr(getattr(model, "text", None), "context_length", 256),
+            mesh=mesh,
         )
         run = setup_paths(args, run)
         run = setup_train(args, run, checkpoint_prefix=f"stage_{args.stage}_")
@@ -607,7 +623,7 @@ def pipeline(args: Args):
         )
         data = _build_data(
             args, run, tokenizer, tcfg_train, tcfg_val,
-            model_context=getattr(clip.text, "context_length", 256),
+            model_context=getattr(clip.text, "context_length", 256), mesh=mesh,
         )
         # locate the stage-1 run BEFORE this run's own dir is made, which
         # would otherwise shadow it in the latest-run scan

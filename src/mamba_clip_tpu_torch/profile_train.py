@@ -73,7 +73,7 @@ KERNEL_WRAPPERS = {
 
 
 def medmamba_train_setup(batch: int, device="cuda", scan_impl=None, seed: int = 0,
-                         model_state=None, quant=None, precision: str = "amp",
+                         model_state=None, quant=None, precision: str = "amp", mesh=None,
                          **arg_overrides):
     """Full-width medmamba (``precision``: ``amp`` unless asked; the
     parameters in its type, as ``prepare_params`` keeps them) with its train
@@ -83,8 +83,10 @@ def medmamba_train_setup(batch: int, device="cuda", scan_impl=None, seed: int = 
     ``seed`` (or ``model_state``), two uint8 batches with int targets made
     from a numpy seed and put on ``device``. ``quant``: the ``--quant``
     mode, its delayed scales (if any) set from the init batch as
-    ``prepare_params`` sets them. ``arg_overrides`` replace entries of
-    ``TRAIN_ARGS``. Returns (state, step_fn, batches)."""
+    ``prepare_params`` sets them. ``mesh``: the mesh the step runs over
+    (``parallel/mesh.py``; the state is placed on its fsdp and model
+    axes). ``arg_overrides`` replace entries of ``TRAIN_ARGS``. Returns
+    (state, step_fn, batches)."""
     policy = get_policy(precision)
     args = SimpleNamespace(**{**TRAIN_ARGS, **arg_overrides})
     tcfg = get_transform_config(None, 224, is_train=True)
@@ -99,9 +101,9 @@ def medmamba_train_setup(batch: int, device="cuda", scan_impl=None, seed: int = 
     policy.cast_params(model)
     schedule = create_schedule(args, TOTAL_STEPS)
     tx = build_optimizer(args, schedule)
-    state = create_train_state(model, tx, policy)
+    state = create_train_state(model, tx, policy, mesh=mesh)
     step_fn = make_classifier_train_step(model, tx, policy, args, tcfg, schedule,
-                                         num_classes=2, takes_text=False)
+                                         num_classes=2, takes_text=False, mesh=mesh)
     rs = np.random.RandomState(seed)
     S = tcfg.staging_size
     batches = [{
@@ -123,9 +125,10 @@ def clip_train_setup(batch: int, device="cuda", model_name: str = "biomedclip",
     ``seed`` (or ``model_state``); two batches of uint8 images and of
     HashTokenizer tokens of report-like text (context 256, so the key masks
     are real) made from a numpy seed and put on ``device``. ``quant`` as
-    :func:`medmamba_train_setup`'s; ``mesh`` the step's data axis
-    (``parallel/mesh.py``). ``arg_overrides`` replace entries of
-    ``CLIP_TRAIN_ARGS``. Returns (state, step_fn, batches)."""
+    :func:`medmamba_train_setup`'s; ``mesh`` the step's mesh
+    (``parallel/mesh.py``; the state is placed on its fsdp and model
+    axes). ``arg_overrides`` replace entries of ``CLIP_TRAIN_ARGS``.
+    Returns (state, step_fn, batches)."""
     policy = get_policy(precision)
     args = SimpleNamespace(**{**CLIP_TRAIN_ARGS, **arg_overrides})
     tcfg = get_transform_config(None, 224, is_train=True)
@@ -141,7 +144,7 @@ def clip_train_setup(batch: int, device="cuda", model_name: str = "biomedclip",
     policy.cast_params(model)
     schedule = create_schedule(args, CLIP_TOTAL_STEPS)
     tx = build_optimizer(args, schedule)
-    state = create_train_state(model, tx, policy)
+    state = create_train_state(model, tx, policy, mesh=mesh)
     step_fn = make_clip_train_step(model, tx, policy, args, tcfg, schedule, mesh=mesh)
     rs = np.random.RandomState(seed)
     S = tcfg.staging_size

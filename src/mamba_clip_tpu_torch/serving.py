@@ -43,7 +43,7 @@ Quantized serving: ``quant="int8_serve"`` puts the per-channel int8 dot
 (``ops/qdot.py``) into the towers' Dense layers; the manifest records it
 and ``load_serving`` rebuilds the module with it. The training modes
 ``int8_delayed*`` are refused, with the JAX package's message.
-Data-sharded artifacts are not ported (ROADMAP.md, Queue 1, item 8).
+Data-sharded artifacts are not ported (ROADMAP.md, Queue 1, item 8a-ii).
 """
 
 from __future__ import annotations

@@ -62,6 +62,16 @@ W·B rows, gradients included. Each step opens the axis
 
 Under ``--accum-freq N`` micro-batch j is every rank's j-th micro-batch,
 rank-major, and its features are gathered into the global feature bank.
+
+The fsdp and model axes (a mesh with ``fsdp`` or ``model`` above 1): the
+axis above is the mesh's batch axis (data × fsdp; the model peers of a
+batch index take the same rows and draws), and the state is sharded
+(``parallel/sharding.py``; :func:`create_train_state` with ``mesh=``
+places it). A step gathers the sharded parameters for its forwards and
+backwards (the model-sharded Dense kernels run column-parallel), keeps the
+whole gradients of ``--accum-freq``'s micro-batches, reduces each to its
+owner once (``reduce_grads``), and runs the global norm, the clipping and
+AdamW on the shards.
 """
 
 from __future__ import annotations
@@ -82,6 +92,7 @@ from .ops.preprocess import train_preprocess
 from .ops.qdot import commit_scales, delayed_holders, delayed_scales, scale_mode
 from .optim import AdamState, global_norm
 from .parallel.collectives import data_axis, gather_rows, mean_grads
+from .parallel.sharding import gathered, place_model, plan_of, reduce_grads
 from .utils.logging import get_logger
 from .utils.precision import LossScaleState, Policy, init_loss_scale, update_loss_scale
 
@@ -119,7 +130,12 @@ class TrainState:
     loss_scale: Optional[LossScaleState] = None
 
 
-def create_train_state(model: nn.Module, tx, policy: Optional[Policy] = None) -> TrainState:
+def create_train_state(model: nn.Module, tx, policy: Optional[Policy] = None,
+                       mesh=None) -> TrainState:
+    """The state at step 0. ``mesh`` with an fsdp or a model axis: the
+    model is placed on it first (``sharding.place_model``; every rank holds
+    the same parameters before), so the moments are the shards'."""
+    place_model(model, mesh)
     return TrainState(
         step=0,
         model=model,
@@ -166,10 +182,11 @@ def _mixup(lam, images, tokens, targets, mix_images, mix_tokens, mix_targets,
 
 
 def _finish_step(state: TrainState, grads: Dict[str, torch.Tensor], tx, s: float,
-                 dynamic: bool, clamp: bool = False):
+                 dynamic: bool, clamp: bool = False, plan=None):
     """Unscale ``grads`` by ``s`` and apply the optimizer update in place;
     with ``clamp`` the updated log logit scale is then clamped to
-    [0, ln 100].
+    [0, ln 100]. ``plan``: the shard plan of a sharded state (``grads`` are
+    then the shards').
 
     Dynamic path (fp16): the JAX package divides by the scale as an fp32
     array, so the unscaled gradients are fp32 whatever the parameters' type
@@ -183,7 +200,7 @@ def _finish_step(state: TrainState, grads: Dict[str, torch.Tensor], tx, s: float
         grads = {k: g.float() / s for k, g in grads.items()}
     elif s != 1.0:
         grads = {k: g / s for k, g in grads.items()}
-    gnorm = global_norm(grads.values())
+    gnorm = global_norm(grads, plan)
     extra = {"grad_norm": gnorm}
     loss_scale = state.loss_scale
     if dynamic:
@@ -198,7 +215,7 @@ def _finish_step(state: TrainState, grads: Dict[str, torch.Tensor], tx, s: float
             return (replace(state, step=state.step + 1, opt_state=opt, loss_scale=loss_scale),
                     grads, extra)
     params = dict(state.model.named_parameters())
-    updates, opt_state = tx.update(grads, state.opt_state, params)
+    updates, opt_state = tx.update(grads, state.opt_state, params, plan=plan)
     with torch.no_grad():
         for k, p in params.items():
             p.add_(updates[k])
@@ -210,16 +227,17 @@ def _finish_step(state: TrainState, grads: Dict[str, torch.Tensor], tx, s: float
 
 
 def _debug_grad_stats(params: Dict[str, torch.Tensor],
-                      grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+                      grads: Dict[str, torch.Tensor], plan=None) -> Dict[str, torch.Tensor]:
     """``--debug``: the parameter and gradient norms of every top-level
-    submodule (the first component of the parameter names)."""
+    submodule (the first component of the parameter names); over the
+    shards of a sharded state, as the global norm takes them."""
     groups: Dict[str, list] = {}
     for k in params:
         groups.setdefault(k.split(".", 1)[0], []).append(k)
     stats = {}
     for top, names in groups.items():
-        stats[f"gnorm/{top}"] = global_norm(grads[k] for k in names)
-        stats[f"pnorm/{top}"] = global_norm(params[k].detach() for k in names)
+        stats[f"gnorm/{top}"] = global_norm({k: grads[k] for k in names}, plan)
+        stats[f"pnorm/{top}"] = global_norm({k: params[k].detach() for k in names}, plan)
     return stats
 
 
@@ -258,16 +276,24 @@ def _calibrate(model: nn.Module, holders, quant_keys, forward) -> None:
 
 
 def _mesh_axis(mesh):
-    """The data axis of ``mesh`` when it has more than one rank, else None;
-    an fsdp or model axis above 1 raises (not ported)."""
+    """The batch axis (data × fsdp) of ``mesh`` when it has more than one
+    rank, else None."""
     if mesh is None:
         return None
-    shape = mesh.shape
-    if shape.get("fsdp", 1) > 1 or shape.get("model", 1) > 1:
-        raise NotImplementedError(
-            "a mesh with an fsdp or model axis above 1 is not ported yet "
-            "(ROADMAP.md, Queue 1, item 8 'Parallel layers')")
-    return mesh.axis() if shape.get("data", 1) > 1 else None
+    axis = mesh.axis()
+    return axis if axis.world > 1 else None
+
+
+def _plan(state: TrainState, mesh):
+    """The shard plan of ``state``'s model; a mesh with an fsdp or a model
+    axis needs the state placed on it."""
+    plan = plan_of(state.model)
+    if plan is None and mesh is not None and (mesh.shape["fsdp"] > 1
+                                              or mesh.shape["model"] > 1):
+        raise ValueError(
+            f"a mesh of shape {mesh.shape} needs a sharded state: make it with "
+            "create_train_state(model, tx, policy, mesh=mesh)")
+    return plan
 
 
 def _preprocess_train(images_u8, generator, tcfg, policy: Policy):
@@ -371,6 +397,33 @@ def make_clip_train_step(
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
+        plan = _plan(state, mesh)
+        with gathered(model):
+            out, loss = _forward_backward(dev, encode, buffers, ls_, images.shape[0])
+            grads = _collect_grads(params)
+            for p in params.values():
+                p.grad = None
+        logit_scale = out["logit_scale"].detach().clone()
+        for k, b in frozen_stats.items():
+            buffers[k].copy_(b)
+        if axis is not None:
+            loss = mean_grads({"loss": loss})["loss"]
+
+        new_state, grads, extra = _finish_step(state, reduce_grads(grads, plan), tx,
+                                               ls_, dyn, clamp=True, plan=plan)
+        for k, p in params.items():
+            p.grad = grads[k].to(p.dtype)
+        metrics = {"loss": loss, "logit_scale": logit_scale, **extra}
+        if getattr(args, "debug", False):
+            metrics.update(_debug_grad_stats(params, grads, plan))
+        if schedule is not None:
+            metrics["lr"] = schedule(state.step)
+        return new_state, metrics
+
+    def _forward_backward(dev, encode, buffers, ls_, rows: int):
+        """The step's forwards and backwards over its ``rows`` rows
+        (``--accum-freq``'s feature bank and micro-batches); returns (the
+        last forward's outputs, the loss)."""
         if accum == 1:
             with scale_mode(holders, "record"):
                 out = encode(slice(None))
@@ -379,7 +432,7 @@ def make_clip_train_step(
             commit_scales(holders)
             loss = scaled.detach() / ls_
         else:
-            mb = _check_accum(images.shape[0], accum)
+            mb = _check_accum(rows, accum)
             slices = [slice(j * mb, (j + 1) * mb) for j in range(accum)]
             # Phase 1: the no-grad feature bank; its statistics are discarded
             # and it records no delayed scale
@@ -404,22 +457,7 @@ def make_clip_train_step(
                 commit_scales(holders)  # micro-batch j+1 quantizes with j's absmax
                 loss_sum += scaled.detach()
             loss = loss_sum / (ls_ * accum)
-        logit_scale = out["logit_scale"].detach().clone()
-        for k, b in frozen_stats.items():
-            buffers[k].copy_(b)
-        if axis is not None:
-            loss = mean_grads({"loss": loss})["loss"]
-
-        new_state, grads, extra = _finish_step(state, mean_grads(_collect_grads(params)), tx,
-                                               ls_, dyn, clamp=True)
-        for k, p in params.items():
-            p.grad = grads[k].to(p.dtype)
-        metrics = {"loss": loss, "logit_scale": logit_scale, **extra}
-        if getattr(args, "debug", False):
-            metrics.update(_debug_grad_stats(params, grads))
-        if schedule is not None:
-            metrics["lr"] = schedule(state.step)
-        return new_state, metrics
+        return out, loss
 
     def calibrate_quant(state, batch, seed):
         """Re-anchor the delayed scales on one real batch: the step's images
@@ -432,9 +470,10 @@ def make_clip_train_step(
         model.train()
         gens = step_generators(seed, state.step, batch["image"].device)
         images = _preprocess_train(batch["image"], gens["preprocess"], tcfg, policy)
-        _calibrate(model, holders, quant_keys,
-                   lambda: model(image=images, text=batch.get("tokens"),
-                                 generator=gens["dropout"]))
+        with gathered(model):
+            _calibrate(model, holders, quant_keys,
+                       lambda: model(image=images, text=batch.get("tokens"),
+                                     generator=gens["dropout"]))
         return state
 
     step_fn.calibrate_quant = calibrate_quant
@@ -503,30 +542,35 @@ def make_classifier_train_step(
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
+        plan = _plan(state, mesh)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        for j in range(accum):
-            sl = slice(j * mb, (j + 1) * mb)
-            inputs = (images[sl], tokens[sl]) if takes_text else (images[sl],)
-            with scale_mode(holders, "record"):
-                logits = model(*inputs, generator=gens["dropout"])
-                scaled = cross_entropy_loss(logits, tgt[sl], weight=w,
-                                            axis_name=ax_name) * ls_
-                scaled.backward()
-            commit_scales(holders)
-            loss_sum += scaled.detach()
-        grads = mean_grads(_collect_grads(params))
+        with gathered(model):
+            for j in range(accum):
+                sl = slice(j * mb, (j + 1) * mb)
+                inputs = (images[sl], tokens[sl]) if takes_text else (images[sl],)
+                with scale_mode(holders, "record"):
+                    logits = model(*inputs, generator=gens["dropout"])
+                    scaled = cross_entropy_loss(logits, tgt[sl], weight=w,
+                                                axis_name=ax_name) * ls_
+                    scaled.backward()
+                commit_scales(holders)
+                loss_sum += scaled.detach()
+            grads = _collect_grads(params)
+            for p in params.values():
+                p.grad = None
+        grads = reduce_grads(grads, plan)
         if accum > 1:
             grads = {k: g / accum for k, g in grads.items()}
         loss = loss_sum / (ls_ * accum)
         if axis is not None:
             loss = mean_grads({"loss": loss})["loss"]
 
-        new_state, grads, extra = _finish_step(state, grads, tx, ls_, dyn)
+        new_state, grads, extra = _finish_step(state, grads, tx, ls_, dyn, plan=plan)
         for k, p in params.items():
             p.grad = grads[k].to(p.dtype)
         metrics = {"loss": loss, **extra}
         if getattr(args, "debug", False):
-            metrics.update(_debug_grad_stats(params, grads))
+            metrics.update(_debug_grad_stats(params, grads, plan))
         if schedule is not None:
             metrics["lr"] = schedule(state.step)
         return new_state, metrics
@@ -542,8 +586,9 @@ def make_classifier_train_step(
         gens = step_generators(seed, state.step, batch["image"].device)
         images = _preprocess_train(batch["image"], gens["preprocess"], tcfg, policy)
         inputs = (images, batch.get("tokens")) if takes_text else (images,)
-        _calibrate(model, holders, quant_keys,
-                   lambda: model(*inputs, generator=gens["dropout"]))
+        with gathered(model):
+            _calibrate(model, holders, quant_keys,
+                       lambda: model(*inputs, generator=gens["dropout"]))
         return state
 
     step_fn.calibrate_quant = calibrate_quant
@@ -600,6 +645,8 @@ def train_one_epoch(
     loader.start_batch = start_batch
     sample_digits = math.ceil(math.log10(max(loader.num_samples, 1) + 1))
     world = getattr(run_state, "world_size", 1) if run_state else 1
+    if plan_of(state.model) is not None:  # the model peers read the same rows
+        world = plan_of(state.model).mesh.axis().world
     master = (getattr(run_state, "rank", 0) if run_state else 0) == 0
 
     batch_time_m, data_time_m = AverageMeter(), AverageMeter()

@@ -206,15 +206,16 @@ def test_resume_latest_in_an_empty_logs_dir_starts_fresh(tiny, tmp_path):
     assert _rows(os.path.join(tmp_path, "fresh")) == [m]
 
 
-# --quant int8|int8_fwd and --local-loss run now (test_torch_port_aqt_modes.py,
-# test_torch_port_data_axis.py and below); their cases hold them beside an
-# axis that is still refused, which fails first. Item 9's flags run
-# (test_an_item_9_flag_runs)
+# The fsdp and model axes run over ranks (test_torch_port_mesh_axes*.py); in a
+# world of one their meshes do not fit, as JAX's do not on one device, and the
+# CLI raises JAX's ValueError before it writes anything. --quant int8|int8_fwd
+# and --local-loss run (test_torch_port_aqt_modes.py, test_torch_port_data_axis.py
+# and below). Item 9's flags run (test_an_item_9_flag_runs)
 UNPORTED = {
-    "quant": (["--quant", "int8", "--mesh-fsdp", "2"], 8),
-    "mesh_fsdp": (["--mesh-fsdp", "2"], 8),
-    "mesh_model": (["--mesh-model", "2"], 8),
-    "local_loss": (["--local-loss", "--mesh-model", "2"], 8),
+    "quant": (["--quant", "int8", "--mesh-fsdp", "2"], "mesh 0x2x1 != 1 devices"),
+    "mesh_fsdp": (["--mesh-fsdp", "2"], "mesh 0x2x1 != 1 devices"),
+    "mesh_model": (["--mesh-model", "2"], "mesh 0x1x2 != 1 devices"),
+    "local_loss": (["--local-loss", "--mesh-model", "2"], "mesh 0x1x2 != 1 devices"),
 }
 ITEM_9 = {
     "remote_sync": ["--remote-sync", "REMOTE"],
@@ -233,10 +234,10 @@ def test_local_loss_in_a_world_of_one_is_the_global_loss(tiny, tmp_path):
 
 
 @pytest.mark.parametrize("flag", sorted(UNPORTED))
-def test_an_unported_flag_fails_first_naming_its_item(tmp_path, flag):
-    extra, item = UNPORTED[flag]
+def test_a_mesh_axis_in_a_world_of_one_fails_first_as_jax(tmp_path, flag):
+    extra, msg = UNPORTED[flag]
     argv = _argv(tmp_path, "--stage", "1", *extra)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, Queue 1, item {item} "):
+    with pytest.raises(ValueError, match=msg):
         main(argv)
     assert os.listdir(tmp_path) == []
 

@@ -355,15 +355,14 @@ def test_clip_step_refuses_the_mesh_and_calibrate_quant():
     args = Args(batch_size=BATCH, epochs=1)
     pol = get_policy("fp32")
     tcfg = get_transform_config(AUG, IMAGE, is_train=True)
-    # the data axis is ported (test_torch_port_data_axis.py); a mesh with an
-    # fsdp axis is not
+    # the fsdp and model axes are ported (test_torch_port_mesh_axes.py); in a
+    # world of one their meshes do not fit, as JAX's do not on one device
     from mamba_clip_tpu_torch.parallel.mesh import MeshSpec, create_mesh
 
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrain.make_clip_train_step(model, None, pol, args, tcfg,
-                                    mesh=SimpleNamespace(shape={"data": 1, "fsdp": 2}))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="mesh 0x2x1 != 1 devices"):
         create_mesh(MeshSpec(fsdp=2))
+    with pytest.raises(ValueError, match="mesh 0x1x2 != 1 devices"):
+        create_mesh(MeshSpec(model=2))
     # calibrate_quant is ported (test_torch_port_quant_modes.py); the aqt
     # modes build, and keep no delayed scales for it to re-anchor
     from mamba_clip_tpu_torch.ops.qdot import delayed_holders

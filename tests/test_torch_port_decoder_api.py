@@ -106,8 +106,7 @@ def test_decoder_parameters_map_both_ways():
 
 
 JAX_ALL = ["", "data", "models", "ops", "parallel", "utils"]
-ITEM_8 = {"ops": {"sharded_selective_scan_tm"},
-          "parallel": {"data_sharding", "param_sharding", "replicated"}}
+ITEM_8 = {"ops": {"sharded_selective_scan_tm"}}
 
 
 @pytest.mark.parametrize("sub", JAX_ALL)
