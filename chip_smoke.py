@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --cards 4    # the four-card run of the mesh axes alone
+    python3 chip_smoke.py --cards 4    # the four-card run of the parallel layer alone
 
 Run from the root of a checkout on a machine with a CUDA card and
 ``nvcc``. It imports nothing of JAX. Phases, each of which exits non-zero
@@ -389,7 +389,25 @@ on failure:
    gloo takes the card's tensors for a reduce-scatter (the port's
    ``reduce_scatter_`` path by backend is printed). Prints a ``mesh_axes``
    JSON line;
-25. prints the kernels line (twelve entries: the two scan kernels, the
+25. the rest of the parallel layer: (a) two gloo ranks sharing the card
+   run ``sharded_selective_scan_tm`` at medmamba's first stage (B 64, G 4,
+   L 3136 split 1568 + 1568, DG 64, N 16, fp32, seeded): y and the 7
+   gradients (the replicated A, D and bias after their sum, bit for bit
+   alike on both ranks) within 5e-4 of one process's unsharded scan (kernel
+   1 forward, kernel 2 under autograd), one forward and one backward scan
+   launch a rank, 4 permutes (host-staged: gloo and the card's tensors); ms
+   and the peak a rank; (b) the same two ranks run BiomedCLIP's 12 visual
+   ``EncoderBlock``s as 2 GPipe stages of 6 (amp, flash, M 4, B 32, T 197)
+   against the 12 blocks in sequence in this process, on the same 4
+   microbatches and on the whole batch at once: the output and the
+   stages' gradient digest within 2^-7 of both, 30 flash forward, 30
+   dk/dv and 30 dq launches a rank on the tensor cores (5 ticks x 6
+   blocks), ms a step and the bubble share 1/5; (c) medmamba artifacts at S = 2 (both replicas
+   on the card) and S = 1 from seed 0: ``classify`` at batch 64 bit for bit
+   S = 1's on each 32-row slice (28 scan launches), a batch of 63 raises,
+   ``serve_http.make_server`` refuses S = 2 on this one-card host with JAX's
+   message. Prints ``sharded_scan_gpipe`` and ``sharded_serving`` lines;
+26. prints the kernels line (twelve entries: the two scan kernels, the
    roofline's chain kernel, and each flash kernel as three entries, one a
    body and type: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
@@ -402,7 +420,7 @@ on failure:
    the ceilings phase 11 measured, its shares of both, and its instances;
    the forward's tensor-core entries are serving's pair, their training
    launches under ``training``; each scan entry with its instances; the
-   launches include phases 19-24's, those of phases 20 and 24's rank
+   launches include phases 19-25's, those of phases 20, 24 and 25's rank
    processes counted there), then the device line last.
 
 ``--cards 4`` runs only the four-card run (it fails on fewer than 4
@@ -414,7 +432,17 @@ step at (data 2, fsdp 2): the ranks alike bit for bit, the sharded shapes'
 losses and digest within 2^-7 of (data 4) at the same global batch, 24 +
 24 + 24 flash (14 + 14 scan) launches a rank and a step; for each shape ms
 a step, the collectives' ms, the peak and the state bytes a rank. Prints a
-``mesh_axes_cards`` JSON line and the device line.
+``mesh_axes_cards`` JSON line. Then: the sharded scan over four NCCL ranks
+at phase 25's shapes (L 4 x 784) and GPipe of the 12 ViT blocks as 4
+stages of 3 at M = 4 and M = 8, under phase 25's gates against one card's
+unsharded scan and sequential blocks (a ``sharded_scan_gpipe_cards``
+line); ``bench_scaling.main`` (``--devices 4 --model flagship --precision
+amp --batch-per-device 64 --warmup 3 --steps 5``) with each rung's
+collectives by kind, count and MB (a ``scaling`` line); medmamba ``classify`` and BiomedCLIP
+``image_embed`` artifacts at S = 1, 2 and 4, replica i on card i: at
+batch 256 each 64-row slice bit for bit the S = 1 artifact's, rows/s at 64
+rows a card, and ``serve_http`` over the S = 4 ``classify`` artifact at 1
+and 16 clients (a ``sharded_serving`` line); then the device line.
 
 Phases 1-10 run at the depth and iteration counts they had before phases
 11-13 were added.
@@ -2934,11 +2962,616 @@ def mesh_phase(card):
     return line, bodies
 
 
+# ---------------------------------------------------------------------------
+# phase 25 and the four-card run's additions: the sequence-parallel scan,
+# GPipe and data-sharded serving
+# ---------------------------------------------------------------------------
+
+
+SP_SCAN = {"B": 64, "G": 4, "L": 3136, "DG": 64, "N": 16}  # medmamba's first stage
+PIPE = {"batch": 32, "tokens": 197}                        # BiomedCLIP's ViT at 224
+PIPE_BLOCKS = 12
+
+
+def vit_blocks(dev, seed=0):
+    """BiomedCLIP's 12 visual ``EncoderBlock``s (amp: bf16 compute, fp32
+    parameters; the flash interior), random weights from ``seed``: a template
+    block on ``dev`` and the 12 blocks' parameters by name, on ``dev``."""
+    import torch
+
+    from mamba_clip_tpu_torch.models.clip import resolve_gelu_approx
+    from mamba_clip_tpu_torch.models.vit import VisionTransformer
+
+    # build_clip("biomedclip")'s visual tower, made first from its generator
+    bf16 = torch.bfloat16
+    visual = VisionTransformer(image_size=224, embed_dim=512,
+                               gelu_approx=resolve_gelu_approx("auto", bf16), dtype=bf16,
+                               attn_flash=True, generator=torch.Generator().manual_seed(seed))
+    blocks = [getattr(visual, f"block{i}") for i in range(PIPE_BLOCKS)]
+    params = [{k: t.detach().to(dev) for k, t in b.named_parameters()} for b in blocks]
+    return blocks[0].to(dev), params
+
+
+def pipe_inputs(dev, shape, seed=25):
+    """The pipelined blocks' input (bf16, as the ViT's blocks take it) and the
+    loss's weights at ``shape`` (batch, tokens), from ``seed``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    size = (shape["batch"], shape["tokens"], 768)
+    x = torch.randn(*size, generator=g, device=dev).to(torch.bfloat16)
+    w = torch.randn(*size, generator=g, device=dev)
+    return x, w
+
+
+def grad_digest(tensors, stride: int = 997):
+    """Every ``stride``-th entry of each tensor's gradient, in fp32, as one
+    numpy vector."""
+    import torch
+
+    return torch.cat([t.grad.float().flatten()[::stride] for t in tensors]).cpu().numpy()
+
+
+def _sp_scan(rank, world, dev, shp):
+    """(a) The sharded scan on this rank: its slice of one seeded sequence
+    against one process's unsharded scan (kernel 1 forward, kernel 2 under
+    autograd) on the whole of it, y and the 7 gradients (the replicated A, D
+    and bias after their sum); the launches, permutes and peak of the
+    counted run, then ms a forward and backward, sharded and not."""
+    import torch
+
+    from mamba_clip_tpu_torch.ops.selective_scan import (selective_scan_bwd, selective_scan_fwd,
+                                                         selective_scan_tm)
+    from mamba_clip_tpu_torch.ops.sharded_scan import sharded_selective_scan_tm
+    from mamba_clip_tpu_torch.parallel.collectives import count_collectives, permute_path
+
+    Bsz, G, L, DG, N = (shp[k] for k in ("B", "G", "L", "DG", "N"))
+    g = torch.Generator(device=dev).manual_seed(25)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    full = (r(Bsz, G, L, DG), r(Bsz, G, L, DG) * 0.5, -torch.exp(r(G * DG, N) * 0.5),
+            r(Bsz, G, L, N), r(Bsz, G, L, N), r(G * DG), r(G * DG) * 0.1 - 2.0)
+    w = r(Bsz, G, L, DG)
+    n = L // world
+    sl = slice(rank * n, (rank + 1) * n)
+    seq = (0, 1, 3, 4)  # u, delta, B, C: split over L; A, D, bias whole
+
+    def unsharded():
+        leaves = [t.clone().requires_grad_(True) for t in full]
+        y = selective_scan_tm(*leaves, delta_softplus=True)
+        (y * w).sum().backward()
+        return [y.detach()] + [t.grad for t in leaves]
+
+    def sharded(colls=None):
+        leaves = [(t[:, :, sl] if i in seq else t).clone().requires_grad_(True)
+                  for i, t in enumerate(full)]
+        with count_collectives() as fwd:
+            y = sharded_selective_scan_tm(*leaves, delta_softplus=True)
+        with count_collectives() as bwd:
+            (y * w[:, :, sl]).sum().backward()
+        if colls is not None:
+            colls.update(forward=fwd, backward=bwd)
+        return [y.detach()] + [t.grad for t in leaves]
+
+    ref = unsharded()
+    want = [t[:, :, sl] if i in (0, 1, 2, 4, 5) else t for i, t in enumerate(ref)]
+    del ref
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    selective_scan_fwd.launches = selective_scan_bwd.launches = 0
+    colls = {}
+    got = sharded(colls)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {"scan_fwd": selective_scan_fwd.launches, "scan_bwd": selective_scan_bwd.launches}
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+    errs = rel_errs(got, want)
+    out = {"launches": launches, "collectives": colls, "peak_bytes": peak,
+           "peak_above_inputs_bytes": peak - held,
+           "errs": dict(zip(("y",) + GRAD_NAMES, errs)),
+           "replicated": [got[i].cpu().numpy() for i in (3, 6, 7)],  # dA, dD, dbias
+           "permute_path": permute_path(full[0], None)}
+    del got, want
+    if dev.type == "cuda":
+        out["ms"] = cuda_ms(sharded, iters=3, warmup=1)
+        out["ms_unsharded"] = cuda_ms(unsharded, iters=3, warmup=1)
+    return out
+
+
+def _sp_pipe(rank, world, dev, M, shape):
+    """(b) GPipe of the 12 blocks as ``world`` stages on this rank, ``M``
+    microbatches, at ``shape``: one counted forward and backward (its flash launches,
+    output, gradient digest of this stage's blocks), then ms a step."""
+    import torch
+
+    from mamba_clip_tpu_torch.ops.flash_attn import (flash_attn_bwd_dkv, flash_attn_bwd_dq,
+                                                     flash_attn_fwd)
+    from mamba_clip_tpu_torch.parallel.pipeline import pipeline_apply, stack_stages
+
+    template, params = vit_blocks(dev)
+    k = PIPE_BLOCKS // world
+    mine = params[rank * k:(rank + 1) * k]
+    for p in mine:
+        for t in p.values():
+            t.requires_grad_(True)
+    x, w = pipe_inputs(dev, shape)
+
+    def stage(p, h):
+        for j in range(k):
+            h = torch.func.functional_call(template, p[f"sub{j}"], (h,))
+        return h
+
+    def step():
+        for p in mine:
+            for t in p.values():
+                t.grad = None
+        stacked = stack_stages([{f"sub{j}": mine[j] for j in range(k)}])
+        out = pipeline_apply(stage, stacked, x, microbatches=M)
+        (out.float() * w).sum().backward()
+        return out.detach()
+
+    wrappers = {"fwd": flash_attn_fwd, "dkv": flash_attn_bwd_dkv, "dq": flash_attn_bwd_dq}
+    for wr in wrappers.values():
+        wr.launches = 0
+        for body in wr.launches_by_body:
+            wr.launches_by_body[body] = 0
+    out = step()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    res = {"M": M, "launches": {n: wr.launches for n, wr in wrappers.items()},
+           "bodies": {n: dict(wr.launches_by_body) for n, wr in wrappers.items()},
+           "digest": grad_digest([t for p in mine for t in p.values()]),
+           "out_digest": out.float().flatten()[::97].cpu().numpy()}
+    if rank == 0:
+        res["out"] = out.float().cpu().numpy()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        res["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 2
+    return res
+
+
+def _sp_rank(rank, world, port, backend, cfg, q):
+    """One rank of phase 25 (gloo, both ranks on card 0) or of the four-card
+    run (nccl, rank r on card r), or of a CPU rehearsal (gloo, ``cfg["device"]``
+    "cpu"): the sharded scan at ``cfg["scan"]``, then GPipe at each M of
+    ``cfg["pipe_m"]`` and ``cfg["pipe"]``. Puts (rank, result, error) on
+    ``q``."""
+    import traceback
+
+    try:
+        sys.path.insert(0, str(SRC))
+        logging.disable(logging.INFO)
+        import torch
+        import torch.distributed as dist
+
+        from mamba_clip_tpu_torch.parallel.collectives import all_reduce_
+
+        if cfg["device"] == "cuda":
+            from mamba_clip_tpu_torch.ops import cuda_build
+
+            card = rank if backend == "nccl" else 0
+            torch.cuda.set_device(card)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            for k in ("selective_scan_fwd", "selective_scan_bwd", "flash_attn_fwd",
+                      "flash_attn_bwd"):
+                cuda_build.load(k)
+            dev = torch.device("cuda", card)
+        else:
+            torch.set_num_threads(1)
+            dev = torch.device("cpu")
+        dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                                world_size=world)
+        # every rank's first collective together (nccl makes its communicator)
+        all_reduce_(torch.zeros(1, device=dev))
+        out = {"backend": backend, "scan": _sp_scan(rank, world, dev, cfg["scan"]),
+               "pipe": [_sp_pipe(rank, world, dev, M, cfg["pipe"]) for M in cfg["pipe_m"]]}
+        dist.destroy_process_group()
+        q.put((rank, out, None))
+    except Exception:
+        q.put((rank, None, traceback.format_exc()))
+
+
+def pipe_reference(dev, shape, microbatches):
+    """The 12 blocks in sequence on one device, with the weights, input and
+    loss of ``_sp_pipe`` at ``shape``: for each M of ``microbatches``, the
+    microbatches through the blocks in turn and one backward of their loss
+    (the sums and roundings of the pipeline's ticks, without its schedule),
+    and the whole batch at once (M = 1): the output, the gradient digest (the
+    blocks in order) and ms a forward and backward. By M."""
+    import torch
+
+    template, params = vit_blocks(dev)
+    leaves = [t for p in params for t in p.values()]
+    for t in leaves:
+        t.requires_grad_(True)
+    x, w = pipe_inputs(dev, shape)
+
+    def step(M):
+        for t in leaves:
+            t.grad = None
+        outs = []
+        for xm in x.chunk(M):
+            h = xm
+            for p in params:
+                h = torch.func.functional_call(template, p, (h,))
+            outs.append(h)
+        out = torch.cat(outs)
+        (out.float() * w).sum().backward()
+        return out.detach()
+
+    refs = {}
+    for M in sorted(set(microbatches) | {1}):
+        out = step(M)
+        refs[M] = {"out": out.float().cpu().numpy(), "digest": grad_digest(leaves)}
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step(M)
+            torch.cuda.synchronize()
+            refs[M]["ms_per_step"] = (time.perf_counter() - t0) * 1e3 / 2
+    del params, template, leaves
+    return refs
+
+
+def sp_gates(what, ranks, world, pipe_ref, cfg):
+    """Fails unless (a) every rank's y and 7 gradients are within the scan's
+    gate of the unsharded scan, the replicated gradients bit for bit alike
+    on every rank, one forward and one backward scan launch a rank (none
+    on the CPU), 2 (ceil(log2 S) + 1) permutes; and (b) for each M, the
+    ranks' outputs alike, the output and the stages' gradient digest within
+    2^-7 of the same microbatches through the blocks in sequence and of the
+    whole batch at once (the first isolates the schedule: microbatching
+    alone moves the digest by bf16 roundings), (M + S - 1)·12/S flash
+    launches of each kernel a rank on the tensor cores. Returns the line's
+    fields and the ranks' launches (scan by counter, flash by body)."""
+    import numpy as np
+
+    on_card = cfg["device"] == "cuda"
+
+    from mamba_clip_tpu_torch.ops.sharded_scan import carry_rounds
+
+    line = {}
+    scan_launches = {"scan_fwd": 0, "scan_bwd": 0}
+    flash = {n: {"tensor_cores": 0, "cuda_cores": 0} for n in ("fwd", "dkv", "dq")}
+    # (a)
+    want = {"scan_fwd": 1, "scan_bwd": 1} if on_card else {"scan_fwd": 0, "scan_bwd": 0}
+    n_perm = 2 * carry_rounds(world)
+    sc = cfg["scan"]
+    shard_bytes = sc["B"] * sc["G"] * sc["DG"] * sc["N"] * 4  # an (A_s, h_s) half, fp32
+    for r, rank in enumerate(ranks):
+        s = rank["scan"]
+        worst = max(e[0] for e in s["errs"].values())
+        if worst > GATE_REL:
+            fail(f"{what} sharded scan rank {r}: {s['errs']} (gate {GATE_REL:g})")
+        if s["launches"] != want:
+            fail(f"{what} sharded scan rank {r}: launches {s['launches']}, expected {want}: one "
+                 "selective_scan_tm forward and its backward on the rank's slice")
+        perm = s["collectives"]["forward"]
+        if perm != {"collective-permute": {"count": n_perm, "bytes": n_perm * shard_bytes}}:
+            fail(f"{what} sharded scan rank {r}: the forward's collectives {perm}, expected "
+                 f"{n_perm} permutes of {shard_bytes} bytes")
+        for a, b in zip(s["replicated"], ranks[0]["scan"]["replicated"]):
+            if not np.array_equal(a, b):
+                fail(f"{what} sharded scan: the replicated gradients differ between ranks 0 "
+                     f"and {r}")
+        for key, c in s["launches"].items():
+            scan_launches[key] += c
+    s0 = ranks[0]["scan"]
+    line["sharded_scan"] = {
+        "shape": cfg["scan"], "ranks": world, "rows_per_rank_L": cfg["scan"]["L"] // world,
+        "max_rel_err": max(max(e[0] for e in r["scan"]["errs"].values()) for r in ranks),
+        "errs_rank0": {k: {"rel": e[0], "abs": e[1]} for k, e in s0["errs"].items()},
+        "launches_per_rank": s0["launches"], "collectives_rank0": s0["collectives"],
+        "permute_path": s0["permute_path"],
+        "ms": [r["scan"].get("ms") for r in ranks],
+        "ms_unsharded": [r["scan"].get("ms_unsharded") for r in ranks],
+        "peak_bytes": [r["scan"]["peak_bytes"] for r in ranks],
+        "peak_above_inputs_bytes": [r["scan"]["peak_above_inputs_bytes"] for r in ranks]}
+    say(f"{what} sharded scan: {world} ranks x L {cfg['scan']['L'] // world}: y and 7 gradients "
+        f"within {line['sharded_scan']['max_rel_err']:.2e} of one process's unsharded scan "
+        f"(gate {GATE_REL:g}), the replicated dA, dD, dbias alike on every rank; "
+        f"{s0['launches']} launches a rank, {n_perm} permutes "
+        f"({s0['collectives']}) through the {s0['permute_path']} path; ms a forward and "
+        f"backward {line['sharded_scan']['ms']} (unsharded on one process "
+        f"{line['sharded_scan']['ms_unsharded']}), peak "
+        f"{[round(b / 1e9, 2) for b in line['sharded_scan']['peak_bytes']]} GB a rank")
+    # (b)
+    k = PIPE_BLOCKS // world
+    for i, r0 in enumerate(ranks[0]["pipe"]):
+        M = r0["M"]
+        T = M + world - 1
+        want = ({n: T * k for n in flash} if on_card else {n: 0 for n in flash})
+        for r, rank in enumerate(ranks):
+            p = rank["pipe"][i]
+            if p["launches"] != want or any(by["cuda_cores"] for by in p["bodies"].values()):
+                fail(f"{what} GPipe M={M} rank {r}: flash launches {p['launches']} "
+                     f"({p['bodies']}), expected {want} on the tensor cores")
+            if not np.array_equal(p["out_digest"], r0["out_digest"]):
+                fail(f"{what} GPipe M={M}: the output differs between ranks 0 and {r}")
+            for n in flash:
+                for body, c in p["bodies"][n].items():
+                    flash[n][body] += c
+        dig = np.concatenate([rank["pipe"][i]["digest"] for rank in ranks])
+
+        def rels(ref):
+            return (float(np.abs(r0["out"] - ref["out"]).max() / np.abs(ref["out"]).max()),
+                    float(np.abs(dig - ref["digest"]).max() / np.abs(ref["digest"]).max()))
+
+        out_rel, dig_rel = rels(pipe_ref[M])
+        whole_out_rel, whole_dig_rel = rels(pipe_ref[1])
+        if max(out_rel, dig_rel, whole_out_rel, whole_dig_rel) > CLIP_TRAIN_REL:
+            fail(f"{what} GPipe M={M}: output rel {out_rel:.2e}, gradient digest rel "
+                 f"{dig_rel:.2e} against the same microbatches through the blocks in sequence, "
+                 f"{whole_out_rel:.2e} and {whole_dig_rel:.2e} against the whole batch at once "
+                 "(bound 2^-7)")
+        row = {"stages": world, "blocks_per_stage": k, "microbatches": M, "ticks": T,
+               "bubble_share": (world - 1) / T, "out_rel": out_rel, "grad_digest_rel": dig_rel,
+               "whole_batch_out_rel": whole_out_rel,
+               "whole_batch_grad_digest_rel": whole_dig_rel,
+               "flash_launches_per_rank": want,
+               "ms_per_step": [rank["pipe"][i].get("ms_per_step") for rank in ranks],
+               "ms_per_step_sequential": pipe_ref[M].get("ms_per_step"),
+               "ms_per_step_sequential_whole_batch": pipe_ref[1].get("ms_per_step")}
+        line[f"gpipe_m{M}"] = row
+        say(f"{what} GPipe: 12 ViT blocks as {world} stages of {k}, M={M}, B "
+            f"{cfg['pipe']['batch']}: output rel {out_rel:.2e}, gradient digest rel "
+            f"{dig_rel:.2e} against the same microbatches through the blocks in sequence, "
+            f"{whole_out_rel:.2e} and {whole_dig_rel:.2e} against the whole batch at once "
+            f"(bound 2^-7); {want} flash launches a rank; ms a step "
+            f"{row['ms_per_step']} against {row['ms_per_step_sequential']} in sequence "
+            f"({row['ms_per_step_sequential_whole_batch']} the whole batch); bubble "
+            f"{row['bubble_share']:.3f}")
+    return line, scan_launches, flash
+
+
+SHARDED_REFUSAL = ("artifact exported with data_shards={s} but this host has {n} device(s); "
+                   "export with --data-shards 1 for this host (or serve on a {s}-device host)")
+
+
+def export_sharded(tmp, model_name, shards):
+    """``{S: artifact dir}`` of ``model_name`` (amp, random weights from seed
+    0) at each S of ``shards``, one weights file's contents for all."""
+    from mamba_clip_tpu_torch.serving import export_serving
+
+    dirs = {}
+    for S in shards:
+        dirs[S] = os.path.join(tmp, f"{model_name}_s{S}")
+        export_serving(dirs[S], model_name, data_shards=S)
+    return dirs
+
+
+def sync_cards():
+    import torch
+
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def rows_per_s(fn, x, iters=5, warmup=2):
+    """rows/s of ``fn(x)`` (every card synchronised around the timed calls)."""
+    for _ in range(warmup):
+        fn(x)
+    sync_cards()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(x)
+    sync_cards()
+    return x.shape[0] * iters / (time.perf_counter() - t0)
+
+
+def sharded_serving_phase(card, tally):
+    """Phase 25 (c): a medmamba artifact at S = 2 (both replicas on card 0)
+    and at S = 1 from the same seed: ``classify`` at batch 64 bit for bit the
+    S = 1 artifact's on each 32-row slice, 2 x 14 scan launches; a batch of
+    63 raises; ``serve_http.make_server`` refuses S = 2 on this one-card
+    host with JAX's message. Returns the ``sharded_serving`` line's fields."""
+    import numpy as np
+    import torch
+
+    from mamba_clip_tpu_torch.serve_http import make_server
+    from mamba_clip_tpu_torch.serving import load_serving
+
+    tmp = tempfile.mkdtemp(prefix="sharded_serving_")
+    try:
+        dirs = export_sharded(tmp, "medmamba", (1, 2))
+        one = load_serving(dirs[1], device="cuda")["classify"]
+        two = load_serving(dirs[2], devices=["cuda:0", "cuda:0"])["classify"]
+        x = np.random.RandomState(25).randint(0, 256, (64, 256, 256, 3)).astype(np.uint8)
+        got = tally("S=2 classify at batch 64", lambda: two(x), {"scan_fwd": 28})
+        want = torch.cat([one(x[i * 32:(i + 1) * 32]) for i in range(2)])
+        if not torch.equal(got, want):
+            fail(f"phase 25 sharded serving: S=2 classify differs from S=1's on its slices by "
+                 f"{float((got - want).abs().max()):.3e}")
+        try:
+            two(x[:63])
+            fail("phase 25 sharded serving: a batch of 63 did not raise at data_shards=2")
+        except ValueError as e:
+            if "data_shards=2" not in str(e):
+                fail(f"phase 25 sharded serving: a batch of 63 raised {e!r}")
+            msg63 = str(e)
+        want_msg = SHARDED_REFUSAL.format(s=2, n=torch.cuda.device_count())
+        try:
+            make_server(dirs[2], port=0, device="cuda").server_close()
+            fail("phase 25 sharded serving: make_server took a data_shards=2 artifact on a "
+                 "one-card host")
+        except ValueError as e:
+            if str(e) != want_msg:
+                fail(f"phase 25 sharded serving: make_server raised {str(e)!r}, JAX's message "
+                     f"is {want_msg!r}")
+        line = {"card": card, "model": "medmamba classify", "batch": 64,
+                "s2_equals_s1_per_slice": True, "launches_s2_batch64": {"scan_fwd": 28},
+                "batch63": msg63, "make_server_refusal": want_msg,
+                "rows_per_s_s1": rows_per_s(one, x), "rows_per_s_s2_one_card": rows_per_s(two, x),
+                "note": "S = 2 on one card: both replicas share it, not a scaling number"}
+        say(f"sharded serving: medmamba classify at S=2 (both replicas on card 0) equals S=1 "
+            f"on each 32-row slice bit for bit, 28 scan launches at batch 64; batch 63 raises "
+            f"({msg63}); make_server refuses S=2 here with JAX's message; "
+            f"{line['rows_per_s_s1']:.1f} rows/s at S=1, {line['rows_per_s_s2_one_card']:.1f} "
+            "at S=2 on one card")
+        return line
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sp_phase(card, counters):
+    """Phase 25: (a) the sharded scan and (b) GPipe on two gloo ranks sharing
+    the card, against one process; (c) data-sharded serving. Returns the
+    lines' fields, the launches of the main path by counter and the flash
+    launches by body (the ranks' counted in the ranks)."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = {"device": "cuda", "scan": SP_SCAN, "pipe": PIPE, "pipe_m": (4,)}
+    pipe_ref = pipe_reference(torch.device("cuda"), PIPE, cfg["pipe_m"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(2, "gloo", cfg, target=_sp_rank)
+    line, scan_launches, flash = sp_gates("phase 25", ranks, 2, pipe_ref, cfg)
+    line["card"] = card
+    line["note"] = "two gloo ranks share one card: not a scaling number"
+    tally = LaunchTally(counters, "phase 25")
+    serving = sharded_serving_phase(card, tally)
+    launches = {k: tally.total.get(k, 0) + scan_launches.get(k, 0) for k in tally.total}
+    for n, by in flash.items():
+        launches[n] += by["tensor_cores"] + by["cuda_cores"]
+    return line, serving, launches, flash
+
+
+def cards_serving(card, cards):
+    """The four-card run's data-sharded serving: medmamba ``classify`` and
+    BiomedCLIP ``image_embed`` artifacts at S = 1, 2 and 4 from one seed,
+    replica i on card i. At batch 64·S each 64-row slice must equal the S = 1
+    artifact on it bit for bit; rows/s at S = 1, 2, 4 at 64 rows a card; then
+    ``serve_http`` over the S = 4 ``classify`` artifact at 1 and 16 clients,
+    every answer a 200, bit for bit its row's answer at a batch shape the
+    batcher dispatches and within 2e-2 of its direct call on the S = 1
+    artifact (at 1 client the shape is 4, one row a card: its direct call bit
+    for bit). Returns the fields of the four-card run's ``sharded_serving``
+    line."""
+    import numpy as np
+    import torch
+
+    from mamba_clip_tpu_torch.serve import _bucket
+    from mamba_clip_tpu_torch.serve_http import make_server, warm_buckets
+    from mamba_clip_tpu_torch.serving import load_serving
+
+    line = {"card": card, "cards": cards}
+    tmp = tempfile.mkdtemp(prefix="sharded_serving_cards_")
+    shards = (1, 2, cards)
+    try:
+        for model, entry in (("medmamba", "classify"), ("biomedclip", "image_embed")):
+            dirs = export_sharded(tmp, model, shards)
+            loaded = {S: load_serving(dirs[S])[entry] for S in shards}
+            x = np.random.RandomState(26).randint(0, 256, (64 * cards, 256, 256, 3)).astype(
+                np.uint8)
+            got = loaded[cards](x)
+            want = torch.cat([loaded[1](x[i * 64:(i + 1) * 64]) for i in range(cards)])
+            if got.device != torch.device("cuda", 0) or not torch.equal(got, want):
+                fail(f"{cards} cards sharded serving {model} {entry}: S={cards} differs from "
+                     f"S=1 on its 64-row slices ({got.device})")
+            rates = {f"S{S}": rows_per_s(loaded[S], x[:64 * S]) for S in shards}
+            line[f"{model}_{entry}"] = {"s_equals_s1_per_slice": True, "rows_per_s": rates,
+                                        "rows_per_card": 64}
+            say(f"{cards} cards sharded serving {model} {entry}: S={cards} at batch "
+                f"{64 * cards} equals S=1 on each 64-row slice bit for bit; rows/s at 64 a "
+                f"card: " + ", ".join(f"{k} {v:.1f}" for k, v in rates.items()))
+            if model == "medmamba":
+                srv = make_server(dirs[cards], port=0, max_batch=16, max_delay_ms=5.0)
+                threading.Thread(target=srv.serve_forever, daemon=True).start()
+                try:
+                    bodies = jpeg_rows(16, 512, seed=27)
+                    shapes = sorted({_bucket(1 << k, cards) for k in range(5)})
+                    cands = []
+                    for body in bodies:
+                        row = srv.decode(body)[None]
+                        by = {b: srv.served[entry](np.repeat(row, b, axis=0))[0].cpu().numpy()
+                              for b in shapes}
+                        by[1] = loaded[1](row)[0].cpu().numpy()
+                        cands.append(by)
+                    if not all(np.array_equal(c[cards], c[1]) for c in cands):
+                        fail(f"{cards} cards http: a row's answer at batch {cards} (one row a "
+                             "card) differs from its direct call")
+                    warm_buckets(srv, entry, bodies[0], 16)
+                    http = {}
+                    for clients in (1, 16):
+                        exact = (cards,) if clients == 1 else tuple(shapes)
+                        http[f"c{clients}"] = r = http_load(
+                            srv, "/classify", bodies, cands, clients, 2.0,
+                            0.0 if clients == 1 else PROBS_ATOL, exact)
+                        say(f"{cards} cards http /classify S={cards} clients={clients}: "
+                            f"{r['req_per_s']:.1f} req/s, p50 {r['p50_ms']:.2f} p95 "
+                            f"{r['p95_ms']:.2f} p99 {r['p99_ms']:.2f} ms; every answer a 200, "
+                            f"bit for bit its row's at a batch shape of {list(exact)}, at most "
+                            f"{r['max_abs_err_to_direct']:.3e} off its direct call")
+                    line["http_classify"] = http
+                finally:
+                    srv.shutdown()
+                    srv.server_close()
+            del loaded
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return line
+
+
+def cards_scaling(card, cards):
+    """``bench_scaling.main`` over the data ladder at full width (BiomedCLIP,
+    amp, flash, 64 rows a card). Returns the ``scaling`` line's fields: each
+    rung's ms a step and img/s, its efficiencies, and its collectives by
+    kind, count and MB."""
+    from mamba_clip_tpu_torch import bench_scaling
+
+    out = bench_scaling.main(["--devices", str(cards), "--model", "flagship", "--precision",
+                              "amp", "--batch-per-device", "64", "--warmup", "3", "--steps",
+                              "5", "--timeout", "300"])
+    rows = [{"mesh": r["mesh"], "global_batch": r["global_batch"], "step_ms": r["step_ms"],
+             "step_ms_ranks": r["step_ms_ranks"], "img_per_s": r["img_per_s"],
+             "weak_scaling_efficiency": r["weak_scaling_efficiency"],
+             "work_normalized_efficiency": r["work_normalized_efficiency"],
+             "loss": r["loss"],
+             "collectives": {k: {"count": v["count"], "MB": v["bytes"] / 1e6}
+                             for k, v in r["collectives"].items()}} for r in out["rows"]]
+    return {"card": card, "cards": cards, "args": {"model": "flagship", "precision": "amp",
+                                                    "batch_per_device": 64,
+                                                    "image_size": out["image_size"],
+                                                    "warmup": 3, "steps": 5},
+            "device": out["device"], "rows": rows}
+
+
+def cards_sp(card, cards):
+    """The sharded scan over ``cards`` NCCL ranks at phase 25's shapes (L split
+    ``cards`` ways) and GPipe of the 12 blocks as ``cards`` stages at M = 4 and
+    8, against one card's unsharded scan and sequential blocks. Returns the
+    line's fields."""
+    import torch
+
+    cfg = {"device": "cuda", "scan": SP_SCAN, "pipe": PIPE, "pipe_m": (4, 8)}
+    pipe_ref = pipe_reference(torch.device("cuda", 0), PIPE, cfg["pipe_m"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = run_ranks(cards, "nccl", cfg, target=_sp_rank, timeout=600)
+    line, _, _ = sp_gates(f"{cards} cards", ranks, cards, pipe_ref, cfg)
+    line["card"] = card
+    return line
+
+
 def cards_main(cards: int) -> None:
     """The four-card run alone (``--cards 4``): four NCCL ranks, one a card, run the
     full-width contrastive step at 64 rows a batch shard at (data 4), (fsdp
     4), (data 2, fsdp 2) and (data 2, model 2), and the medmamba classifier
-    step at (data 2, fsdp 2); fails on fewer cards."""
+    step at (data 2, fsdp 2); then the sharded scan and GPipe over four NCCL
+    ranks, the scaling bench and data-sharded serving; fails on fewer
+    cards."""
     try:
         import torch
     except ImportError as e:
@@ -2996,6 +3629,26 @@ def cards_main(cards: int) -> None:
             f"{[round(x['state_bytes'] / 1e9, 3) for x in rs]} GB a rank")
     line["phase_s"] = time.perf_counter() - t0
     say(json.dumps({"mesh_axes_cards": line}))
+    # the sequence-parallel scan and GPipe over the cards' NCCL ranks
+    t0 = time.perf_counter()
+    sp = cards_sp(card, cards)
+    sp["phase_s"] = time.perf_counter() - t0
+    say(json.dumps({"sharded_scan_gpipe_cards": sp}))
+    # the scaling bench over the data ladder, then data-sharded serving
+    t0 = time.perf_counter()
+    scaling = cards_scaling(card, cards)
+    scaling["phase_s"] = time.perf_counter() - t0
+    for r in scaling["rows"]:
+        say(f"scaling {r['mesh']}: {r['step_ms']:.1f} ms a step ({r['step_ms_ranks']}), "
+            f"{r['img_per_s']:.1f} img/s, weak-scaling efficiency "
+            f"{r['weak_scaling_efficiency']:.3f}, collectives "
+            + (", ".join(f"{k} x{v['count']} ({v['MB']:.2f} MB)"
+                         for k, v in sorted(r["collectives"].items())) or "none"))
+    say(json.dumps({"scaling": scaling}))
+    t0 = time.perf_counter()
+    serving = cards_serving(card, cards)
+    serving["phase_s"] = time.perf_counter() - t0
+    say(json.dumps({"sharded_serving": serving}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -3403,8 +4056,8 @@ def main(argv=None) -> None:
     ap.add_argument("--src", default=str(SRC),
                     help="with --clip-check-seeds: the src/ directory whose package is checked")
     ap.add_argument("--cards", type=int, default=1,
-                    help="4: run only the four-card run of the mesh axes (NCCL, one rank a "
-                         "card); it fails on fewer cards")
+                    help="4: run only the four-card run of the parallel layer (NCCL, one rank "
+                         "a card); it fails on fewer cards")
     args = ap.parse_args(argv)
     if args.clip_check_seeds is not None:
         return clip_check_only(args.clip_check_seeds, Path(args.src).resolve())
@@ -5089,7 +5742,18 @@ def main(argv=None) -> None:
     mesh_line["phase_s"] = time.perf_counter() - t24
     say(json.dumps({"mesh_axes": mesh_line}))
 
-    # 25. kernels line, then the device line. Each attention kernel as three
+    # 25. the sequence-parallel scan and GPipe on two gloo ranks on the card
+    # (their launches counted in the ranks), and data-sharded serving
+    gc.collect()
+    torch.cuda.empty_cache()
+    t25 = time.perf_counter()
+    sp_line, sharded_line, sp_launches, sp_bodies = sp_phase(
+        card, (reset_counts, read_counts, flash_bodies))
+    sp_line["phase_s"] = time.perf_counter() - t25
+    say(json.dumps({"sharded_scan_gpipe": sp_line}))
+    say(json.dumps({"sharded_serving": sharded_line}))
+
+    # 26. kernels line, then the device line. Each attention kernel as three
     # entries, one a body and type: the tensor cores in bf16 (what serving and
     # training under amp and pure_bf16 run, its launches from the main path),
     # the tensor cores in fp16 (training under fp16 and pure_fp16, its
@@ -5110,18 +5774,18 @@ def main(argv=None) -> None:
                    "cli": cli_bodies, "serving_http": http_bodies, "real_data": real_bodies,
                    "quant": quant_bodies, "aqt": aqt_bodies, "data_axis": axis_bodies,
                    "hpo": hpo_bodies, "utilities": util_bodies, "decoder": dec_bodies,
-                   "mesh_axes": mesh_bodies,
+                   "mesh_axes": mesh_bodies, "gpipe": sp_bodies,
                    # phase 18's bf16 launches; its fp16 ones are the fp16 entries'
                    "precision": {k: {"tensor_cores": by["tensor_cores"] - fp16_launches[k],
                                      "cuda_cores": by["cuda_cores"]}
                                  for k, by in prec_bodies.items()}}
     main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2", "cli",
                           "serving_http", "real_data", "quant", "precision", "aqt",
-                          "data_axis", "utilities", "mesh_axes"),
+                          "data_axis", "utilities", "mesh_axes", "gpipe"),
                   "dkv": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
-                          "precision", "aqt", "data_axis", "utilities", "mesh_axes"),
+                          "precision", "aqt", "data_axis", "utilities", "mesh_axes", "gpipe"),
                   "dq": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
-                         "precision", "aqt", "data_axis", "utilities", "mesh_axes")}
+                         "precision", "aqt", "data_axis", "utilities", "mesh_axes", "gpipe")}
     flash_launches = {key: {"tensor_cores": sum(flash_paths[p][key]["tensor_cores"]
                                                 for p in paths),
                             "tensor_cores_fp16": fp16_launches[key],
@@ -5213,7 +5877,7 @@ def main(argv=None) -> None:
                      + http_launches["scan_fwd"] + quant_launches["scan_fwd"]
                      + prec_launches["scan_fwd"] + aqt_launches["scan_fwd"]
                      + hpo_launches["scan_fwd"] + util_launches["scan_fwd"]
-                     + dec_launches["scan_fwd"]),
+                     + dec_launches["scan_fwd"] + sp_launches["scan_fwd"]),
         "launches_by_path": {"serve": launches, "train": train_fwd, "clip_serve": clip_scans,
                              "medmamba_clip_image_embed": mm_launches["image_embed"]["scan"],
                              "cli": cli_launches["scan_fwd"],
@@ -5223,7 +5887,8 @@ def main(argv=None) -> None:
                              "aqt": aqt_launches["scan_fwd"],
                              "hpo": hpo_launches["scan_fwd"],
                              "utilities": util_launches["scan_fwd"],
-                             "decoder": dec_launches["scan_fwd"]},
+                             "decoder": dec_launches["scan_fwd"],
+                             "sharded_scan_and_serving": sp_launches["scan_fwd"]},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": fwd_k,
@@ -5240,7 +5905,7 @@ def main(argv=None) -> None:
         "launches": (train_bwd + cli_launches["scan_bwd"] + quant_launches["scan_bwd"]
                      + prec_launches["scan_bwd"] + aqt_launches["scan_bwd"]
                      + hpo_launches["scan_bwd"] + util_launches["scan_bwd"]
-                     + dec_launches["scan_bwd"]),
+                     + dec_launches["scan_bwd"] + sp_launches["scan_bwd"]),
         "launches_by_path": {"serve": serve_bwd, "train": train_bwd,
                              "cli": cli_launches["scan_bwd"],
                              "serving_http": http_launches["scan_bwd"],
@@ -5249,7 +5914,8 @@ def main(argv=None) -> None:
                              "aqt": aqt_launches["scan_bwd"],
                              "hpo": hpo_launches["scan_bwd"],
                              "utilities": util_launches["scan_bwd"],
-                             "decoder": dec_launches["scan_bwd"]},
+                             "decoder": dec_launches["scan_bwd"],
+                             "sharded_scan": sp_launches["scan_bwd"]},
         "max_abs_err": bwd_abs,
         "max_rel_err": bwd_rel,
         "ms": bwd_k_step,

@@ -9,8 +9,9 @@ serving artifacts and the HTTP host, and the hyperparameter searches
 (``integrations/``). Plain tensor code is PyTorch, and each Pallas kernel
 of the JAX package is a CUDA kernel written for Hopper (``csrc/``), built
 with ``nvcc`` at first use. The data, fsdp and model axes run over
-ranks (``parallel/``). Not ported yet: ``ops/sharded_scan.py`` (ROADMAP.md,
-Queue 1, item 8).
+ranks (``parallel/``), and so do the sequence-parallel scan
+(``ops/sharded_scan.py``), GPipe (``parallel/pipeline.py``), data-sharded
+serving artifacts and the scaling bench (``bench_scaling.py``).
 """
 
 __version__ = "0.1.0"

@@ -12,7 +12,7 @@ Usage:
         [--checkpoint <checkpoint dir, e.g. .../stage_1_epoch_latest>] \\
         [--num-classes 2] [--image-size 224] [--compress-weights] \\
         [--quant int8_serve] [--tokenizer <vocab.txt or tokenizer dir>] \\
-        [--precision amp|bf16|pure_bf16|fp16|pure_fp16|fp32]
+        [--precision amp|bf16|pure_bf16|fp16|pure_fp16|fp32] [--data-shards S]
 
 Without ``--checkpoint`` it exports a fresh init (seed 0). With it the
 parameters keep the type ``--precision`` trains them in (bf16 under
@@ -45,8 +45,8 @@ def main(argv=None):
                         "that the module code runs on any device, so nothing is "
                         "lowered for a target (default: this process's platform)")
     p.add_argument("--data-shards", type=int, default=1,
-                   help="data-parallel artifacts are not ported (ROADMAP.md, Queue 1, "
-                        "item 8): above 1 raises")
+                   help="above 1: a data-parallel artifact, served by one replica a "
+                        "card (the batch dimension becomes data_shards*b)")
     p.add_argument("--tokenizer", default=None,
                    help="local tokenizer dir/vocab.txt to ship with the "
                         "artifact (text serving needs it host-side)")

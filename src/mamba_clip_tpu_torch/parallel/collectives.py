@@ -28,6 +28,17 @@ backend) takes them too, for ``all_reduce``, ``broadcast``,
 host. The axis of a step is the batch
 axis of the mesh (data × fsdp, ``Mesh.axis``); the fsdp and model axes'
 groups are used by ``parallel/sharding.py``.
+
+:func:`permute_` is ``lax.ppermute``: point-to-point sends and receives
+over a group, with the reverse permutation as its backward (the
+sequence-parallel scan's carry pass and the GPipe schedule use it). nccl
+takes the card's tensors; under gloo a card's tensor is staged through
+the host (:func:`permute_path`).
+
+:func:`count_collectives` counts every collective these functions issue,
+by kind (``all-reduce``, ``all-gather``, ``reduce-scatter``,
+``collective-permute``) and output payload bytes, as the JAX package's
+``tools/bench_scaling.py::collective_stats`` counts what XLA inserted.
 """
 
 from __future__ import annotations
@@ -72,6 +83,35 @@ def active() -> Optional[DataAxis]:
 
 
 # ---------------------------------------------------------------------------
+# the counter
+# ---------------------------------------------------------------------------
+
+_COUNTERS: List[Dict[str, Dict[str, int]]] = []
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """``{kind: {"count": n, "bytes": b}}`` of the collectives issued inside
+    the block (filled as they are issued; counters nest). The bytes are the
+    output's: the reduced tensor of an all-reduce, the gathered one of an
+    all-gather, the rank's part of a reduce-scatter, the received tensor of
+    a permute."""
+    stats: Dict[str, Dict[str, int]] = {}
+    _COUNTERS.append(stats)
+    try:
+        yield stats
+    finally:
+        _COUNTERS.remove(stats)
+
+
+def _count(kind: str, out: torch.Tensor) -> None:
+    for stats in _COUNTERS:
+        s = stats.setdefault(kind, {"count": 0, "bytes": 0})
+        s["count"] += 1
+        s["bytes"] += out.numel() * out.element_size()
+
+
+# ---------------------------------------------------------------------------
 # backend-aware collectives
 # ---------------------------------------------------------------------------
 
@@ -87,6 +127,7 @@ def comm_device(group=None) -> torch.device:
 def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM, group=None) -> torch.Tensor:
     """In-place all-reduce of a contiguous ``t``; returns it."""
     dist.all_reduce(t, op=op, group=group)
+    _count("all-reduce", t)
     return t
 
 
@@ -95,6 +136,7 @@ def all_gather_(t: torch.Tensor, world: int, group=None) -> torch.Tensor:
     t = t.contiguous()
     out = torch.empty((world,) + tuple(t.shape), dtype=t.dtype, device=t.device)
     dist.all_gather(list(out.unbind(0)), t, group=group)
+    _count("all-gather", out)
     return out
 
 
@@ -107,7 +149,68 @@ def reduce_scatter_(t: torch.Tensor, world: int, group=None) -> torch.Tensor:
     out = torch.empty(t.numel() // world, dtype=t.dtype, device=t.device)
     scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
     scatter(out, t, group=group)
+    _count("reduce-scatter", out)
     return out
+
+
+def permute_path(t: torch.Tensor, group=None) -> str:
+    """How :func:`permute_` moves ``t`` over ``group``'s backend: ``device``
+    (the tensor as it is: nccl, or any tensor on the host) or ``host-staged``
+    (a card's tensor under gloo, copied to the host and back)."""
+    if t.device.type != "cpu" and dist.get_backend(group) == "gloo":
+        return "host-staged"
+    return "device"
+
+
+def _permute(x: torch.Tensor, pairs, group) -> torch.Tensor:
+    """One ``ppermute``: rank ``i`` of ``group`` sends ``x`` to rank ``j``
+    for each ``(i, j)`` of ``pairs``; a rank with no source gets zeros. All
+    sends and receives of this rank go out in one ``batch_isend_irecv``, so
+    a ring cannot deadlock."""
+    me = dist.get_rank(group)
+    staged = permute_path(x, group) == "host-staged"
+    send = (x.to("cpu") if staged else x).contiguous()
+    recv = torch.zeros_like(send)
+
+    def peer(r):
+        return r if group is None else dist.get_global_rank(group, r)
+
+    ops = []
+    for i, j in pairs:
+        if i == j == me:
+            recv.copy_(send)
+            continue
+        if i == me:
+            ops.append(dist.P2POp(dist.isend, send, peer(j), group))
+        if j == me:
+            ops.append(dist.P2POp(dist.irecv, recv, peer(i), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    _count("collective-permute", recv)
+    return recv.to(x.device) if staged else recv
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pairs, group):
+        ctx.pairs, ctx.group = pairs, group
+        return _permute(x.detach(), pairs, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = tuple((j, i) for i, j in ctx.pairs)
+        return _permute(g, back, ctx.group), None, None
+
+
+def permute_(x: torch.Tensor, pairs, group=None) -> torch.Tensor:
+    """``lax.ppermute(x, axis, pairs)`` over ``group`` (the default group when
+    None): rank ``i`` (its index in the group) sends ``x`` to rank ``j`` for
+    each ``(i, j)`` of ``pairs``, and a rank that no pair names as a target
+    receives zeros. Differentiable: the backward permutes the cotangent by
+    the reverse pairs (``ppermute``'s transpose). Every rank of the group
+    calls it with the same ``pairs``, forward and backward alike."""
+    return _Permute.apply(x, tuple((int(i), int(j)) for i, j in pairs), group)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,9 @@ JAX's host answers it.
 Concurrent requests are coalesced into one device call per entry point by
 ``serve.MicroBatcher`` (up to ``--max-batch`` rows, waiting at most
 ``--max-delay-ms`` after the first, padded to a power of two);
-``--max-batch 1`` calls the entry point directly for each request.
+``--max-batch 1`` calls the entry point directly for each request, but for
+a data-sharded artifact, whose dispatches the batcher pads to a multiple
+of its shards.
 
 Usage:
     python -m mamba_clip_tpu_torch.serve_http --artifact DIR [--port 8000] \\
@@ -60,10 +62,12 @@ def make_server(artifact: str, port: int = 0, host: str = "127.0.0.1",
     from .data.dataset import _decode_to_square
     from .serving import load_serving
 
-    # check the manifest before load_serving, as JAX's host does
+    # check the manifest before load_serving, as JAX's host does; a sharded
+    # artifact takes one card a shard, and on the CPU runs its slices in turn
     with open(os.path.join(artifact, "manifest.json")) as f:
         shards = int(json.load(f).get("data_shards", 1))
-    if shards > 1 and torch.cuda.device_count() < shards:
+    if (shards > 1 and torch.device(device).type == "cuda"
+            and torch.cuda.device_count() < shards):
         raise ValueError(
             f"artifact exported with data_shards={shards} but this "
             f"host has {torch.cuda.device_count()} device(s); export "
@@ -74,7 +78,9 @@ def make_server(artifact: str, port: int = 0, host: str = "127.0.0.1",
     manifest = served["manifest"]
     staging = int(manifest["staging_size"])
 
-    if max_batch > 1:
+    if max_batch > 1 or shards > 1:
+        # a sharded artifact always goes through the batcher: its padding
+        # rounds every dispatch up to a shard-divisible row count
         batchers = {
             name: MicroBatcher(served[name], max_batch, max_delay_ms,
                                pad_multiple=shards, in_flight=in_flight)

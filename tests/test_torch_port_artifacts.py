@@ -353,16 +353,20 @@ def test_refusals_match_jax(tmp_path, mm):
         assert man["quant"] == quant
         loaded = load_serving(out, device="cpu")
         assert loaded["manifest"]["quant"] == quant
-    with pytest.raises(NotImplementedError, match="item 8 'Parallel layers'"):
-        export_serving(str(tmp_path / "dp"), "medmamba", data_shards=8)
-    # a sharded manifest, a JAX artifact, a module that does not match
+    # a data-sharded export and a sharded manifest load, one replica a device
+    man = export_serving(str(tmp_path / "dp"), "medmamba", data_shards=8, precision="fp32")
+    assert man["data_shards"] == 8 and man["entry_points"]["classify"]["input_shape"][0] == "8*b"
+    assert load_serving(str(tmp_path / "dp"), devices=["cpu"] * 8)["manifest"] == man
     out, _ = mm.arts["raw"]
     shard = tmp_path / "shard"
     shutil.copytree(out, shard)
     man = json.loads((shard / "manifest.json").read_text())
     (shard / "manifest.json").write_text(json.dumps(dict(man, data_shards=2)))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        load_serving(str(shard), device="cpu")
+    loaded = load_serving(str(shard), devices=["cpu"] * 2)
+    x = _inputs(mm.meta, seed=3)["image"][:2]
+    assert torch.equal(loaded["classify"](x), torch.cat(
+        [load_serving(out, device="cpu")["classify"](x[i:i + 1]) for i in range(2)]))
+    # a JAX artifact, a module that does not match
     with pytest.raises(ValueError, match="StableHLO artifact is read by the JAX"):
         load_serving(mm.jdir, device="cpu")
     sd = dict(mm.model.state_dict())

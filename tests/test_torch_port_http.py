@@ -265,8 +265,10 @@ def test_sharded_artifact_refused_as_jax(arts, tmp_path):
     with open(os.path.join(arts["mm"], "manifest.json")) as f:
         man = json.load(f)
     (tmp_path / "manifest.json").write_text(json.dumps(dict(man, data_shards=n_jax + 1)))
+    # on the card a sharded artifact takes one card a shard, and this host
+    # counts none (on the CPU it would run its slices in turn)
     with pytest.raises(ValueError) as got:
-        serve_http.make_server(str(tmp_path), port=0, device="cpu")
+        serve_http.make_server(str(tmp_path), port=0, device="cuda")
     with pytest.raises(ValueError) as want:
         jax_http.make_server(str(tmp_path), port=0)
     # each package counts its own devices: no card here, JAX's CPU devices
