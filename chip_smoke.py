@@ -407,7 +407,19 @@ on failure:
    S = 1's on each 32-row slice (28 scan launches), a batch of 63 raises,
    ``serve_http.make_server`` refuses S = 2 on this one-card host with JAX's
    message. Prints ``sharded_scan_gpipe`` and ``sharded_serving`` lines;
-26. prints the kernels line (twelve entries: the two scan kernels, the
+26. ``--quant`` under the model axis and per-layer gathering on the fsdp
+   axis: two gloo ranks sharing the card run full-width BiomedCLIP's
+   contrastive step (amp, flash) at (model 2) under ``int8_fast`` and aqt
+   ``int8`` and the medmamba classifier's at (model 2) under ``int8_fast``
+   (16 global rows: every column-parallel output crosses the host), and
+   BiomedCLIP at (fsdp 2) with per-layer gathering (64 rows), 2 steps
+   each, each against one process on the card with the same seeds and
+   ``quant``: the ranks' losses and gathered digest identical, both within
+   2^-7 of one process's, 24 + 24 + 24 flash (14 + 14 scan) launches a
+   rank and a step on the tensor cores; ms a step, the collectives of the
+   second step by kind and bytes (``count_collectives``), the peak and the
+   state a rank against one process's. Prints a ``quant_mesh_axes`` line;
+27. prints the kernels line (twelve entries: the two scan kernels, the
    roofline's chain kernel, and each flash kernel as three entries, one a
    body and type: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
@@ -420,19 +432,23 @@ on failure:
    the ceilings phase 11 measured, its shares of both, and its instances;
    the forward's tensor-core entries are serving's pair, their training
    launches under ``training``; each scan entry with its instances; the
-   launches include phases 19-25's, those of phases 20, 24 and 25's rank
+   launches include phases 19-26's, those of phases 20 and 24-26's rank
    processes counted there), then the device line last.
 
 ``--cards 4`` runs only the four-card run (it fails on fewer than 4
 cards): four NCCL ranks, one a card, run the full-width contrastive step
 at 64 rows a batch shard at (data 4), (fsdp 4), (data 2, fsdp 2) and
 (data 2, model 2) (and (data 4) at 32 rows, the global batch of (data 2,
-model 2)), 3 warm-up and 5 timed steps each, and the medmamba classifier
-step at (data 2, fsdp 2): the ranks alike bit for bit, the sharded shapes'
-losses and digest within 2^-7 of (data 4) at the same global batch, 24 +
-24 + 24 flash (14 + 14 scan) launches a rank and a step; for each shape ms
-a step, the collectives' ms, the peak and the state bytes a rank. Prints a
-``mesh_axes_cards`` JSON line. Then: the sharded scan over four NCCL ranks
+model 2)), the same two again under ``--quant int8_fast``, 3 warm-up and
+5 timed steps each, and the medmamba classifier step at (data 2, fsdp 2):
+the ranks alike bit for bit, the sharded shapes' losses and digest within
+2^-7 of (data 4) at the same global batch and ``quant``, 24 + 24 + 24
+flash (14 + 14 scan) launches a rank and a step; for each shape ms a
+step, the collectives' ms and by kind, the peak and the state bytes a
+rank, and the (fsdp 4) peak a rank on a line of its own. Prints a
+``mesh_axes_cards`` JSON line. ``--mesh-cases NAME ...`` runs only those
+cases and ends there (a copy of this script beside another tree's
+``src/`` measures that tree's package). Then: the sharded scan over four NCCL ranks
 at phase 25's shapes (L 4 x 784) and GPipe of the 12 ViT blocks as 4
 stages of 3 at M = 4 and M = 8, under phase 25's gates against one card's
 unsharded scan and sequential blocks (a ``sharded_scan_gpipe_cards``
@@ -2727,13 +2743,16 @@ def axis_phase(card):
 
 
 def _mesh_case(case, rank):
-    """One case of phase 24 or of the four-card run on this rank: the contrastive (or the
+    """One case of phase 24, 26 or of the four-card run on this rank: the contrastive (or the
     medmamba classifier) step at full width on ``case["shape"]`` = (data,
     fsdp, model) over the rows of the rank's batch index, from the weights
-    and batches of seed 0; 2 steps whose losses, launches and gathered
-    parameter digest are kept, warm-up steps to ``case["warm"]``,
-    ``case["timed"]`` timed steps, then one step with every collective timed
-    apart. Returns its readings."""
+    and batches of seed 0 (``case["setup"]``: more arguments of the setup,
+    a ``quant`` mode); 2 steps whose losses, launches and gathered
+    parameter digest are kept, the second timed and its collectives
+    counted by kind; warm-up steps to ``case["warm"]``, ``case["timed"]``
+    timed steps (none: the second step's time stands), then, unless
+    ``case["time_collectives"]`` is False, one step with every collective
+    timed apart. Returns its readings."""
     import torch
     import torch.distributed as dist
 
@@ -2750,7 +2769,7 @@ def _mesh_case(case, rank):
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    state, step_fn, batches = setup(case["global"], mesh=mesh)
+    state, step_fn, batches = setup(case["global"], mesh=mesh, **case.get("setup", {}))
     ax = mesh.axis()
     per = case["global"] // ax.world
     mine = [{k: v[ax.rank * per:(ax.rank + 1) * per] for k, v in b.items()} for b in batches]
@@ -2761,11 +2780,17 @@ def _mesh_case(case, rank):
         for body in getattr(w, "launches_by_body", {}):
             w.launches_by_body[body] = 0
     losses, gns = [], []
-    for i in range(2):
-        state, m = step_fn(state, mine[i], 0)
+    state, m = step_fn(state, mine[0], 0)
+    losses.append(float(m["loss"]))
+    gns.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with coll.count_collectives() as by_kind:
+        state, m = step_fn(state, mine[1], 0)
         losses.append(float(m["loss"]))
         gns.append(float(m["grad_norm"]))
     torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
     counts = {k: w.launches for k, w in wrappers.items()}
     bodies = {k: dict(w.launches_by_body) for k, w in wrappers.items()
               if hasattr(w, "launches_by_body")}
@@ -2774,13 +2799,16 @@ def _mesh_case(case, rank):
     for i in range(2, case["warm"]):
         state, _ = step_fn(state, mine[i % 2], 0)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(case["timed"]):
-        state, m = step_fn(state, mine[i % 2], 0)
-    float(m["loss"])
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / case["timed"]
-    spent = {"ms": 0.0, "calls": 0}
+    if case["timed"]:
+        t0 = time.perf_counter()
+        for i in range(case["timed"]):
+            state, m = step_fn(state, mine[i % 2], 0)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / case["timed"]
+    spent = {"ms": None, "calls": None}
+    if case.get("time_collectives", True):
+        spent = {"ms": 0.0, "calls": 0}
 
     def timed(fn):
         def wrapped(*a, **kw):
@@ -2796,18 +2824,20 @@ def _mesh_case(case, rank):
     real = [(mod, n, getattr(mod, n)) for mod, names in (
         (coll, ("all_reduce_", "all_gather_", "reduce_scatter_")),
         (sharding, ("all_reduce_", "all_gather_", "reduce_scatter_"))) for n in names]
-    for mod, n, f in real:
-        setattr(mod, n, timed(f))
-    try:
-        state, _ = step_fn(state, mine[0], 0)
-        torch.cuda.synchronize()
-    finally:
+    if spent["ms"] is not None:
         for mod, n, f in real:
-            setattr(mod, n, f)
+            setattr(mod, n, timed(f))
+        try:
+            state, _ = step_fn(state, mine[0], 0)
+            torch.cuda.synchronize()
+        finally:
+            for mod, n, f in real:
+                setattr(mod, n, f)
     out = {"shape": list(case["shape"]), "global_rows": case["global"], "rows": per,
            "losses": losses, "grad_norms": gns, "digest": digest, "counts": counts,
            "bodies": bodies, "state_bytes": held, "ms_per_step": step_ms,
            "collectives_ms_per_step": spent["ms"], "collective_calls_per_step": spent["calls"],
+           "collectives_by_kind": {k: dict(v) for k, v in by_kind.items()},
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "reduce_scatter": dist.get_backend(mesh.groups["fsdp"]) if mesh.fsdp > 1 else None}
     del state, step_fn, batches, mine
@@ -2898,19 +2928,16 @@ def _mesh_row(r, ranks):
             "reduce_scatter_backend": r["reduce_scatter"]}
 
 
-def mesh_phase(card):
-    """Phase 24: the fsdp and model axes on two gloo ranks sharing the card,
-    against one process at 64 rows. Returns (the ``mesh_axes`` line's
-    fields, the ranks' flash launches by body)."""
+def one_process(setup, rows, **kw):
+    """One process's run of a phase 24/26 reference on the card: 2 steps of
+    ``setup(rows, **kw)``, then a third timed; its losses, parameter digest,
+    ms a step, state bytes and peak."""
     import torch
 
-    from mamba_clip_tpu_torch.profile_train import clip_train_setup
-
-    line = {"card": card, "note": "two gloo ranks share one card: not a scaling number"}
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    state, step_fn, batches = clip_train_setup(64)
+    state, step_fn, batches = setup(rows, **kw)
     losses = []
     for i in range(2):
         state, m = step_fn(state, batches[i], 0)
@@ -2927,6 +2954,20 @@ def mesh_phase(card):
     del state, step_fn, batches
     gc.collect()
     torch.cuda.empty_cache()
+    return one
+
+
+def mesh_phase(card):
+    """Phase 24: the fsdp and model axes on two gloo ranks sharing the card,
+    against one process at 64 rows. Returns (the ``mesh_axes`` line's
+    fields, the ranks' flash launches by body, the one process's
+    readings)."""
+    import torch
+
+    from mamba_clip_tpu_torch.profile_train import clip_train_setup
+
+    line = {"card": card, "note": "two gloo ranks share one card: not a scaling number"}
+    one = one_process(clip_train_setup, 64)
     line["one_process"] = {k: v for k, v in one.items() if k != "digest"}
     cases = [{"name": "fsdp2", "kind": "clip", "shape": (1, 2, 1), "global": 64, "warm": 2,
               "timed": 1},
@@ -2959,7 +3000,82 @@ def mesh_phase(card):
     line["gloo_reduce_scatter_cuda"] = ranks[0]["gloo_reduce_scatter_cuda"]
     say(f"mesh: gloo's reduce_scatter on the card's tensors: "
         f"{line['gloo_reduce_scatter_cuda']}")
-    return line, bodies
+    return line, bodies, one
+
+
+# the quant cases of phase 26 (model 2): global rows (two gloo ranks sharing
+# one card move every column-parallel output through the host: phase 24's
+# (model 2) at 64 rows takes about 9 s a step), setup arguments and launches
+# a rank in its 2 steps
+QUANT_MESH_ROWS = 16
+QUANT_MESH_CASES = [
+    ("clip_int8_fast_model2", "clip", {"quant": "int8_fast"}),
+    ("clip_aqt_int8_model2", "clip", {"quant": "int8"}),
+    ("medmamba_int8_fast_model2", "cls", {"quant": "int8_fast"}),
+]
+FLASH_2_STEPS = {"fwd": 48, "dkv": 48, "dq": 48}
+SCAN_2_STEPS = {"scan_fwd": 28, "scan_bwd": 28}
+
+
+def quant_mesh_phase(card, one_fsdp):
+    """Phase 26: ``--quant`` under the model axis and per-layer gathering on
+    the fsdp axis, on two gloo ranks sharing the card, each case against
+    one process on the card (``one_fsdp``: phase 24's, the fsdp case's).
+    Returns (the ``quant_mesh_axes`` line's fields, the ranks' flash
+    launches by body, their scan launches)."""
+    from mamba_clip_tpu_torch.profile_train import clip_train_setup, medmamba_train_setup
+
+    line = {"card": card, "note": "two gloo ranks share one card: not a scaling number",
+            "rows_quant_cases": QUANT_MESH_ROWS}
+    refs = {name: one_process(clip_train_setup if kind == "clip" else medmamba_train_setup,
+                              QUANT_MESH_ROWS, **setup)
+            for name, kind, setup in QUANT_MESH_CASES}
+    refs["clip_fsdp2_per_layer"] = one_fsdp
+    cases = [{"name": name, "kind": kind, "shape": (1, 1, 2), "global": QUANT_MESH_ROWS,
+              "warm": 2, "timed": 0, "time_collectives": False, "setup": setup}
+             for name, kind, setup in QUANT_MESH_CASES]
+    cases.append({"name": "clip_fsdp2_per_layer", "kind": "clip", "shape": (1, 2, 1),
+                  "global": 64, "warm": 2, "timed": 0, "time_collectives": False})
+    ranks = run_ranks(2, "gloo", cases, target=_mesh_rank)
+    bodies = {k: {"tensor_cores": 0, "cuda_cores": 0} for k in FLASH_2_STEPS}
+    scans = {k: 0 for k in SCAN_2_STEPS}
+    for case in cases:
+        name = case["name"]
+        rs = [r[name] for r in ranks]
+        want = FLASH_2_STEPS if case["kind"] == "clip" else SCAN_2_STEPS
+        ref = refs[name]
+        loss_rel, dig = _mesh_gates(f"phase 26 {name}", rs, ref, want)
+        for r in rs:
+            for k, by in r["bodies"].items():
+                if k in bodies:
+                    for body, c in by.items():
+                        bodies[k][body] += c
+            for k in scans:
+                scans[k] += r["counts"][k]
+        row = {"shape": rs[0]["shape"], "setup": case.get("setup", {}),
+               "global_rows": rs[0]["global_rows"], "rows_a_rank": rs[0]["rows"],
+               "losses": rs[0]["losses"], "losses_one_process": ref["losses"],
+               "loss_rel": loss_rel, "digest_rel_max": dig,
+               "ms_per_step": [x["ms_per_step"] for x in rs],
+               "ms_per_step_one_process": ref["ms_per_step"],
+               "collectives_by_kind": rs[0]["collectives_by_kind"],
+               "peak_bytes": [x["peak_bytes"] for x in rs],
+               "peak_bytes_one_process": ref["peak_bytes"],
+               "state_bytes": [x["state_bytes"] for x in rs],
+               "state_bytes_one_process": ref["state_bytes"],
+               "launches_a_rank": {k: rs[0]["counts"][k] for k in want}}
+        line[name] = row
+        kinds = ", ".join(f"{k} x{v['count']} ({v['bytes'] / 1e6:.1f} MB)"
+                          for k, v in sorted(row["collectives_by_kind"].items()))
+        say(f"phase 26 {name} {case['shape']} {case.get('setup', {})}: 2 gloo ranks x "
+            f"{rs[0]['rows']} rows against one process x {case['global']}: losses "
+            f"{[round(x, 5) for x in rs[0]['losses']]} / {[round(x, 5) for x in ref['losses']]} "
+            f"(rel {loss_rel:.2e}), digest rel {dig:.2e}, ranks identical; "
+            f"{rs[0]['ms_per_step']:.1f} ms a step a rank against {ref['ms_per_step']:.1f}; "
+            f"a step's collectives: {kinds}; peak {rs[0]['peak_bytes'] / 1e9:.2f} GB a rank "
+            f"against {ref['peak_bytes'] / 1e9:.2f} GB; state {rs[0]['state_bytes'] / 1e9:.3f} "
+            f"GB a rank against {ref['state_bytes'] / 1e9:.3f} GB")
+    return line, bodies, scans
 
 
 # ---------------------------------------------------------------------------
@@ -3565,7 +3681,7 @@ def cards_sp(card, cards):
     return line
 
 
-def cards_main(cards: int) -> None:
+def cards_main(cards: int, only=None) -> None:
     """The four-card run alone (``--cards 4``): four NCCL ranks, one a card, run the
     full-width contrastive step at 64 rows a batch shard at (data 4), (fsdp
     4), (data 2, fsdp 2) and (data 2, model 2), and the medmamba classifier
@@ -3595,22 +3711,34 @@ def cards_main(cards: int) -> None:
             f.result()
     say(f"build: {', '.join(built)} in {time.time() - t0:.1f} s")
 
-    def clip(name, shape, rows):
+    def clip(name, shape, rows, **setup):
         return {"name": name, "kind": "clip", "shape": shape,
-                "global": rows * shape[0] * shape[1], "warm": 3, "timed": 5}
+                "global": rows * shape[0] * shape[1], "warm": 3, "timed": 5, "setup": setup}
 
     cases = [clip("data4", (4, 1, 1), 64), clip("fsdp4", (1, 4, 1), 64),
              clip("data2_fsdp2", (2, 2, 1), 64), clip("data4_128", (4, 1, 1), 32),
              clip("data2_model2", (2, 1, 2), 64),
+             clip("data4_128_int8_fast", (4, 1, 1), 32, quant="int8_fast"),
+             clip("data2_model2_int8_fast", (2, 1, 2), 64, quant="int8_fast"),
              {"name": "medmamba_data2_fsdp2", "kind": "cls", "shape": (2, 2, 1),
               "global": 256, "warm": 3, "timed": 5}]
     t0 = time.perf_counter()
+    if only:
+        cases = [c for c in cases if c["name"] in only]
+        if len(cases) != len(set(only)):
+            fail(f"--mesh-cases {only}: not all among the four-card cases")
+    ran = {c["name"] for c in cases}
     ranks = run_ranks(cards, "nccl", cases, target=_mesh_rank, timeout=700)
     line = {"card": card, "cards": cards, "backend": "nccl"}
     flash = {"fwd": 48, "dkv": 48, "dq": 48}
     for case, ref in (("data4", None), ("fsdp4", "data4"), ("data2_fsdp2", "data4"),
                       ("data4_128", None), ("data2_model2", "data4_128"),
+                      ("data4_128_int8_fast", None),
+                      ("data2_model2_int8_fast", "data4_128_int8_fast"),
                       ("medmamba_data2_fsdp2", None)):
+        if case not in ran:
+            continue
+        ref = ref if ref in ran else None
         rs = [r[case] for r in ranks]
         want = flash if case.startswith(("data", "fsdp")) else {"scan_fwd": 28,
                                                                  "scan_bwd": 28}
@@ -3627,8 +3755,21 @@ def cards_main(cards: int) -> None:
             f"{rs[0]['collective_calls_per_step']} calls; peak "
             f"{[round(x['peak_bytes'] / 1e9, 2) for x in rs]} GB; state "
             f"{[round(x['state_bytes'] / 1e9, 3) for x in rs]} GB a rank")
+    if "fsdp4" in line:
+        fsdp = line["fsdp4"]
+        line["fsdp4_peak_bytes"] = fsdp["peak_bytes"]
+        say(f"{cards} cards (fsdp 4): peak {[round(x / 1e9, 3) for x in fsdp['peak_bytes']]} GB "
+            f"a rank, state {fsdp['state_bytes'][0] / 1e9:.3f} GB a rank (package {SRC})"
+            + (f"; (data 4): peak {[round(x / 1e9, 3) for x in line['data4']['peak_bytes']]} "
+               f"GB, state {line['data4']['state_bytes'][0] / 1e9:.3f} GB"
+               if "data4" in line else ""))
     line["phase_s"] = time.perf_counter() - t0
     say(json.dumps({"mesh_axes_cards": line}))
+    if only:
+        say(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
     # the sequence-parallel scan and GPipe over the cards' NCCL ranks
     t0 = time.perf_counter()
     sp = cards_sp(card, cards)
@@ -4058,6 +4199,10 @@ def main(argv=None) -> None:
     ap.add_argument("--cards", type=int, default=1,
                     help="4: run only the four-card run of the parallel layer (NCCL, one rank "
                          "a card); it fails on fewer cards")
+    ap.add_argument("--mesh-cases", nargs="+", default=None,
+                    help="with --cards 4: run only these mesh cases (e.g. fsdp4), nothing else; "
+                         "a copy of this script beside another tree's src/ runs that tree's "
+                         "package")
     args = ap.parse_args(argv)
     if args.clip_check_seeds is not None:
         return clip_check_only(args.clip_check_seeds, Path(args.src).resolve())
@@ -4066,7 +4211,7 @@ def main(argv=None) -> None:
     if not (SRC / "mamba_clip_tpu_torch").is_dir():
         fail(f"{SRC / 'mamba_clip_tpu_torch'} not found: run from a checkout of the repository")
     if args.cards == 4:
-        return cards_main(args.cards)
+        return cards_main(args.cards, args.mesh_cases)
     try:
         import numpy as np
         import torch
@@ -5738,7 +5883,7 @@ def main(argv=None) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     t24 = time.perf_counter()
-    mesh_line, mesh_bodies = mesh_phase(card)
+    mesh_line, mesh_bodies, mesh_one = mesh_phase(card)
     mesh_line["phase_s"] = time.perf_counter() - t24
     say(json.dumps({"mesh_axes": mesh_line}))
 
@@ -5753,7 +5898,16 @@ def main(argv=None) -> None:
     say(json.dumps({"sharded_scan_gpipe": sp_line}))
     say(json.dumps({"sharded_serving": sharded_line}))
 
-    # 26. kernels line, then the device line. Each attention kernel as three
+    # 26. --quant under the model axis and per-layer gathering on the fsdp
+    # axis: two gloo ranks on the card (their launches counted in the ranks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t26 = time.perf_counter()
+    qm_line, qm_bodies, qm_scans = quant_mesh_phase(card, mesh_one)
+    qm_line["phase_s"] = time.perf_counter() - t26
+    say(json.dumps({"quant_mesh_axes": qm_line}))
+
+    # 27. kernels line, then the device line. Each attention kernel as three
     # entries, one a body and type: the tensor cores in bf16 (what serving and
     # training under amp and pure_bf16 run, its launches from the main path),
     # the tensor cores in fp16 (training under fp16 and pure_fp16, its
@@ -5774,18 +5928,20 @@ def main(argv=None) -> None:
                    "cli": cli_bodies, "serving_http": http_bodies, "real_data": real_bodies,
                    "quant": quant_bodies, "aqt": aqt_bodies, "data_axis": axis_bodies,
                    "hpo": hpo_bodies, "utilities": util_bodies, "decoder": dec_bodies,
-                   "mesh_axes": mesh_bodies, "gpipe": sp_bodies,
+                   "mesh_axes": mesh_bodies, "gpipe": sp_bodies, "quant_mesh_axes": qm_bodies,
                    # phase 18's bf16 launches; its fp16 ones are the fp16 entries'
                    "precision": {k: {"tensor_cores": by["tensor_cores"] - fp16_launches[k],
                                      "cuda_cores": by["cuda_cores"]}
                                  for k, by in prec_bodies.items()}}
     main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2", "cli",
                           "serving_http", "real_data", "quant", "precision", "aqt",
-                          "data_axis", "utilities", "mesh_axes", "gpipe"),
+                          "data_axis", "utilities", "mesh_axes", "gpipe", "quant_mesh_axes"),
                   "dkv": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
-                          "precision", "aqt", "data_axis", "utilities", "mesh_axes", "gpipe"),
+                          "precision", "aqt", "data_axis", "utilities", "mesh_axes", "gpipe",
+                          "quant_mesh_axes"),
                   "dq": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
-                         "precision", "aqt", "data_axis", "utilities", "mesh_axes", "gpipe")}
+                         "precision", "aqt", "data_axis", "utilities", "mesh_axes", "gpipe",
+                         "quant_mesh_axes")}
     flash_launches = {key: {"tensor_cores": sum(flash_paths[p][key]["tensor_cores"]
                                                 for p in paths),
                             "tensor_cores_fp16": fp16_launches[key],
@@ -5877,7 +6033,8 @@ def main(argv=None) -> None:
                      + http_launches["scan_fwd"] + quant_launches["scan_fwd"]
                      + prec_launches["scan_fwd"] + aqt_launches["scan_fwd"]
                      + hpo_launches["scan_fwd"] + util_launches["scan_fwd"]
-                     + dec_launches["scan_fwd"] + sp_launches["scan_fwd"]),
+                     + dec_launches["scan_fwd"] + sp_launches["scan_fwd"]
+                     + qm_scans["scan_fwd"]),
         "launches_by_path": {"serve": launches, "train": train_fwd, "clip_serve": clip_scans,
                              "medmamba_clip_image_embed": mm_launches["image_embed"]["scan"],
                              "cli": cli_launches["scan_fwd"],
@@ -5888,7 +6045,8 @@ def main(argv=None) -> None:
                              "hpo": hpo_launches["scan_fwd"],
                              "utilities": util_launches["scan_fwd"],
                              "decoder": dec_launches["scan_fwd"],
-                             "sharded_scan_and_serving": sp_launches["scan_fwd"]},
+                             "sharded_scan_and_serving": sp_launches["scan_fwd"],
+                             "quant_mesh_axes": qm_scans["scan_fwd"]},
         "max_abs_err": worst_abs,
         "max_rel_err": worst_rel,
         "ms": fwd_k,
@@ -5905,7 +6063,8 @@ def main(argv=None) -> None:
         "launches": (train_bwd + cli_launches["scan_bwd"] + quant_launches["scan_bwd"]
                      + prec_launches["scan_bwd"] + aqt_launches["scan_bwd"]
                      + hpo_launches["scan_bwd"] + util_launches["scan_bwd"]
-                     + dec_launches["scan_bwd"] + sp_launches["scan_bwd"]),
+                     + dec_launches["scan_bwd"] + sp_launches["scan_bwd"]
+                     + qm_scans["scan_bwd"]),
         "launches_by_path": {"serve": serve_bwd, "train": train_bwd,
                              "cli": cli_launches["scan_bwd"],
                              "serving_http": http_launches["scan_bwd"],
@@ -5915,7 +6074,8 @@ def main(argv=None) -> None:
                              "hpo": hpo_launches["scan_bwd"],
                              "utilities": util_launches["scan_bwd"],
                              "decoder": dec_launches["scan_bwd"],
-                             "sharded_scan": sp_launches["scan_bwd"]},
+                             "sharded_scan": sp_launches["scan_bwd"],
+                             "quant_mesh_axes": qm_scans["scan_bwd"]},
         "max_abs_err": bwd_abs,
         "max_rel_err": bwd_rel,
         "ms": bwd_k_step,

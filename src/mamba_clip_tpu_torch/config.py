@@ -94,7 +94,7 @@ class Args:
 
     # -- precision ---------------------------------------------------------
     precision: str = "amp"  # amp|amp_bf16|amp_bfloat16|bf16|pure_bf16|fp16|pure_fp16|fp32
-    # int8 training modes (not ported yet)
+    # int8 training modes
     quant: Optional[str] = None  # int8|int8_fwd|int8_fast|int8_fast_attn|int8_delayed|int8_delayed_attn|int8_serve|none
     # MLP GELU form: auto = tanh when the compute dtype is bf16, exact otherwise
     gelu: str = "auto"  # auto|exact|tanh

@@ -23,8 +23,8 @@ Several ranks (``world > 1``): each evaluates its shard and the shards are
 combined (:func:`evaluate`); rank 0 logs and writes. Over a mesh with an
 fsdp or a model axis the shards are the batch axis's (data × fsdp; the
 model peers evaluate the same rows), combined over its group, and the
-sharded parameters are gathered for the evaluation
-(``parallel/sharding.py``).
+sharded parameters are gathered layer by layer, each released after its
+layer's forward (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ from .data.metadata import write_csv
 from .losses import clip_loss, cross_entropy_loss
 from .ops.preprocess import eval_preprocess
 from .parallel.collectives import all_gather_, comm_device
-from .parallel.sharding import gathered, plan_of
+from .parallel.sharding import plan_of
 from .utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -208,8 +208,9 @@ def evaluate(
     are combined as the JAX package combines them: the scalar sums, the
     labeledness agreed before any targets collective, and a padded
     all-gather of the probabilities and the targets. Logging and the
-    writes stay with rank 0. A sharded model is evaluated gathered, and
-    its shards of the split are the batch axis's."""
+    writes stay with rank 0. A sharded model gathers its layers one at a
+    time (every rank of the mesh evaluates together), and its shards of the
+    split are the batch axis's."""
     metrics: Dict[str, float] = {}
     rank = getattr(run_state, "rank", 0) if run_state else 0
     world = getattr(run_state, "world_size", 1) if run_state else 1
@@ -233,9 +234,8 @@ def evaluate(
     plan, group = plan_of(net), None
     if plan is not None:
         world, group = plan.mesh.axis().world, plan.mesh.axis().group
-    with gathered(net):
-        return _evaluate(net, step, data, epoch, args, stage, master, world, group, run_state,
-                         results_writer, tb_writer, device)
+    return _evaluate(net, step, data, epoch, args, stage, master, world, group, run_state,
+                     results_writer, tb_writer, device)
 
 
 def _evaluate(net, step, data, epoch, args, stage, master, world, group, run_state,

@@ -22,12 +22,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.sharding import whole
 from .vit import FusedAttention, _dense, _normal_param, gelu, remat
 from .vssm import _layer_norm_f32, _linear
 
 
 class BertBlock(nn.Module):
     """Post-LN transformer block: attention -> add & LN -> GELU MLP -> add & LN."""
+
+    gather_unit = True  # per-layer gathering on a placed model (parallel/sharding.py)
 
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32, gelu_approx: bool = False,
@@ -113,8 +116,8 @@ class TextBert(nn.Module):
     def forward(self, input_ids):
         L = input_ids.shape[1]
         cdt = self.dtype
-        x = (F.embedding(input_ids, self.tok_emb.weight).to(cdt)
-             + self.pos_emb[:, :L].to(cdt) + self.type_emb.to(cdt))
+        x = (F.embedding(input_ids, whole(self.tok_emb, "weight")).to(cdt)
+             + whole(self, "pos_emb")[:, :L].to(cdt) + whole(self, "type_emb").to(cdt))
         x = _layer_norm_f32(x, self.ln_emb).to(cdt)
         pad_mask = (input_ids != self.pad_id)[:, None, None, :]  # (B, 1, 1, L)
         for i in range(self.depth):

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops import qdot
 from ..ops.flash_attn import _MASKED, attention_plain, flash_attention_interior
+from ..parallel.sharding import whole
 from .vssm import _apply_keep, _layer_norm_f32, _lecun_normal_, _linear, keep_mask
 
 
@@ -181,6 +182,8 @@ class MlpBlock(nn.Module):
 class EncoderBlock(nn.Module):
     """Pre-norm transformer block (timm ViT style)."""
 
+    gather_unit = True  # per-layer gathering on a placed model (parallel/sharding.py)
+
     def __init__(self, width: int, num_heads: int, mlp_ratio: float = 4.0,
                  dtype: torch.dtype = torch.float32, quick_gelu: bool = False,
                  gelu_approx: bool = False, attn_flash: bool = False,
@@ -262,8 +265,8 @@ class VisionTransformer(nn.Module):
         patches = (x.to(self.dtype).reshape(B, gh, p, gw, p, C)
                    .permute(0, 1, 3, 2, 4, 5).reshape(B, gh * gw, p * p * C))
         x = _linear(patches, self.patch_embed, self.dtype)
-        cls = self.cls_token.to(self.dtype).expand(B, 1, self.width)
-        x = torch.cat([cls, x], dim=1) + self.pos_embed.to(self.dtype)
+        cls = whole(self, "cls_token").to(self.dtype).expand(B, 1, self.width)
+        x = torch.cat([cls, x], dim=1) + whole(self, "pos_embed").to(self.dtype)
         if self.patch_dropout > 0.0 and self.training:
             mask = keep_mask((B, x.shape[1] - 1, 1), self.patch_dropout, generator, x.device)
             x = torch.cat([x[:, :1], _apply_keep(x[:, 1:], mask, self.patch_dropout)], dim=1)

@@ -63,7 +63,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.qdot import inject, injected
 from ..parallel import collectives
-from ..parallel.sharding import column_parallel
+from ..parallel.sharding import column_parallel, whole
 from ..ops.selective_scan import selective_scan_tm
 
 # std of a standard normal truncated to [-2, 2]
@@ -97,16 +97,18 @@ def _lecun_normal_(w: torch.Tensor, generator) -> torch.Tensor:
 def _linear(x, layer: nn.Linear, dtype):
     """``nn.Dense(dtype=dtype)``: x and the weight cast to ``dtype`` first,
     then the dot (the int8 dot injected into ``layer``, if any, which
-    quantizes the cast values), then the bias. A kernel whose output
-    features are split over the model axis (``parallel/sharding.py``) runs
-    column-parallel: this rank's columns, gathered, then the whole bias."""
+    quantizes the cast values), then the bias. On a placed model
+    (``parallel/sharding.py``) a kernel whose output features are split
+    over the model axis runs column-parallel, its injected dot too: this
+    rank's columns, gathered, then the whole bias; an fsdp-sharded kernel
+    outside every gathering unit is gathered here (``sharding.whole``)."""
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    x, w = x.to(dtype), layer.weight.to(dtype)
+    x, w = x.to(dtype), whole(layer, "weight").to(dtype)
     axis = getattr(layer.weight, "column_parallel", None)
-    if axis is not None:
-        out = column_parallel(x, w, axis)
-        return out if bias is None else out + bias
     dot = injected(layer)
+    if axis is not None:
+        out = column_parallel(x, w, axis, dot)
+        return out if bias is None else out + bias
     if dot is None:
         return F.linear(x, w, bias)
     out = dot(x, w.t(), (((x.ndim - 1,), (0,)), ((), ())))
@@ -373,6 +375,8 @@ class SSConvSSM(nn.Module):
     """Split-channel block: conv branch || SS2D branch, concat, channel
     shuffle, residual."""
 
+    gather_unit = True  # per-layer gathering on a placed model (parallel/sharding.py)
+
     def __init__(
         self,
         hidden_dim: int,
@@ -422,6 +426,8 @@ class SSConvSSM(nn.Module):
 class PatchEmbed2D(nn.Module):
     """Conv patchify + optional LN."""
 
+    gather_unit = True
+
     def __init__(self, patch_size: int = 4, in_chans: int = 3, embed_dim: int = 96,
                  patch_norm: bool = True, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
@@ -441,6 +447,8 @@ class PatchEmbed2D(nn.Module):
 
 class PatchMerging2D(nn.Module):
     """2x2 space-to-channel + LN + Linear 4C -> 2C."""
+
+    gather_unit = True
 
     def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None, dot_general_cls=None):
@@ -464,6 +472,8 @@ class PatchExpand2D(nn.Module):
     """Decoder upsample: Linear ``expand`` C -> dim_scale*C (no bias), depth
     to space by ``dim_scale``, LayerNorm ``norm`` over the C/dim_scale
     channels. C, the input's channels, is ``in_dim``: 2*dim unless given."""
+
+    gather_unit = True
 
     def __init__(self, dim: int, dim_scale: int = 2, in_dim: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,

@@ -40,14 +40,25 @@ own type (fp32, bf16 or fp16):
 The gradient passes straight through the clip (``clip_gradient=False``).
 Under a data axis of several ranks (``parallel/collectives.py``) the
 calibrations that run over the batch rows (the weight-gradient dot's) take
-the absmax across the ranks, as one rank over the whole batch does.
+the absmax across the ranks, as one rank over the whole batch does. Under a
+model axis (``model``: a column-parallel kernel, ``parallel/sharding.py``)
+the dot runs on this rank's columns ``rhs[K, N / M]``: the forward's
+scales (per lhs row over K, per rhs column over K) and the weight
+gradient's (over the rows) are local, as above; the lhs gradient
+contracts over the split N, so its calibrations over N take the max over
+the model group, and its int32 partial sums are summed over the group as
+int32 before they are dequantized (``int8_fwd``'s unquantized lhs gradient
+is summed over the group in the compute type).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-from ..parallel.collectives import max_across
+from ..parallel import collectives
+from ..parallel.collectives import DataAxis, max_over, sum_over
 from .qdot import _DenseDotGeneral, int_mm
 
 BOUND = 127.5   # the edge of the last int8 bucket: 2**7 - 0.5
@@ -63,13 +74,14 @@ def _inv_bound(dtype: torch.dtype) -> float:
     return float(c)
 
 
-def calibrate(x: torch.Tensor, dims, across: bool = False) -> torch.Tensor:
+def calibrate(x: torch.Tensor, dims, across: bool = False,
+              model: Optional[DataAxis] = None) -> torch.Tensor:
     """The scale of ``x`` over ``dims`` (kept as size 1), in x's type.
     ``across``: the dims hold batch rows, so the absmax is taken over the
-    data axis's ranks too."""
-    am = x.abs().amax(dim=dims, keepdim=True)
-    if across:
-        am = max_across(am)
+    data axis's ranks too; ``model``: they hold this rank's columns of a
+    dim split over that axis, so over its group too."""
+    am = max_over(x.abs().amax(dim=dims, keepdim=True),
+                  collectives.active() if across else None, model)
     am = torch.where(am == 0, torch.ones_like(am), am)
     return (am.float() * _inv_bound(x.dtype)).to(x.dtype)
 
@@ -103,16 +115,19 @@ def fwd_dot(lhs: torch.Tensor, rhs: torch.Tensor):
     return dequantize(acc, sl, sr, lhs.dtype), ql, sl, qr, sr
 
 
-def dlhs_dot(g: torch.Tensor, qr: torch.Tensor, sr: torch.Tensor):
+def dlhs_dot(g: torch.Tensor, qr: torch.Tensor, sr: torch.Tensor,
+             model: Optional[DataAxis] = None):
     """``--quant int8``'s lhs gradient ``g[..., N] . rhs[K, N]``: the
     cotangent times the forward's rhs scale, against the forward's int8
-    rhs, both calibrated again over N. Returns (dlhs, qg, acc)."""
+    rhs, both calibrated again over N (over the model group too, and the
+    int32 sums summed over it, where N is split: module docstring).
+    Returns (dlhs, qg, acc)."""
     g1 = g * sr.to(g.dtype)
     r = qr.to(g.dtype)
-    sg = calibrate(g1, (-1,))
-    srr = calibrate(r, (1,))                       # (K, 1)
+    sg = calibrate(g1, (-1,), model=model)
+    srr = calibrate(r, (1,), model=model)          # (K, 1)
     qg, qrr = quantize(g1, sg), quantize(r, srr)
-    acc = int_mm(_rows(qg), qrr.t()).reshape(*qg.shape[:-1], qrr.shape[0])
+    acc = sum_over(int_mm(_rows(qg), qrr.t()), model).reshape(*qg.shape[:-1], qrr.shape[0])
     return dequantize(acc, sg, srr.reshape(-1), g.dtype), qg, acc
 
 
@@ -134,39 +149,44 @@ def drhs_dot(g: torch.Tensor, ql: torch.Tensor, sl: torch.Tensor):
 
 class _AqtInt8Dot(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, lhs, rhs):
+    def forward(ctx, lhs, rhs, model):
         out, ql, sl, qr, sr = fwd_dot(lhs, rhs)
         ctx.save_for_backward(ql, sl, qr, sr)
+        ctx.model = model
         return out
 
     @staticmethod
     def backward(ctx, g):
         ql, sl, qr, sr = ctx.saved_tensors
-        return dlhs_dot(g, qr, sr)[0], drhs_dot(g, ql, sl)[0]
+        return dlhs_dot(g, qr, sr, ctx.model)[0], drhs_dot(g, ql, sl)[0], None
 
 
 class _AqtInt8FwdDot(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, lhs, rhs):
+    def forward(ctx, lhs, rhs, model):
         ctx.save_for_backward(lhs, rhs)
+        ctx.model = model
         return fwd_dot(lhs, rhs)[0]
 
     @staticmethod
     def backward(ctx, g):
         lhs, rhs = ctx.saved_tensors
-        dlhs = torch.matmul(g, rhs.t())
+        dlhs = sum_over(torch.matmul(g, rhs.t()), ctx.model)
         drhs = torch.matmul(_rows(lhs).t(), _rows(g))
-        return dlhs, drhs
+        return dlhs, drhs, None
 
 
-def aqt_int8_dot(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """``--quant int8``: int8 forward and backward dots."""
-    return _AqtInt8Dot.apply(lhs, rhs)
+def aqt_int8_dot(lhs: torch.Tensor, rhs: torch.Tensor,
+                 model: Optional[DataAxis] = None) -> torch.Tensor:
+    """``--quant int8``: int8 forward and backward dots; ``model``: ``rhs``
+    is this rank's columns of a kernel split over that axis."""
+    return _AqtInt8Dot.apply(lhs, rhs, model)
 
 
-def aqt_int8_fwd_dot(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def aqt_int8_fwd_dot(lhs: torch.Tensor, rhs: torch.Tensor,
+                     model: Optional[DataAxis] = None) -> torch.Tensor:
     """``--quant int8_fwd``: an int8 forward, an unquantized backward."""
-    return _AqtInt8FwdDot.apply(lhs, rhs)
+    return _AqtInt8FwdDot.apply(lhs, rhs, model)
 
 
 class AqtInt8DotGeneral(_DenseDotGeneral):

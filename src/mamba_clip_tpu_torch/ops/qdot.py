@@ -24,6 +24,20 @@ Under a data axis of several ranks (``parallel/collectives.py``) a
 per-tensor absmax of batch rows (an activation's, a cotangent's) and a
 committed delayed scale are the maximum over the ranks, as one process
 over the global batch takes them.
+
+Under a model axis (``model``: the axis of a column-parallel kernel,
+``parallel/sharding.py``) a Dense dot runs on this rank's columns of the
+kernel, ``rhs[K, N / M]``, and keeps JAX's global per-tensor scales, which
+XLA turns into cross-device reductions: the kernel's absmax is the max
+over the model group; the cotangent's, which holds this rank's rows and
+columns, the max over the batch and the model groups; the lhs, whole on
+the model peers, keeps its batch-axis max. The lhs gradient contracts over
+the split N: each rank's int32 partial sum is all-reduced over the model
+group as int32 before it is scaled, the exact sum one process's int32 dot
+gives, and the dequantized gradient is whole. ``int8_serve``'s per-column
+kernel scales are local; its fp32 backward sums its lhs gradient over the
+group. A delayed kernel scale takes the model group's max where it is
+stored (``"init"``) or committed.
 The rhs of a Dense dot is JAX's ``[K, N]`` kernel, which is the transpose of
 ``nn.Linear.weight``: a per-column scale there is a per-row scale of the
 weight.
@@ -66,7 +80,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.collectives import max_across
+from ..parallel import collectives
+from ..parallel.collectives import DataAxis, max_over, sum_over
 
 _EPS = 1e-6
 _P_SCALE = 1.0 / 127.0  # static softmax-probability scale (p in [0, 1])
@@ -87,13 +102,13 @@ def _over_127(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / 127.0)
 
 
-def _absmax_scale(x: torch.Tensor, across: bool = False) -> torch.Tensor:
+def _absmax_scale(x: torch.Tensor, across: bool = False,
+                  model: Optional[DataAxis] = None) -> torch.Tensor:
     """Per-tensor symmetric scale mapping absmax -> 127; ``across``: ``x``
     holds batch rows, so the absmax is the maximum over the data axis's
-    ranks (``parallel/collectives.py``)."""
-    am = x.float().abs().amax()
-    if across:
-        am = max_across(am)
+    ranks (``parallel/collectives.py``); ``model``: ``x`` holds this rank's
+    columns, so it is the maximum over the model group too."""
+    am = max_over(x.float().abs().amax(), collectives.active() if across else None, model)
     return _over_127(torch.clamp_min(am, _EPS))
 
 
@@ -189,56 +204,61 @@ def _out_dtype(a: torch.Tensor, b: torch.Tensor) -> torch.dtype:
 
 def _dense_bwd(ctx, saved, g):
     """The backward of the per-tensor Dense dots: the cotangent calibrated
-    once, both dots on the kept int8 operands. ``saved``: ``ctx``'s saved
-    tensors, unpacked once (a checkpointed recompute allows no second
-    unpacking)."""
+    once, both dots on the kept int8 operands; under a model axis the lhs
+    gradient's int32 partial sums are summed over the group (module
+    docstring). ``saved``: ``ctx``'s saved tensors, unpacked once (a
+    checkpointed recompute allows no second unpacking)."""
     ql, sl, qr, sr = saved
-    sg = _absmax_scale(g, across=True)
+    sg = _absmax_scale(g, across=True, model=ctx.model)
     qg = _quantize(g, sg)
-    dlhs = (_dense_dlhs_acc(qg, qr).float() * (sg * sr)).to(ctx.dtypes[0])
+    acc = sum_over(_dense_dlhs_acc(qg, qr), ctx.model)
+    dlhs = (acc.float() * (sg * sr)).to(ctx.dtypes[0])
     drhs = (_dense_drhs_acc(ql, qg).float() * (sl * sg)).to(ctx.dtypes[1])
     return dlhs, drhs
 
 
-def _dense_fwd(ctx, lhs, rhs, sl, sr):
+def _dense_fwd(ctx, lhs, rhs, sl, sr, model):
     ql, qr = _quantize(lhs, sl), _quantize(rhs, sr)
     out = (_dense_acc(ql, qr).float() * (sl * sr)).to(_out_dtype(lhs, rhs))
     ctx.save_for_backward(ql, sl, qr, sr)
     ctx.dtypes = (lhs.dtype, rhs.dtype)
+    ctx.model = model
     return out
 
 
 class _Int8DenseDot(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, lhs, rhs):
-        return _dense_fwd(ctx, lhs, rhs, _absmax_scale(lhs, across=True), _absmax_scale(rhs))
+    def forward(ctx, lhs, rhs, model):
+        return _dense_fwd(ctx, lhs, rhs, _absmax_scale(lhs, across=True),
+                          _absmax_scale(rhs, model=model), model)
 
     @staticmethod
     def backward(ctx, g):
-        return _dense_bwd(ctx, ctx.saved_tensors, g)
+        return (*_dense_bwd(ctx, ctx.saved_tensors, g), None)
 
 
 class _Int8DelayedDot(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, lhs, rhs, sl, sr):
-        return _dense_fwd(ctx, lhs, rhs, sl, sr)
+    def forward(ctx, lhs, rhs, sl, sr, model):
+        return _dense_fwd(ctx, lhs, rhs, sl, sr, model)
 
     @staticmethod
     def backward(ctx, g):
         saved = ctx.saved_tensors
         return (*_dense_bwd(ctx, saved, g), torch.zeros_like(saved[1]),
-                torch.zeros_like(saved[3]))
+                torch.zeros_like(saved[3]), None)
 
 
 class _Int8ServeDot(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, lhs, rhs):
+    def forward(ctx, lhs, rhs, model):
         sl = _absmax_scale(lhs, across=True)
         sr = _absmax_scale_cols(rhs)
         ql, qr = _quantize(lhs, sl), _quantize(rhs, sr)
         out = (_dense_acc(ql, qr).float() * (sl * sr)).to(_out_dtype(lhs, rhs))
         ctx.save_for_backward(ql, sl, qr, sr)
         ctx.dtypes = (lhs.dtype, rhs.dtype)
+        ctx.model = model
         return out
 
     @staticmethod
@@ -248,26 +268,29 @@ class _Int8ServeDot(torch.autograd.Function):
         lhs_deq = ql.float() * sl
         rhs_deq = qr.float() * sr
         gf = g.float()
-        dlhs = torch.matmul(gf, rhs_deq.t()).to(ctx.dtypes[0])
+        dlhs = sum_over(torch.matmul(gf, rhs_deq.t()), ctx.model).to(ctx.dtypes[0])
         drhs = torch.matmul(lhs_deq.reshape(-1, lhs_deq.shape[-1]).t(),
                             gf.reshape(-1, gf.shape[-1])).to(ctx.dtypes[1])
-        return dlhs, drhs
+        return dlhs, drhs, None
 
 
-def int8_dense_dot(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """int8 dot for the Dense pattern ``lhs[..., K] @ rhs[K, N]``."""
-    return _Int8DenseDot.apply(lhs, rhs)
+def int8_dense_dot(lhs: torch.Tensor, rhs: torch.Tensor,
+                   model: Optional[DataAxis] = None) -> torch.Tensor:
+    """int8 dot for the Dense pattern ``lhs[..., K] @ rhs[K, N]``; ``model``:
+    ``rhs`` is this rank's columns of a kernel split over that axis."""
+    return _Int8DenseDot.apply(lhs, rhs, model)
 
 
-def int8_delayed_dot(lhs, rhs, sl, sr) -> torch.Tensor:
+def int8_delayed_dot(lhs, rhs, sl, sr, model: Optional[DataAxis] = None) -> torch.Tensor:
     """int8 Dense dot with caller-provided (delayed) scales; the backward
     calibrates the cotangent on the call, the scales get zero gradients."""
-    return _Int8DelayedDot.apply(lhs, rhs, sl, sr)
+    return _Int8DelayedDot.apply(lhs, rhs, sl, sr, model)
 
 
-def int8_serve_dot(lhs: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+def int8_serve_dot(lhs: torch.Tensor, rhs: torch.Tensor,
+                   model: Optional[DataAxis] = None) -> torch.Tensor:
     """Forward-optimized int8 dot: per-tensor lhs, per-channel rhs scales."""
-    return _Int8ServeDot.apply(lhs, rhs)
+    return _Int8ServeDot.apply(lhs, rhs, model)
 
 
 # ---------------------------------------------------------------------------
@@ -395,15 +418,18 @@ def register_delayed(module: nn.Module, **shapes) -> None:
     module._scale_mode = None
 
 
-def delayed_amax(module: nn.Module, name: str, fresh: torch.Tensor) -> torch.Tensor:
+def delayed_amax(module: nn.Module, name: str, fresh: torch.Tensor,
+                 model: Optional[DataAxis] = None) -> torch.Tensor:
     """The stored absmax ``name`` of ``module`` to quantize with; notes
-    ``fresh``, this call's absmax, as the module's scale mode says."""
+    ``fresh``, this call's absmax, as the module's scale mode says.
+    ``model``: ``fresh`` is a column slice's, whose max over that axis's
+    group is stored (at once, or when committed)."""
     buf = getattr(module, name)
     if module._scale_mode == "init":
         with torch.no_grad():
-            buf.copy_(fresh)
+            buf.copy_(max_over(fresh, model))
     elif module._scale_mode == "record":
-        module._delayed_pending.setdefault(name, fresh)
+        module._delayed_pending.setdefault(name, (fresh, model))
     return buf
 
 
@@ -441,11 +467,12 @@ def scale_mode(holders: List[nn.Module], mode: Optional[str]):
 
 def commit_scales(holders: List[nn.Module]) -> None:
     """Write the fresh absmax that a recording kept aside into the buffers
-    (the maximum over the data axis's ranks, so that they stay equal)."""
+    (the maximum over the data axis's ranks, and over the model group for a
+    column slice's, so that they stay equal and whole)."""
     with torch.no_grad():
         for m in holders:
-            for name, fresh in m._delayed_pending.items():
-                getattr(m, name).copy_(max_across(fresh))
+            for name, (fresh, model) in m._delayed_pending.items():
+                getattr(m, name).copy_(max_over(fresh, collectives.active(), model))
             m._delayed_pending = {}
 
 
@@ -483,12 +510,14 @@ class _DenseDotGeneral(nn.Module):
     transposed) and the dimension numbers, of which only the Dense pattern
     is taken. Stateless: a child of the Linear with nothing to save."""
 
-    _dot = None  # staticmethod(lhs, rhs) -> out; set by subclasses
+    _dot = None  # staticmethod(lhs, rhs, model) -> out; set by subclasses
 
     def forward(self, lhs, rhs, dimension_numbers, precision=None,
-                preferred_element_type=None):
+                preferred_element_type=None, model_axis: Optional[DataAxis] = None):
+        """``model_axis``: ``rhs`` is this rank's columns of a kernel split
+        over that axis (``parallel/sharding.py::column_parallel``)."""
         _check_dense_pattern(type(self).__name__, lhs, dimension_numbers)
-        out = type(self)._dot(lhs, rhs)
+        out = type(self)._dot(lhs, rhs, model_axis)
         if preferred_element_type is not None:
             out = out.to(preferred_element_type)
         return out
@@ -518,11 +547,11 @@ class Int8DelayedDotGeneral(nn.Module):
         register_delayed(self, amax_lhs=(), amax_rhs=())
 
     def forward(self, lhs, rhs, dimension_numbers, precision=None,
-                preferred_element_type=None):
+                preferred_element_type=None, model_axis: Optional[DataAxis] = None):
         _check_dense_pattern("Int8DelayedDotGeneral", lhs, dimension_numbers)
         amax_l = delayed_amax(self, "amax_lhs", _fresh_amax(lhs))
-        amax_r = delayed_amax(self, "amax_rhs", _fresh_amax(rhs))
-        out = int8_delayed_dot(lhs, rhs, _over_127(amax_l), _over_127(amax_r))
+        amax_r = delayed_amax(self, "amax_rhs", _fresh_amax(rhs), model=model_axis)
+        out = int8_delayed_dot(lhs, rhs, _over_127(amax_l), _over_127(amax_r), model_axis)
         if preferred_element_type is not None:
             out = out.to(preferred_element_type)
         return out

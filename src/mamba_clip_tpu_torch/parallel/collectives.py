@@ -13,7 +13,11 @@ arguments:
 - :func:`sum_across`: an all-reduce sum with gradient (BatchNorm's global
   sums);
 - :func:`max_across`: an all-reduce max without gradient (an absmax taken
-  over the batch rows);
+  over the batch rows); :func:`max_over` the same over named groups of the
+  mesh (the model group, or the batch and the model groups: an absmax of a
+  column-parallel kernel's slice, or of a cotangent's rows and columns);
+- :func:`sum_over`: an exact all-reduce sum over one group (an int8 dot's
+  int32 partial sums over the model group);
 - :func:`mean_grads`: the gradients averaged over the ranks, one flat
   all-reduce per dtype;
 - :func:`draw_rows`: a random draw over the global batch, of which the rank
@@ -260,10 +264,29 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
 def max_across(x: torch.Tensor) -> torch.Tensor:
     """The elementwise max of ``x`` over the active axis's ranks, without
     gradient; ``x`` at world 1."""
-    if _AXIS is None:
+    return max_over(x, _AXIS)
+
+
+def max_over(x: torch.Tensor, *axes: Optional[DataAxis]) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ranks of each of ``axes`` in
+    turn (None, or an axis of one rank, is skipped), without gradient: over
+    the batch axis and then the model axis, the max over every rank of the
+    two. ``x`` itself when no axis is left."""
+    axes = [ax for ax in axes if ax is not None and ax.world > 1]
+    if not axes:
         return x
-    return all_reduce_(x.detach().clone().contiguous(), op=dist.ReduceOp.MAX,
-                       group=_AXIS.group)
+    out = x.detach().clone().contiguous()
+    for ax in axes:
+        all_reduce_(out, op=dist.ReduceOp.MAX, group=ax.group)
+    return out
+
+
+def sum_over(t: torch.Tensor, axis: Optional[DataAxis]) -> torch.Tensor:
+    """The sum of ``t`` over ``axis``'s ranks, without gradient (an int32
+    ``t`` sums exactly); ``t`` at world 1 or without an axis."""
+    if axis is None or axis.world == 1:
+        return t
+    return all_reduce_(t.detach().contiguous().clone(), group=axis.group)
 
 
 def rank_offset(rows: int) -> int:

@@ -32,9 +32,8 @@ is installed (one warning and no-ops where not). ``--mesh-fsdp`` and
 (``parallel/mesh.py``): the loader splits the rows by the batch index (the
 model peers read the same rows), the state is sharded
 (``parallel/sharding.py``), and every rank takes part in a checkpoint's
-save, which rank 0 writes. What is not ported yet (``--quant`` under a
-model axis) fails when ``pipeline()`` starts, naming the ROADMAP.md item
-that lifts it.
+save, which rank 0 writes. Every ``--quant`` mode runs under either axis
+(the int8 dots of a column-parallel kernel take the global scales).
 """
 
 from __future__ import annotations
@@ -76,19 +75,6 @@ LATEST_CHECKPOINT_NAME = "epoch_latest"
 
 __all__ = ["RunState", "init_run", "setup_paths", "parse_aug_cfg", "setup_train",
            "prepare_params", "init_quant_state", "step", "pipeline", "load_params_only_into"]
-
-
-def _not_ported(what: str, item: int, title: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Queue 1, item {item} '{title}')")
-
-
-def check_ported(args: Args) -> None:
-    """Raise for a flag whose feature the port does not have yet: the int8
-    dots of ``--quant`` under a model axis above 1."""
-    if args.quant and args.mesh_model > 1:
-        raise _not_ported(f"--quant {args.quant} under --mesh-model {args.mesh_model}",
-                          8, "Parallel layers")
 
 
 def resolve_device(device: str, local_rank: int = 0) -> str:
@@ -524,7 +510,6 @@ def _evaluate_only(args, run, model, data, params, tcfg_val, stage, takes_text, 
 
 def pipeline(args: Args):
     """Two-stage dispatch; returns the last evaluation's metrics."""
-    check_ported(args)
     run = init_run(args)
     mesh = create_mesh(MeshSpec(fsdp=args.mesh_fsdp or 1, model=args.mesh_model or 1),
                        world=run.world_size, rank=run.rank)

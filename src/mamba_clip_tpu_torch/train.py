@@ -67,11 +67,13 @@ The fsdp and model axes (a mesh with ``fsdp`` or ``model`` above 1): the
 axis above is the mesh's batch axis (data × fsdp; the model peers of a
 batch index take the same rows and draws), and the state is sharded
 (``parallel/sharding.py``; :func:`create_train_state` with ``mesh=``
-places it). A step gathers the sharded parameters for its forwards and
-backwards (the model-sharded Dense kernels run column-parallel), keeps the
-whole gradients of ``--accum-freq``'s micro-batches, reduces each to its
-owner once (``reduce_grads``), and runs the global norm, the clipping and
-AdamW on the shards.
+places it). A step gathers the sharded parameters layer by layer, for
+each forward and again where its backward needs them (``per_layer``; the
+model-sharded Dense kernels run column-parallel, their ``--quant`` dots
+too); the backward reduce-scatters each fsdp leaf's gradient as it leaves
+its layer (``--accum-freq``'s micro-batches each, their shards summed),
+``reduce_grads`` averages the rest over the batch axis, and the global
+norm, the clipping and AdamW run on the shards.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ from .ops.preprocess import train_preprocess
 from .ops.qdot import commit_scales, delayed_holders, delayed_scales, scale_mode
 from .optim import AdamState, global_norm
 from .parallel.collectives import data_axis, gather_rows, mean_grads
-from .parallel.sharding import gathered, place_model, plan_of, reduce_grads
+from .parallel.sharding import per_layer, place_model, plan_of, reduce_grads
 from .utils.logging import get_logger
 from .utils.precision import LossScaleState, Policy, init_loss_scale, update_loss_scale
 
@@ -398,11 +400,11 @@ def make_clip_train_step(
         for p in params.values():
             p.grad = None
         plan = _plan(state, mesh)
-        with gathered(model):
+        with per_layer(model):
             out, loss = _forward_backward(dev, encode, buffers, ls_, images.shape[0])
-            grads = _collect_grads(params)
-            for p in params.values():
-                p.grad = None
+        grads = _collect_grads(params)
+        for p in params.values():
+            p.grad = None
         logit_scale = out["logit_scale"].detach().clone()
         for k, b in frozen_stats.items():
             buffers[k].copy_(b)
@@ -470,10 +472,9 @@ def make_clip_train_step(
         model.train()
         gens = step_generators(seed, state.step, batch["image"].device)
         images = _preprocess_train(batch["image"], gens["preprocess"], tcfg, policy)
-        with gathered(model):
-            _calibrate(model, holders, quant_keys,
-                       lambda: model(image=images, text=batch.get("tokens"),
-                                     generator=gens["dropout"]))
+        _calibrate(model, holders, quant_keys,
+                   lambda: model(image=images, text=batch.get("tokens"),
+                                 generator=gens["dropout"]))
         return state
 
     step_fn.calibrate_quant = calibrate_quant
@@ -544,7 +545,7 @@ def make_classifier_train_step(
             p.grad = None
         plan = _plan(state, mesh)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
-        with gathered(model):
+        with per_layer(model):
             for j in range(accum):
                 sl = slice(j * mb, (j + 1) * mb)
                 inputs = (images[sl], tokens[sl]) if takes_text else (images[sl],)
@@ -555,9 +556,9 @@ def make_classifier_train_step(
                     scaled.backward()
                 commit_scales(holders)
                 loss_sum += scaled.detach()
-            grads = _collect_grads(params)
-            for p in params.values():
-                p.grad = None
+        grads = _collect_grads(params)
+        for p in params.values():
+            p.grad = None
         grads = reduce_grads(grads, plan)
         if accum > 1:
             grads = {k: g / accum for k, g in grads.items()}
@@ -586,9 +587,8 @@ def make_classifier_train_step(
         gens = step_generators(seed, state.step, batch["image"].device)
         images = _preprocess_train(batch["image"], gens["preprocess"], tcfg, policy)
         inputs = (images, batch.get("tokens")) if takes_text else (images,)
-        with gathered(model):
-            _calibrate(model, holders, quant_keys,
-                       lambda: model(*inputs, generator=gens["dropout"]))
+        _calibrate(model, holders, quant_keys,
+                   lambda: model(*inputs, generator=gens["dropout"]))
         return state
 
     step_fn.calibrate_quant = calibrate_quant

@@ -147,12 +147,14 @@ def test_full_width_biomedclip_placements_match_jax(biomedclip, shape):
 # ---------------------------------------------------------------------------
 
 
-def _tiny_clip():
+def _tiny_clip(quant=None):
     from mamba_clip_tpu_torch.models import clip as tclip
     from mamba_clip_tpu_torch.models import text_bert as tbert
     from mamba_clip_tpu_torch.models import vit as tvit
+    from mamba_clip_tpu_torch.ops import quant as tquant
 
-    return tclip.ClipModel(tvit.VisionTransformer(**VIT), tbert.TextBert(**BERT))
+    kw = {} if quant is None else dict(dot_general_cls=tquant.make_dot_general_cls(quant))
+    return tclip.ClipModel(tvit.VisionTransformer(**VIT, **kw), tbert.TextBert(**BERT, **kw))
 
 
 def _clip_state(seed, mesh=None):
@@ -229,7 +231,7 @@ def _task_state(rank, world, tmp):
                       "epoch": epoch, "step": state4.step, "placements": plan4.placements,
                       "fsdp_index": mesh4.sub_axis("fsdp").rank}
     # the CLI's stage 1 with --mesh-fsdp 2 and 1, each rank with its own logs
-    tpipe.build_clip = lambda **kw: _tiny_clip()
+    tpipe.build_clip = lambda **kw: _tiny_clip(kw.get("quant"))
     tpipe.get_tokenizer = lambda name, **kw: HashTokenizer(16, 128)
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world))
     for fsdp in (2, 1):
@@ -244,6 +246,19 @@ def _task_state(rank, world, tmp):
         files = sorted(os.path.relpath(os.path.join(d, f), logs)
                        for d, _, fs in os.walk(logs) for f in fs) if os.path.isdir(logs) else []
         out[f"cli_fsdp{fsdp}"] = (m, files)
+    # --quant int8_delayed under --mesh-model 2: the delayed scales set from
+    # the init batch, calibrated at step 0 and committed over the model group
+    logs = os.path.join(tmp, "quant_model2", f"rank{rank}")
+    torch.manual_seed(rank)
+    argv = ["--model-stage-1", "tiny", "--batch-size", "4", "--epochs", "1",
+            "--train-num-samples", "32", "--val-num-samples", "16", "--lr", "1e-3",
+            "--warmup", "1", "--precision", "fp32", "--logs", logs, "--workers", "1",
+            "--force-image-size", str(IMAGE), "--synthetic-data", "--device", "cpu",
+            "--seed", "0", "--mesh-model", "2", "--stage", "1", "--quant", "int8_delayed"]
+    m = tpipe.pipeline(parse_args(argv))
+    files = sorted(os.path.relpath(os.path.join(d, f), logs)
+                   for d, _, fs in os.walk(logs) for f in fs) if os.path.isdir(logs) else []
+    out["cli_quant_model2"] = (m, files)
     return out
 
 
@@ -319,3 +334,17 @@ def test_cli_mesh_fsdp_two_over_four_ranks_writes_on_rank_zero(state_case):
     assert np.isfinite(m2["val_loss"])
     assert abs(m2["val_loss"] - m1["val_loss"]) <= 1e-5 * abs(m1["val_loss"])
 
+
+
+def test_cli_quant_under_mesh_model_two_over_four_ranks(state_case):
+    """``--quant int8_delayed --mesh-model 2`` through ``pipeline()`` over
+    four ranks (the int8 dots on column slices, the delayed scales from the
+    init batch, the calibration and the commits over the model group):
+    rank 0 writes the run, every rank gets the same finite metrics."""
+    ranks, _ = state_case
+    m0, f0 = ranks[0]["cli_quant_model2"]
+    for r in ranks[1:]:
+        m, f = r["cli_quant_model2"]
+        assert m == m0 and f == []
+    assert any(f.endswith("results.jsonl") for f in f0)
+    assert m0["num_samples"] == 16 and np.isfinite(m0["val_loss"])
