@@ -419,7 +419,24 @@ on failure:
    rank and a step on the tensor cores; ms a step, the collectives of the
    second step by kind and bytes (``count_collectives``), the peak and the
    state a rank against one process's. Prints a ``quant_mesh_axes`` line;
-27. prints the kernels line (twelve entries: the two scan kernels, the
+27. the tools (``flash_sweep``, ``parity_harness``, ``quant_parity``,
+   ``measure_report_tokens``, ``benchmark_e2e``), each through its module's
+   entry: ``flash_sweep`` times one interior's forward + backward at B 64,
+   h 12, T 256, hd 64, bf16 (einsum, the flash path, SDPA), then one flash
+   call must hold o, dq, dk and dv within 2e-2 of the einsum interior on the
+   same inputs with exactly one forward-with-residuals, one dk/dv and one
+   dq launch on the tensor cores; ``parity_harness`` default and
+   ``--stage2`` on the card must PASS their own gates, and
+   ``run_quant_stage1`` at a reduced step count (in the line) must give
+   finite losses, a last loss below the first and a pAUC in [0, 0.2] in
+   each mode; ``quant_parity``'s small CLIP in every mode at a reduced step
+   count and ``--full-width``'s four curves at 3 steps, every loss finite;
+   ``measure_report_tokens`` at 2,000 rows and 3 draws, its largest length
+   at most ``report_token_upper_bound``'s; ``benchmark_e2e --layout jpeg``
+   over a few hundred 256-px JPEGs at batch 64, the CLI's exit 0 and both
+   epochs' img/s finite and positive. Each part's seconds; a ``tools``
+   JSON line;
+28. prints the kernels line (twelve entries: the two scan kernels, the
    roofline's chain kernel, and each flash kernel as three entries, one a
    body and type: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
@@ -432,7 +449,7 @@ on failure:
    the ceilings phase 11 measured, its shares of both, and its instances;
    the forward's tensor-core entries are serving's pair, their training
    launches under ``training``; each scan entry with its instances; the
-   launches include phases 19-26's, those of phases 20 and 24-26's rank
+   launches include phases 19-27's, those of phases 20 and 24-26's rank
    processes counted there), then the device line last.
 
 ``--cards 4`` runs only the four-card run (it fails on fewer than 4
@@ -4190,6 +4207,122 @@ def decoder_phase(card, reset_counts, read_counts, flash_bodies):
     return line, tally.total, tally.total_bodies
 
 
+# phase 27: reduced depths of the tools (the full 600-step --quant-stage1 and
+# the 40-step --full-width run in a call of their own; PERF.md)
+TOOLS_QS1_STEPS = 30
+TOOLS_QP_STEPS = 3
+TOOLS_FULL_WIDTH_STEPS = 3
+TOOLS_E2E = {"n": 384, "src_px": 256, "batch": 64, "workers": 4}
+
+
+def tools_phase(card, reset_counts, read_counts, flash_bodies):
+    """Phase 27: the tools through their modules' entries, each gate as the
+    module docstring says. Returns (the ``tools`` line's fields, the
+    launches by counter, the flash launches by body)."""
+    import numpy as np
+    import torch
+
+    from mamba_clip_tpu_torch import (benchmark_e2e, flash_sweep, measure_report_tokens,
+                                      parity_harness, quant_parity)
+
+    tally = LaunchTally((reset_counts, read_counts, flash_bodies), "tools")
+    line = {"card": card}
+    t0 = time.perf_counter()
+
+    # flash_sweep: the three rows timed, then one flash call held against the
+    # einsum interior on the same inputs, its launches counted
+    sweep = flash_sweep.sweep("cuda")
+    q, k, v, w = flash_sweep.inputs(flash_sweep.SHAPE, torch.bfloat16, "cuda")
+    ref = flash_sweep.fwd_bwd("einsum", q, k, v, w)
+    got = tally("flash_sweep flash call",
+                lambda: flash_sweep.fwd_bwd("flash", q, k, v, w, impl="cuda"),
+                {"fwd": 1, "dkv": 1, "dq": 1})
+    errs = {name: float((g.float() - p.float()).abs().max() / p.float().abs().max())
+            for name, g, p in zip(("o", "loss", "dq", "dk", "dv"), got, ref) if name != "loss"}
+    sweep.update(max_rel_err=errs, flash_over_sdpa=sweep["flash_ms"] / sweep["sdpa_ms"],
+                 flash_over_einsum=sweep["flash_ms"] / sweep["einsum_ms"])
+    say(f"tools flash_sweep B=64 h=12 T=256 hd=64 bf16 ({sweep['flash_tiles']}): einsum "
+        f"{sweep['einsum_ms']:.3f} ms, flash {sweep['flash_ms']:.3f} ms, sdpa "
+        f"{sweep['sdpa_ms']:.3f} ms fwd+bwd; flash against einsum: " +
+        ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+    if not all(e <= ATTN_GATE["bf16"] for e in errs.values()):
+        fail(f"tools flash_sweep: the flash path disagrees with the einsum interior: {errs}")
+    del q, k, v, w, ref, got
+    line["flash_sweep"] = sweep
+    line["flash_sweep_s"] = time.perf_counter() - t0
+
+    # parity_harness: the default mode and --stage2 on the card under the
+    # tool's own gates, then --quant-stage1 at a reduced step count
+    t1 = time.perf_counter()
+    ph = {}
+    for name, argv in (("default", []), ("stage2", ["--stage2"])):
+        r, ok, _ = tally(f"parity_harness {name}",
+                         lambda argv=argv: parity_harness.run_mode(argv + ["--device", "cuda"]),
+                         {})
+        say(f"tools parity_harness {name}: {json.dumps(r)} PARITY: {'PASS' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"tools parity_harness {name}: FAIL under the tool's gate: {r}")
+        ph[name] = r
+    qs1 = tally("parity_harness --quant-stage1",
+                lambda: parity_harness.run_quant_stage1(steps=TOOLS_QS1_STEPS, device="cuda"),
+                {})
+    for mode, rec in qs1["modes"].items():
+        finite = all(np.isfinite(rec[k]) for k in
+                     ("stage1_first_loss", "stage1_final_loss", "head_final_loss", "pauc"))
+        if not (finite and rec["stage1_final_loss"] < rec["stage1_first_loss"]
+                and 0.0 <= rec["pauc"] <= 0.2):
+            fail(f"tools parity_harness --quant-stage1 at {TOOLS_QS1_STEPS} steps, {mode}: "
+                 f"{rec} (finite losses, the last below the first, pAUC in [0, 0.2])")
+    qs1["tool_gate_pass"] = parity_harness.quant_stage1_passes(qs1)
+    say(f"tools parity_harness --quant-stage1 at {TOOLS_QS1_STEPS} steps: {json.dumps(qs1)}")
+    ph["quant_stage1"] = qs1
+    line["parity_harness"] = ph
+    line["parity_harness_s"] = time.perf_counter() - t1
+
+    # quant_parity: the small CLIP in every mode, then --full-width
+    t2 = time.perf_counter()
+    curves, qp = tally("quant_parity", lambda: quant_parity.tiny(TOOLS_QP_STEPS, "cuda"), {})
+    bad = {n: c for n, c in curves.items() if not np.all(np.isfinite(c))}
+    if bad:
+        fail(f"tools quant_parity at {TOOLS_QP_STEPS} steps: non-finite losses {bad}")
+    say(f"tools quant_parity at {TOOLS_QP_STEPS} steps: {json.dumps(qp)}")
+    t3 = time.perf_counter()
+    fw = tally("quant_parity --full-width",
+               lambda: quant_parity.full_width(TOOLS_FULL_WIDTH_STEPS, "cuda"), {})
+    if not all(np.isfinite(v) for c in fw.values() if isinstance(c, dict) for v in c.values()):
+        fail(f"tools quant_parity --full-width: non-finite {fw}")
+    say(f"tools quant_parity --full-width at {TOOLS_FULL_WIDTH_STEPS} steps: {json.dumps(fw)}")
+    line["quant_parity"] = {"tiny": qp, "full_width": fw, "tiny_s": t3 - t2,
+                            "full_width_s": time.perf_counter() - t3}
+
+    # measure_report_tokens at the JAX tool's defaults
+    t4 = time.perf_counter()
+    rt = measure_report_tokens.measure(2000, 3, 0)
+    if not rt["observed"]["max"] <= rt["exact_upper_bound"]["max"]:
+        fail(f"tools measure_report_tokens: the largest length {rt['observed']['max']} is above "
+             f"report_token_upper_bound's {rt['exact_upper_bound']['max']}")
+    say(f"tools measure_report_tokens: {json.dumps(rt)}")
+    line["report_tokens"] = rt
+    line["report_tokens_s"] = time.perf_counter() - t4
+
+    # benchmark_e2e over the JPEG layout: the port's CLI in a process of its
+    # own (its launches are that process's)
+    t5 = time.perf_counter()
+    e2e = benchmark_e2e.run(TOOLS_E2E["n"], TOOLS_E2E["src_px"], TOOLS_E2E["batch"],
+                            TOOLS_E2E["workers"], False, layout="jpeg", device="cuda")
+    rates = (e2e["epoch1_img_s"], e2e["epoch2_img_s"])
+    if not all(np.isfinite(r) and r > 0 for r in rates):
+        fail(f"tools benchmark_e2e --layout jpeg: epoch rates {rates} (finite, positive)")
+    say(f"tools benchmark_e2e --layout jpeg: {json.dumps(e2e)}")
+    line["benchmark_e2e"] = dict(e2e, layout="jpeg")
+    line["benchmark_e2e_s"] = time.perf_counter() - t5
+    line["reduced"] = {"quant_stage1_steps": TOOLS_QS1_STEPS,
+                       "quant_parity_steps": TOOLS_QP_STEPS,
+                       "full_width_steps": TOOLS_FULL_WIDTH_STEPS,
+                       "benchmark_e2e": TOOLS_E2E}
+    return line, tally.total, tally.total_bodies
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one card.")
     ap.add_argument("--clip-check-seeds", type=int, nargs="+", default=None,
@@ -5907,7 +6040,16 @@ def main(argv=None) -> None:
     qm_line["phase_s"] = time.perf_counter() - t26
     say(json.dumps({"quant_mesh_axes": qm_line}))
 
-    # 27. kernels line, then the device line. Each attention kernel as three
+    # 27. the tools: flash_sweep (its flash call counted), parity_harness,
+    # quant_parity, measure_report_tokens and benchmark_e2e through the CLI
+    gc.collect()
+    torch.cuda.empty_cache()
+    t27 = time.perf_counter()
+    tools_line, _, tools_bodies = tools_phase(card, reset_counts, read_counts, flash_bodies)
+    tools_line["phase_s"] = time.perf_counter() - t27
+    say(json.dumps({"tools": tools_line}))
+
+    # 28. kernels line, then the device line. Each attention kernel as three
     # entries, one a body and type: the tensor cores in bf16 (what serving and
     # training under amp and pure_bf16 run, its launches from the main path),
     # the tensor cores in fp16 (training under fp16 and pure_fp16, its
@@ -5929,19 +6071,21 @@ def main(argv=None) -> None:
                    "quant": quant_bodies, "aqt": aqt_bodies, "data_axis": axis_bodies,
                    "hpo": hpo_bodies, "utilities": util_bodies, "decoder": dec_bodies,
                    "mesh_axes": mesh_bodies, "gpipe": sp_bodies, "quant_mesh_axes": qm_bodies,
+                   "tools": tools_bodies,
                    # phase 18's bf16 launches; its fp16 ones are the fp16 entries'
                    "precision": {k: {"tensor_cores": by["tensor_cores"] - fp16_launches[k],
                                      "cuda_cores": by["cuda_cores"]}
                                  for k, by in prec_bodies.items()}}
     main_paths = {"fwd": ("clip_serve", "clip_train", "epoch_stage1", "epoch_stage2", "cli",
                           "serving_http", "real_data", "quant", "precision", "aqt",
-                          "data_axis", "utilities", "mesh_axes", "gpipe", "quant_mesh_axes"),
+                          "data_axis", "utilities", "mesh_axes", "gpipe", "quant_mesh_axes",
+                          "tools"),
                   "dkv": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
                           "precision", "aqt", "data_axis", "utilities", "mesh_axes", "gpipe",
-                          "quant_mesh_axes"),
+                          "quant_mesh_axes", "tools"),
                   "dq": ("clip_train", "epoch_stage1", "cli", "real_data", "quant",
                          "precision", "aqt", "data_axis", "utilities", "mesh_axes", "gpipe",
-                         "quant_mesh_axes")}
+                         "quant_mesh_axes", "tools")}
     flash_launches = {key: {"tensor_cores": sum(flash_paths[p][key]["tensor_cores"]
                                                 for p in paths),
                             "tensor_cores_fp16": fp16_launches[key],

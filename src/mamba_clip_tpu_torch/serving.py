@@ -459,16 +459,19 @@ def load_serving(out_dir: str, device: str | torch.device = "cuda",
     else:
         fns = {name: _sharded_entry(name, [replicas[d][name] for d in devices], devices)
                for name in replicas[devices[0]]}
-    # a text -> token-ids callable matching the artifact's tokenizer
+    # a text -> token-ids callable matching the artifact's tokenizer; the hash
+    # tokenizer's ids stay below the text tower's vocabulary
     tok = manifest.get("tokenizer") or {}
     if "text_embed" in fns:
-        from .data.tokenizer import get_tokenizer
+        from .data.tokenizer import HashTokenizer, get_tokenizer
 
-        name_or_path = (os.path.join(out_dir, tok["dir"])
-                        if tok.get("type") == "wordpiece" else "hash")
-        fns["tokenize"] = get_tokenizer(
-            name_or_path, context_length=int(tok.get("context_length", 256)),
-            require_real=tok.get("type") == "wordpiece")
+        context_length = int(tok.get("context_length", 256))
+        if tok.get("type") == "wordpiece":
+            fns["tokenize"] = get_tokenizer(os.path.join(out_dir, tok["dir"]),
+                                            context_length=context_length, require_real=True)
+        else:
+            fns["tokenize"] = HashTokenizer(context_length=context_length,
+                                            vocab_size=int(m["vocab_size"]))
     return {"manifest": manifest, **fns}
 
 

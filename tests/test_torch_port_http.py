@@ -306,3 +306,49 @@ def test_bench_infer_artifact_mode(arts, capsys, monkeypatch):
         "infer_artifact_text_embed_images_per_sec_per_chip"}
     assert all(ln["value"] > 0 and ln["batch"] == 2 and ln["device"] == "cpu"
                and ln["unit"] == "images/sec/chip" for ln in lines)
+
+
+def test_hash_tokenizer_keeps_the_artifacts_vocabulary(tmp_path, monkeypatch):
+    """A loaded artifact's hash tokenizer draws its ids below the text
+    tower's vocabulary (the manifest's ``vocab_size``): at vocab 128 every
+    id is below 128 and the host answers ``/embed_text`` with a 200 of
+    finite embeddings (it answered a 400 ``IndexError`` when the tokenizer
+    took BERT's 30,522); at the default vocabulary the tokens are JAX's
+    bit for bit. Small towers stand in for the full-width ones."""
+    from mamba_clip_tpu.data.tokenizer import get_tokenizer as jax_get_tokenizer
+    from mamba_clip_tpu_torch import serving
+    from mamba_clip_tpu_torch.models.clip import ClipModel
+    from mamba_clip_tpu_torch.models.text_bert import TextBert
+    from mamba_clip_tpu_torch.models.vit import VisionTransformer
+
+    def small(model_name=None, image_size=32, context_length=16, vocab_size=30522,
+              dtype=torch.float32, attn_flash=False, generator=None, **kw):
+        tower = dict(width=32, depth=1, num_heads=2, embed_dim=16, dtype=dtype,
+                     attn_flash=attn_flash, generator=generator)
+        return ClipModel(VisionTransformer(image_size=image_size, patch_size=16, **tower),
+                         TextBert(vocab_size=vocab_size, context_length=context_length,
+                                  **tower))
+
+    monkeypatch.setattr(serving, "build_clip", small)
+    texts = TEXTS + [" ".join(f"word{i}" for i in range(40))]
+    for vocab in (128, 30522):
+        d = str(tmp_path / f"v{vocab}")
+        export_serving(d, "biomedclip", is_clip=True, context_length=16, vocab_size=vocab,
+                       generator=torch.Generator().manual_seed(0), **KW)
+        served = load_serving(d, device="cpu")
+        ids = served["tokenize"](texts)
+        assert ids.shape == (3, 16) and int(ids.max()) < vocab
+        emb = served["text_embed"](ids)
+        assert emb.shape == (3, 16) and bool(torch.isfinite(emb).all())
+        if vocab == 30522:
+            np.testing.assert_array_equal(ids, jax_get_tokenizer("hash", context_length=16)(texts))
+            continue
+        assert int(ids.max()) > 4  # hashed words, not only the special ids
+        srv = _start(serve_http.make_server(d, port=0, max_batch=1, device="cpu"))
+        try:
+            status, out = _request(srv, "POST", "/embed_text", json.dumps({"texts": texts}))
+        finally:
+            _stop(srv)
+        assert status == 200, out
+        got = np.asarray(json.loads(out)["embeddings"], np.float32)
+        np.testing.assert_array_equal(got, emb.numpy())
