@@ -48,10 +48,10 @@ on failure:
 7. flash kernel against plain: first each instance of the forward that
    phase 2 built (at hd 32, 64, 128: the tensor-core body in its bf16 and
    its fp16 instance, which bf16 and fp16 run with and without residuals,
-   and the CUDA-core body, which fp32 runs), with ptxas' registers and
+   and the 3xTF32 body, which fp32 runs), with ptxas' registers and
    spills, its shared memory a block and the ``HMMA`` instructions in its
-   SASS (``cuobjdump -sass``); every tensor-core instance must hold some, or
-   the phase fails. Then
+   SASS (``cuobjdump -sass``); every instance, fp32's too, must hold some,
+   or the phase fails. Then
    ``flash_attn_fwd`` against the plain
    (einsum) interior at h = 12, hd = 64, batch 2: T = 197 unmasked; T = 256
    with a prefix, a non-prefix, a one-key and an all-masked key row; the
@@ -77,11 +77,14 @@ on failure:
    launches and no flash launch, its ``text_embed`` 12 flash launches;
    then image/s and texts/s at batch 64, flash and einsum;
 9. flash backward kernels against plain: first each instance of the two
-   backward kernels, as phase 7 lists the forward's (a tensor-core instance
-   without ``HMMA`` fails). Then ``flash_attn_bwd_dq`` and
+   backward kernels, as phase 7 lists the forward's (a bf16 or fp16
+   instance, or an fp32 dk/dv instance, without ``HMMA`` fails; the fp32 dq
+   body runs on the CUDA cores and reports its count). Then
+   ``flash_attn_bwd_dq`` and
    ``flash_attn_bwd_dkv`` against ``attention_plain_bwd`` at the shapes of
    phase 7 (the one-key and the all-masked row beside a non-prefix row,
-   since their own dq and dk vanish), fp32 on the CUDA-core bodies and bf16
+   since their own dq and dk vanish), fp32 on the 3xTF32 dk/dv body and the
+   CUDA-core dq body, and bf16
    and fp16 on the tensor-core bodies, each gradient at
    max|g_k - g_p| / max|g_p| <= 5e-4 (fp32) and 2e-2 (bf16 and fp16: the
    plain backward rounds p, dp and ds to the type, the kernels round p once
@@ -96,8 +99,10 @@ on failure:
    scale whose fp16 rounding overflows in two rows; dq, dk and dv of the
    kernels must be non-finite exactly where the plain backward's are (some
    of each), nothing clamped. Then, at batch 64 at the ViT and BERT shapes,
-   in bf16 and fp16 (tensor cores) and fp32 (CUDA cores), the forward with
-   residuals and both backward kernels are timed beside their bounds, the
+   in bf16 and fp16 (tensor cores) and fp32 (3xTF32 forward and dk/dv,
+   CUDA-core dq), the forward with residuals and both backward kernels are
+   timed beside their bounds (fp32's forward and dk/dv beside the 3xTF32
+   bound and the fp32 FMA one), the
    plain forward and backward, and the forward (with its residuals, as
    training calls it) and backward of ``F.scaled_dot_product_attention`` in
    the same type;
@@ -125,8 +130,9 @@ on failure:
    kernels differ, and (c) the grad norm against the plain step's, printed
    and not gated (one rounding of o moves di, and at random init dq is a
    small remainder of its size: PERF.md, Findings). One fp32 step under the
-   same gates runs the CUDA-core bodies (24 + 24 + 24 launches, every one
-   on the CUDA cores); one step with ``accum_freq=2`` and
+   same gates runs the fp32 bodies (24 + 24 + 24 launches, every one
+   counted under ``cuda_cores``, the key that names the fp32 body); one
+   step with ``accum_freq=2`` and
    ``grad_checkpointing``
    (144 forward launches: 2 micro-batches x 24 in the no-grad bank pass, and
    x 24 x 2 in the graded pass, whose checkpoints run each forward again;
@@ -441,8 +447,9 @@ on failure:
    body and type: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
    from the main path, ``..._fp16`` on the tensor cores, whose launches come
-   from phase 18's fp16 steps, and ``..._cuda_cores``, fp32, whose launches
-   come from phase 10's fp32 step; the main path's launches include phases
+   from phase 18's fp16 steps, and ``..._cuda_cores``, fp32 (3xTF32 on the
+   tensor cores for the forward and dk/dv, the CUDA cores for dq), whose
+   launches come from phase 10's fp32 step; the main path's launches include phases
    14, 15, 16, 17 and 18's; a body launched no time fails. Each flash
    entry is timed at the towers' shapes in its type beside the plain
    version and the library's, with its bound from the data sheet and from
@@ -856,7 +863,7 @@ def check_cli_steps(rec, what, n, want_step, want_eval, eval_batches):
                  f"{eval_batches} x {want_eval}")
     tc = [st["bodies"] for st in rec["steps"]] + [ev["bodies"] for ev in rec["evals"]]
     if any(b["cuda_cores"] for by in tc for b in by.values()):
-        fail(f"cli {what}: a flash launch on the CUDA cores: {tc}")
+        fail(f"cli {what}: a flash launch on the fp32 body: {tc}")
     if not all(np.isfinite(st["loss"]) for st in rec["steps"]):
         fail(f"cli {what}: losses {[st['loss'] for st in rec['steps']]}")
 
@@ -4384,8 +4391,9 @@ def main(argv=None) -> None:
     from mamba_clip_tpu_torch.models import ClipClassifier
     from mamba_clip_tpu_torch.ops.vpu_chain import vpu_chain, vpu_chain_plain
     from mamba_clip_tpu_torch.optim import build_optimizer, freeze_submodule_mask
-    from mamba_clip_tpu_torch.roofline import (FP32_FLOPS, HBM_BYTES_PER_S, attn_bound,
-                                               scan_bound, scan_bwd_bound, sfu_peak)
+    from mamba_clip_tpu_torch.roofline import (FP32_FLOPS, HBM_BYTES_PER_S, TF32_TC_FLOPS,
+                                               attn_bound, scan_bound, scan_bwd_bound,
+                                               sfu_peak)
     from mamba_clip_tpu_torch.schedules import create_schedule
     from mamba_clip_tpu_torch.train import (create_train_state, make_classifier_train_step,
                                             make_clip_train_step, train_one_epoch)
@@ -4799,13 +4807,15 @@ def main(argv=None) -> None:
 
     # 7. flash kernel against plain. First what was built: ptxas' registers,
     # spills and shared memory of each instance of the forward, and the
-    # tensor-core instructions in the bf16 instances' SASS
-    def instances(library, pattern, smem_of):
+    # tensor-core instructions in each instance's SASS
+    def instances(library, pattern, smem_of, tf32_kernels):
         """Each kernel instance of a built library: ptxas' registers and
-        spills, its shared memory a block (``smem_of(kernel, hd)`` for the
-        dynamic shared memory of a tensor-core body, else the static) and
-        the HMMA instructions in its SASS, by "<kernel> <body> hd<HD>": the
-        tensor-core body's bf16 and fp16 instances, the CUDA cores' fp32."""
+        spills, its shared memory a block (the static plus
+        ``smem_of(kernel, elem, hd)``, the body's dynamic shared memory or
+        None) and the HMMA instructions in its SASS, by "<kernel> <body>
+        hd<HD>": the tensor-core body's bf16 and fp16 instances and the fp32
+        one, 3xTF32 on the tensor cores for ``tf32_kernels``, else on the
+        CUDA cores. Every bf16, fp16 and 3xTF32 instance must hold HMMA."""
         report = cuda_build.ptxas_report(cuda_build.build_logs.get(library, ""))
         hmma = cuda_build.sass_counts(cuda_build.library_path(library), "HMMA")
         types = {"13__nv_bfloat16": "bf16", "6__half": "fp16"}
@@ -4815,11 +4825,13 @@ def main(argv=None) -> None:
             if inst is None:
                 continue
             kernel, elem, hd = inst.group(1), types.get(inst.group(2)), int(inst.group(3))
-            body = f"{elem} tensor cores" if elem else "fp32 CUDA cores"
+            body = (f"{elem} tensor cores" if elem else
+                    "fp32 3xTF32 tensor cores" if kernel in tf32_kernels else "fp32 CUDA cores")
+            dyn = smem_of(kernel, elem or "fp32", hd)
             out[f"{kernel} {body} hd{hd}"] = {
                 "registers": rep["registers"], "spill_stores": rep["spill_stores"],
                 "spill_loads": rep["spill_loads"],
-                "smem_bytes": smem_of(kernel, hd) if elem else rep["static_smem"],
+                "smem_bytes": rep["static_smem"] + (dyn or 0),
                 "hmma": hmma.get(mangled, 0)}
         for name, inst in sorted(out.items()):
             say(f"{library} {name}: {inst['registers']} registers, spills "
@@ -4831,15 +4843,22 @@ def main(argv=None) -> None:
                 fail(f"{library}: {elem} runs on the tensor cores, so each of its {elem} "
                      f"instances needs HMMA in its SASS, beside one bf16, fp16 and fp32 "
                      f"instance each ({out})")
+        tf32_hmma = [v["hmma"] for k, v in out.items() if "3xTF32" in k]
+        if len(tf32_hmma) != 3 * len(tf32_kernels) or min(tf32_hmma, default=0) == 0:
+            fail(f"{library}: the fp32 bodies of {sorted(tf32_kernels)} take their products "
+                 f"on the tensor cores as 3xTF32, so each of their fp32 instances needs HMMA "
+                 f"in its SASS ({out})")
         return out
 
     fwd_lib = cuda_build.load("flash_attn_fwd")
     fwd_instances = instances(
         "flash_attn_fwd", r"(flash_attn_fwd)_(?:tc_)?kernelI(13__nv_bfloat16|6__half)?Li(\d+)E",
-        lambda _, hd: fwd_lib.flash_attn_fwd_tc_smem_bytes(hd))
+        lambda _, elem, hd: (fwd_lib.flash_attn_fwd_f32_smem_bytes(hd) if elem == "fp32"
+                             else fwd_lib.flash_attn_fwd_tc_smem_bytes(hd)),
+        {"flash_attn_fwd"})
     if len(fwd_instances) != 9:
         fail(f"flash_attn_fwd: expected 9 instances (hd 32, 64, 128 of the tensor-core "
-             f"body in bf16 and fp16, and of the CUDA-core body), got "
+             f"body in bf16 and fp16, and of the 3xTF32 body), got "
              f"{sorted(fwd_instances)}")
 
     def attn_inputs(Bsz, T, h, hd, dtype, valid=None, seed=0):
@@ -4867,10 +4886,12 @@ def main(argv=None) -> None:
                 out[i] = False
         return out
 
-    # the two bodies of each flash kernel: the tensor cores run bf16 and fp16
-    # (with and without the forward's residuals), the CUDA cores fp32; each
-    # body counts its launches, and each type of it keeps its own worst
-    # errors ("tensor_cores" bf16, "tensor_cores_fp16", "cuda_cores")
+    # the two bodies of each flash kernel: the tensor-core body runs bf16 and
+    # fp16 (with and without the forward's residuals), the fp32 body fp32
+    # (3xTF32 on the tensor cores in the forward and dk/dv, the CUDA cores in
+    # dq); each body counts its launches, "cuda_cores" naming the fp32 body,
+    # and each type of it keeps its own worst errors ("tensor_cores" bf16,
+    # "tensor_cores_fp16", "cuda_cores")
     flash_wrappers = {"fwd": flash_attn_fwd, "dkv": flash_attn_bwd_dkv, "dq": flash_attn_bwd_dq}
     flash_types = ((torch.float32, "fp32"), (torch.bfloat16, "bf16"), (torch.float16, "fp16"))
     VARIANTS = ("tensor_cores", "tensor_cores_fp16", "cuda_cores")
@@ -5141,11 +5162,15 @@ def main(argv=None) -> None:
         "flash_attn_bwd",
         r"(flash_attn_bwd_dkv|flash_attn_bwd_dq)_(?:tc_)?kernelI(13__nv_bfloat16|6__half)?"
         r"Li(\d+)E",
-        lambda kernel, hd: bwd_lib.flash_attn_bwd_tc_smem_bytes(int(kernel.endswith("dq")), hd))
+        lambda kernel, elem, hd: (
+            bwd_lib.flash_attn_bwd_tc_smem_bytes(int(kernel.endswith("dq")), hd)
+            if elem != "fp32" else
+            bwd_lib.flash_attn_bwd_dkv_f32_smem_bytes(hd) if kernel.endswith("dkv") else None),
+        {"flash_attn_bwd_dkv"})
     if len(bwd_instances) != 18:
         fail(f"flash_attn_bwd: expected 18 instances (dk/dv and dq at hd 32, 64, 128 of the "
-             f"tensor-core body in bf16 and fp16 and of the CUDA-core body), got "
-             f"{sorted(bwd_instances)}")
+             f"tensor-core body in bf16 and fp16 and of the fp32 body: 3xTF32 dk/dv, "
+             f"CUDA-core dq), got {sorted(bwd_instances)}")
 
     def plain_residuals(q, k, mask, sm):
         sc = torch.matmul(q.transpose(1, 2).float(), k.permute(0, 2, 3, 1).float()) * sm
@@ -5260,13 +5285,17 @@ def main(argv=None) -> None:
 
     # at the training batch (64), the ViT and BERT shapes: bf16 and fp16 on
     # the tensor cores (training under amp, pure_bf16; fp16, pure_fp16), fp32
-    # on the CUDA cores; each beside the plain forward and backward and the
-    # library's, in the same type. The operations of an fp32 body are bound
-    # by the fp32 rate outside the tensor cores.
+    # in 3xTF32 on the tensor cores (forward, dk/dv) and on the CUDA cores
+    # (dq); each beside the plain forward and backward and the library's, in
+    # the same type. The operations of the fp32 forward and dk/dv are bound
+    # by the tensor cores at a third of the TF32 rate (three products a
+    # product), printed beside the fp32 FMA bound of the same work; dq's by
+    # the fp32 rate outside the tensor cores.
+    tf32_rate, fma_rate = {"tc_rate": TF32_TC_FLOPS / 3}, {"tc_rate": FP32_FLOPS}
     bwd_shapes_attn = {v: {} for v in VARIANTS}
     for dtype, name in flash_types:
         body, itemsize = variant_of(dtype), dtype.itemsize
-        rate = {} if dtype != torch.float32 else {"tc_rate": FP32_FLOPS}
+        fp32 = dtype == torch.float32
         for tower, T, valid in (("vit", 197, None),
                                 ("bert", 256, report_tokens(64) != HashTokenizer.PAD)):
             q, k, v, mask, key_mask, do = flash_bwd_inputs(64, T, 12, 64, dtype, valid, 5)
@@ -5293,16 +5322,25 @@ def main(argv=None) -> None:
             ms_l = cuda_ms(lambda: torch.autograd.grad(o_l, (qt, kt, vt), do_l,
                                                        retain_graph=True), 20)
             masked = valid is not None
-            b_kv = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, tensors=6, stats=3,
-                              products=4, **rate)
+            kw_f = dict(stats=2)
+            kw_kv = dict(tensors=6, stats=3, products=4)
+            b_kv = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, **kw_kv,
+                              **(tf32_rate if fp32 else {}))
             b_q = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, tensors=5, stats=3,
-                             products=3, **rate)
-            b_f = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, stats=2, **rate)
+                             products=3, **(fma_rate if fp32 else {}))
+            b_f = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, **kw_f,
+                             **(tf32_rate if fp32 else {}))
+            fma = {}
+            if fp32:  # the same work at the fp32 FMA rate
+                for key, kw in (("fwd", kw_f), ("dkv", kw_kv)):
+                    fma[key] = {"fma_bound_ms": attn_bound(64, T, 12, 64, itemsize, masked,
+                                                           sfu_rate, **kw, **fma_rate)["bound_ms"]}
             bwd_shapes_attn[body][tower] = {
                 "B": 64, "T": T, "h": 12, "hd": 64, "dtype": name, "masked": masked,
                 "launches_per_step": 12,
-                "fwd": {"ms": ms_f, "plain_ms": ms_pf, "library_ms": ms_lf, **b_f},
-                "dkv": {"ms": ms_kv, **b_kv}, "dq": {"ms": ms_q, **b_q},
+                "fwd": {"ms": ms_f, "plain_ms": ms_pf, "library_ms": ms_lf, **b_f,
+                        **fma.get("fwd", {})},
+                "dkv": {"ms": ms_kv, **b_kv, **fma.get("dkv", {})}, "dq": {"ms": ms_q, **b_q},
                 "plain_bwd_ms": ms_p, "library_bwd_ms": ms_l,
                 "max_rel_err": max(r for r, _ in errs)}
             say(f"flash bwd B=64 T={T} {name} ({tower}, {body}): dk/dv {ms_kv:.4f} ms (bound "
@@ -5310,7 +5348,10 @@ def main(argv=None) -> None:
                 f"{b_q['bound_ms']:.4f}, {b_q['bound_by']}), forward with residuals "
                 f"{ms_f:.4f} ms (bound {b_f['bound_ms']:.4f}, plain {ms_pf:.4f}, "
                 f"scaled_dot_product_attention {ms_lf:.4f}), plain backward {ms_p:.4f} ms, "
-                f"scaled_dot_product_attention backward {ms_l:.4f} ms")
+                f"scaled_dot_product_attention backward {ms_l:.4f} ms"
+                + (f"; the forward's and dk/dv's bounds are 3xTF32's, at the fp32 FMA rate "
+                   f"{fma['fwd']['fma_bound_ms']:.4f} and {fma['dkv']['fma_bound_ms']:.4f} ms"
+                   if fp32 else ""))
             del q, k, v, do, g_k, res, qt, kt, vt, o_l, do_l
     say(json.dumps({"flash_attn_bwd_shapes": bwd_shapes_attn, "card": card}))
     flash_ms_per_step = {key: sum(12 * sh[key]["ms"]
@@ -5460,8 +5501,9 @@ def main(argv=None) -> None:
     if not all(r["ok"] for r in clip_check):
         fail(f"the clip train step with the kernels differs from the plain interiors beyond "
              f"{CLIP_TRAIN_REL:g}: (a) loss or (b) grad norm, {clip_check}")
-    # one fp32 step: the CUDA-core bodies through the normal entry point,
-    # under the same gates; their main path, so its launches are counted
+    # one fp32 step: the fp32 bodies (3xTF32 forward and dk/dv, CUDA-core dq)
+    # through the normal entry point, under the same gates; their main path,
+    # so its launches are counted
     fp32_check = clip_step_check(1, precision="fp32", steps=1,
                                  counted=(reset_counts, lambda: (read_counts(), flash_bodies())))
     say_clip_step(fp32_check[0])
@@ -5473,7 +5515,7 @@ def main(argv=None) -> None:
     if (fp32_counts != {"fwd": 24, "dkv": 24, "dq": 24, "scan_fwd": 0, "scan_bwd": 0}
             or any(b != {"tensor_cores": 0, "cuda_cores": 24} for b in fp32_bodies.values())):
         fail(f"the fp32 clip train step: launches {fp32_counts}, by body {fp32_bodies}; "
-             "expected 24 + 24 + 24, every one on the CUDA cores")
+             "expected 24 + 24 + 24, every one on the fp32 body (counted as cuda_cores)")
 
     # accum_freq=2 with grad_checkpointing: the bank pass and the recomputes launch too
     st, fn, bs = clip_train_setup(8, seed=1, grad_checkpointing=True, accum_freq=2)
@@ -6053,7 +6095,8 @@ def main(argv=None) -> None:
     # entries, one a body and type: the tensor cores in bf16 (what serving and
     # training under amp and pure_bf16 run, its launches from the main path),
     # the tensor cores in fp16 (training under fp16 and pure_fp16, its
-    # launches from phase 18's fp16 steps) and the CUDA cores (fp32, its
+    # launches from phase 18's fp16 steps) and the fp32 body (3xTF32 on the
+    # tensor cores in the forward and dk/dv, the CUDA cores in dq; its
     # launches from phase 10's fp32 step), each timed at the towers' shapes in
     # its own type (phase 7 serving's forward, phase 9 the rest)
     def by_bound(shapes):
@@ -6093,10 +6136,10 @@ def main(argv=None) -> None:
                       for key, paths in main_paths.items()}
     if any(n == 0 for by in flash_launches.values() for n in by.values()):
         fail(f"a flash body was launched no time: {flash_launches} (the tensor cores on the "
-             "main path in bf16 and in phase 18's fp16 steps, the CUDA cores in the fp32 step)")
+             "main path in bf16 and in phase 18's fp16 steps, the fp32 body in the fp32 step)")
     # the attention kernels' bounds again from the ceilings phase 11 measured
-    # (HBM, exp and the fp32 FMA rate; the tensor cores' rate stays the data
-    # sheet's)
+    # (HBM, exp and the fp32 FMA rate; the tensor cores' rate, TF32's for the
+    # fp32 forward and dk/dv too, stays the data sheet's)
     attn_m = {"sfu_rate": measured["sfu_rate"], "hbm_rate": measured["hbm_rate"]}
     bound_kw = {"fwd": dict(stats=2), "dkv": dict(tensors=6, stats=3, products=4),
                 "dq": dict(tensors=5, stats=3, products=3)}
@@ -6110,14 +6153,19 @@ def main(argv=None) -> None:
         return [{**sh[key], "plain_ms": sh["plain_bwd_ms"], "library_ms": sh["library_bwd_ms"],
                  "T": sh["T"], "masked": sh["masked"]} for sh in bwd_shapes_attn[body].values()]
 
-    def attn_times(rows, tc, kw):
+    def attn_times(rows, tc, kw, tf32=False):
         """ms, plain, bound and library ms per 12 + 12 launches at batch 64
         (a train step's, or an image_embed and a text_embed), and the shares
-        of the data-sheet and the measured bounds."""
+        of the data-sheet and the measured bounds. ``tf32``: an fp32 body in
+        3xTF32, bound by the tensor cores at a third of the TF32 rate, its
+        fp32 FMA bound beside."""
         out = {k: sum(12 * r[k] for r in rows)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         out["bound_by"] = by_bound(rows)
-        rate = {} if tc else {"tc_rate": measured["fp32_rate"]}
+        if tf32:
+            out["fp32_fma_bound_ms"] = sum(12 * r["fma_bound_ms"] for r in rows)
+        rate = ({} if tc else {"tc_rate": TF32_TC_FLOPS / 3} if tf32
+                else {"tc_rate": measured["fp32_rate"]})
         meas = sum(12 * attn_bound(64, r["T"], 12, 64, 2 if tc else 4, r["masked"], **attn_m,
                                    **kw, **rate)["bound_ms"] for r in rows)
         out.update(bound_ms_measured=meas, share_of_bound_datasheet=out["bound_ms"] / out["ms"],
@@ -6131,7 +6179,8 @@ def main(argv=None) -> None:
                              "mma.sync on the tensor cores", "bf16"),
         "tensor_cores_fp16": ("_fp16", "fp16 (training and evaluation under fp16 and "
                                        "pure_fp16), mma.sync .f16 on the tensor cores", "fp16"),
-        "cuda_cores": ("_cuda_cores", "fp32, on the CUDA cores", "fp32")}
+        "cuda_cores": ("_cuda_cores", "fp32 (training and evaluation under fp32), 3xTF32 "
+                                      "mma.sync .tf32 on the tensor cores", "fp32")}
     attn_entries = []
     for key, name, source, replaces in (
             ("fwd", "flash_attn_fwd", "flash_attn_fwd.cu", "src/mamba_clip_tpu/ops/flash_attn.py:75"),
@@ -6144,7 +6193,10 @@ def main(argv=None) -> None:
         for body in ("tensor_cores", "tensor_cores_fp16", "cuda_cores"):
             tc = body != "cuda_cores"
             suffix, what, elem = bodies_of_entry[body]
-            times = attn_times(attn_rows(key, body), tc, bound_kw[key])
+            if body == "cuda_cores" and key == "dq":
+                what = "fp32 (training under fp32), on the CUDA cores"
+            times = attn_times(attn_rows(key, body), tc, bound_kw[key],
+                               tf32=not tc and key != "dq")
             by_path = ({p: c[key]["tensor_cores" if tc else body] for p, c in flash_paths.items()}
                        if body != "tensor_cores_fp16" else {"precision": fp16_launches[key]})
             entry = {

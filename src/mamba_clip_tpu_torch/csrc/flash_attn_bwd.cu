@@ -78,14 +78,36 @@
 // 5 rows. The epilogues round dQ, dK and dV once and write each warp's rows
 // through shared memory with 16-byte stores.
 //
-// The CUDA-core bodies run fp32: a row belongs to HD/32 neighbouring lanes,
-// each holding 32 of its dims of the block's own rows (k_j, v_j and the
-// accumulators of dk_j, dv_j; or q_t, do_t and dq_t) in registers, and the
-// other side's tiles (64 rows, 32 at HD 128) are staged in shared memory as
-// fp32; per row of a tile a lane takes its part of q.k and do.v, joins them
-// with its row's other lanes by shuffles and adds p*do_t and ds*q_t (or
-// ds*k_j) to its accumulators. All their arithmetic is fp32, in the order of
-// the fp32 forward, whose scores they recompute bit for bit.
+// fp32 runs two other bodies:
+// - dk/dv (flash_attn_bwd_dkv_kernel) in 3xTF32 on the tensor cores
+//   (flash_attn_common.cuh: mma.sync m16n8k8 .tf32, each operand split into
+//   hi and lo, lo.hi + hi.lo + hi.hi into fp32 accumulators), in the
+//   tensor-core body's shape on fp32 tiles (F32BwdCfg): a warp owns 16 key
+//   rows, takes the four products transposed (S^T = K Q^T, dV += P^T dO,
+//   dP^T = V dO^T, dK += dS^T Q) and holds dK and dV in fp32 accumulators
+//   (64 registers at HD 64). Its K and V rows stay raw in shared memory and
+//   are read by ldmatrix and split every 16-query chunk: split A fragments
+//   in registers would take 128 registers more, and lo planes of their own
+//   would cost the SM a block. Q and dO are staged by cp.async two buffers
+//   deep in tiles of 16 rows and split once a block when a tile lands, hi
+//   over the raw values and lo into a plane beside them, so that no warp
+//   splits what another has; their B fragments for S^T and dP^T come by
+//   ldmatrix, P^T and dS^T are split from the accumulators into A fragments
+//   in place, their K index in the permuted order 2t, 2t + 1 that each lane
+//   holds, and dO's and Q's hi and lo rows are read in that order by 32-bit
+//   loads (ldmatrix.trans moves 16-bit elements only). The rest is the
+//   tensor-core body's: exact zeros for masked keys, do/T into every dv from
+//   a row with no valid key, rows and keys past T zero-filled and excluded,
+//   no atomics. S^T takes K Q^T with the operands swapped against the
+//   forward's Q K^T, so a score differs from the forward's by fp32 ulps,
+//   put against its m and l.
+// - dq (flash_attn_bwd_dq_kernel) on the CUDA cores: a query row belongs to
+//   HD/32 neighbouring lanes, each holding 32 of its dims of q_t, do_t and
+//   dq_t in registers; the key tiles (64 rows, 32 at HD 128) are staged in
+//   shared memory as fp32, and per key of a tile a lane takes its part of
+//   q.k and do.v, joins them with its row's other lanes by shuffles and
+//   adds ds*k_j to its accumulator, all in fp32: two FMAs per shared-memory
+//   word read, far above its bound.
 //
 // What bounds them on an H100. dk/dv does 8*B*H*T^2*HD FLOPs and dq
 // 6*B*H*T^2*HD (10 and 8 with the two-term dS) against about 6 and 5
@@ -95,8 +117,13 @@
 // by ldmatrix two ways, and a warp's chunk is a dependent chain (two
 // products, exp, two or three products) that the 4 warps of a block and
 // the blocks an SM holds must hide; wgmma with TMA staging is the next step.
-// The fp32 bodies compute on the FMA pipes, two FMAs per shared-memory word
-// read, far above their bound.
+// In fp32 the operations bound both: 3xTF32 takes three products a product
+// at the TF32 rate, a third of which is 2.46x the fp32 FMA peak (dk/dv:
+// 2.986 ms for 12 + 12 launches at batch 64, against 7.349 at the FMA rate).
+// The 3xTF32 dk/dv body runs at about a quarter of that: per 16-query chunk
+// a warp issues 192 HMMA among the splits of its K and V fragments, of P^T
+// and dS^T and its share of the tiles', and 3 blocks an SM (shared memory)
+// hide only part of each chain.
 
 #include <type_traits>
 
@@ -106,92 +133,202 @@ namespace {
 
 using namespace fa;
 
+// The 3xTF32 dk/dv body's geometry: 4 warps of 16 key rows, query tiles of
+// 16, chosen in one-off builds timed at the towers' shapes (PERF.md,
+// Findings). The block's K and V rows stay raw, the Q and dO tiles are staged
+// twice over (cp.async double buffer) with the lo planes of the current
+// tile beside them: 61,312 B of shared memory at HD 64, so an SM holds 3
+// blocks.
 template <int HD>
-__global__ void __launch_bounds__(Cfg<HD>::kThreads)
+struct F32BwdCfg {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBlockM = 16 * kWarps;     // the block's key rows
+  static constexpr int kBlockN = 16;              // query rows a staged tile
+  static constexpr int kStride = TcTile<HD, float>::kStride;
+  static constexpr int kOwn = kBlockM * kStride;  // K or V of the block's rows
+  static constexpr int kTile = kBlockN * kStride; // one staged tile
+  // K and V (later dK and dV), two Q and two dO tiles (raw, then hi), the
+  // current tile's Q and dO lo planes, two tiles' m, 1/l and di
+  static constexpr int kSmemBytes = (2 * kOwn + 6 * kTile) * 4 + 2 * 3 * kBlockN * 4;
+  static_assert(kBlockN % 16 == 0 && kBlockN <= kThreads, "a tile is 16-row chunks");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(F32BwdCfg<HD>::kThreads)
 flash_attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           const float* __restrict__ v, const uint8_t* __restrict__ mask,
                           const float* __restrict__ dout, const float* __restrict__ m,
                           const float* __restrict__ l, const float* __restrict__ di,
                           float* __restrict__ dk, float* __restrict__ dv, int T_len, int H,
                           float sm_scale) {
-  using C = Cfg<HD>;
-  constexpr int kQ = C::kKeys;  // query rows a staged tile
-  __shared__ float4 q_tile[kQ][C::kRowChunks];
-  __shared__ float4 do_tile[kQ][C::kRowChunks];
-  __shared__ float m_tile[kQ], il_tile[kQ], di_tile[kQ];
+  using C = F32BwdCfg<HD>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);  // [kBlockM][kStride], later dK
+  float* v_s = k_s + C::kOwn;                   // [kBlockM][kStride], later dV
+  float* q_s = v_s + C::kOwn;                   // [2][kBlockN][kStride], raw then hi
+  float* do_s = q_s + 2 * C::kTile;             // [2][kBlockN][kStride], raw then hi
+  float* ql_s = do_s + 2 * C::kTile;            // [kBlockN][kStride]: Q's lo plane
+  float* dol_s = ql_s + C::kTile;               // [kBlockN][kStride]: dO's lo plane
+  float* st_s = dol_s + C::kTile;               // [2][m, 1/l, di][kBlockN]
 
-  const int tid = threadIdx.x;
-  const int lane_in_row = tid % C::kLanesPerRow;
-  const int j = blockIdx.x * kRows + tid / C::kLanesPerRow;  // this thread's key row
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bool valid = j < T_len;
-  // element (b, t, h, 0) of q, k, v, do, dk and dv: rows of H*HD elements
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, quad = lane % 4;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int row0 = blockIdx.x * C::kBlockM;  // the block's first key row
+  const int wrow0 = row0 + 16 * warp;        // this warp's first key row
+  const bool active = wrow0 < T_len;
   const int64_t row_stride = (int64_t)H * HD;
   const int64_t head0 = (int64_t)b * T_len * row_stride + (int64_t)h * HD;
-  const int64_t stat0 = ((int64_t)b * H + h) * T_len;  // row 0 of m, l and di
-  const bool attend = valid && (mask == nullptr || mask[(int64_t)b * T_len + j] != 0);
+  const int64_t stat0 = ((int64_t)b * H + h) * T_len;
+  const int n_tiles = (T_len + C::kBlockN - 1) / C::kBlockN;
 
-  // A key row past T computes on zeros and writes nothing, so that every
-  // lane of its warp takes part in the shuffles and the barriers.
-  float4 kv[C::kChunks], vv[C::kChunks], dk_acc[C::kChunks], dv_acc[C::kChunks];
+  auto stage = [&](float* dst, const float* src, int r0, int rows) {
+    stage_rows<HD, C::kThreads>(dst, src + head0, row_stride, r0, rows, T_len, tid);
+  };
+  // m, 1/l and di of query row t; a row past T gets p = 0 exactly
+  auto row_stats = [&](int t, float (&st)[3]) {
+    const bool in = t < T_len;
+    st[0] = in ? m[stat0 + t] : INFINITY;
+    st[1] = in ? 1.f / l[stat0 + t] : 0.f;  // l >= 1
+    st[2] = in ? di[stat0 + t] : 0.f;
+  };
+
+  stage(k_s, k, row0, C::kBlockM);
+  stage(v_s, v, row0, C::kBlockM);
+  stage(q_s, q, 0, C::kBlockN);
+  stage(do_s, dout, 0, C::kBlockN);
+  cp_async_commit();
+  if (tid < C::kBlockN) {
+    float st[3];
+    row_stats(tid, st);
 #pragma unroll
-  for (int i = 0; i < C::kChunks; ++i) {
-    const int c = lane_in_row + C::kLanesPerRow * i;
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    kv[i] = valid ? load4(k + head0 + j * row_stride + 4 * c) : zero;
-    vv[i] = valid ? load4(v + head0 + j * row_stride + 4 * c) : zero;
-    dk_acc[i] = zero;
-    dv_acc[i] = zero;
+    for (int i = 0; i < 3; ++i) st_s[i * C::kBlockN + tid] = st[i];
   }
 
-  for (int t0 = 0; t0 < T_len; t0 += kQ) {
-    const int nq = min(kQ, T_len - t0);  // the same in every thread
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < nq * C::kRowChunks; idx += C::kThreads) {
-      const int r = idx / C::kRowChunks, c = idx % C::kRowChunks;
-      const int64_t off = head0 + (int64_t)(t0 + r) * row_stride + 4 * c;
-      q_tile[r][c] = load4(q + off);
-      do_tile[r][c] = load4(dout + off);
+  // this lane's key rows g and g + 8: does a query attend them?
+  bool attend[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) attend[r] = key_code(mask, b, wrow0 + g + 8 * r, T_len) == kKeyAttend;
+
+  // K and V stay raw in shared memory: their split A fragments in registers
+  // would take 128 registers a thread at HD 64 on top of dK and dV's 64, and
+  // lo planes of their own 34,816 B would cost the SM its third block. Each
+  // chunk reads the warp's 16 rows by ldmatrix and splits them.
+  const float* kw = a_addr(k_s + 16 * warp * C::kStride, C::kStride, lane);
+  const float* vw = a_addr(v_s + 16 * warp * C::kStride, C::kStride, lane);
+  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[d][e] = dv_acc[d][e] = 0.f;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int buf = n & 1;
+    float* qs = q_s + buf * C::kTile;
+    float* dos = do_s + buf * C::kTile;
+    float next[3];
+    if (n + 1 < n_tiles) {  // tile n+1 into the other buffer, consumed at n-1
+      const int n1 = (n + 1) * C::kBlockN;
+      stage(q_s + (buf ^ 1) * C::kTile, q, n1, C::kBlockN);
+      stage(do_s + (buf ^ 1) * C::kTile, dout, n1, C::kBlockN);
+      cp_async_commit();
+      if (tid < C::kBlockN) row_stats(n1 + tid, next);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    for (int r = tid; r < nq; r += C::kThreads) {
-      m_tile[r] = m[stat0 + t0 + r];
-      il_tile[r] = 1.f / l[stat0 + t0 + r];  // l >= 1
-      di_tile[r] = di[stat0 + t0 + r];
-    }
+    __syncthreads();  // tile n (and at n = 0 the K and V rows) is there for every thread
+    // split once a block: hi over the raw tile, lo into the planes
+    split_tile<HD, C::kThreads>(qs, ql_s, C::kBlockN, tid);
+    split_tile<HD, C::kThreads>(dos, dol_s, C::kBlockN, tid);
     __syncthreads();
 
-#pragma unroll 2
-    for (int r = 0; r < nq; ++r) {
-      float s = 0.f, dp = 0.f;
+    if (active) {
+      const int nq = min(C::kBlockN, T_len - n * C::kBlockN);
+      const int chunks = (nq + 15) / 16;  // 16-query chunks that hold a row before T
+      const float* st = st_s + buf * 3 * C::kBlockN;
+
+      for (int c = 0; c < chunks; ++c) {
+        // S^T = K Q^T and dP^T = V dO^T in 3xTF32: 16 keys x 16 queries,
+        // two n8 tiles each; Q's and dO's hi and lo fragments by ldmatrix
+        float s[2][4], dp[2][4];
 #pragma unroll
-      for (int i = 0; i < C::kChunks; ++i) {
-        const int c = lane_in_row + C::kLanesPerRow * i;
-        s = dot4(q_tile[r][c], kv[i], s);
-        dp = dot4(do_tile[r][c], vv[i], dp);
-      }
-      s = reduce_row<C::kLanesPerRow>(s);
-      dp = reduce_row<C::kLanesPerRow>(dp);
-      s = attend ? s * sm_scale : kMasked;
-      const float p = __expf(s - m_tile[r]) * il_tile[r];
-      const float ds = attend ? p * (dp - di_tile[r]) * sm_scale : 0.f;
+        for (int t = 0; t < 2; ++t)
 #pragma unroll
-      for (int i = 0; i < C::kChunks; ++i) {
-        const int c = lane_in_row + C::kLanesPerRow * i;
-        dv_acc[i] = axpy4(p, do_tile[r][c], dv_acc[i]);
-        dk_acc[i] = axpy4(ds, q_tile[r][c], dk_acc[i]);
+          for (int e = 0; e < 4; ++e) s[t][e] = dp[t][e] = 0.f;
+        const int boff = b_addr(qs + 16 * c * C::kStride, C::kStride, lane) - qs;
+#pragma unroll
+        for (int kk = 0; kk < HD / 8; ++kk) {
+          unsigned a[4], ah[4], al[4], bh[4], bl[4];
+          ldmatrix_x4(a, kw + 8 * kk);
+          split_tf32(a, ah, al);
+          ldmatrix_x4(bh, qs + boff + 8 * kk);
+          ldmatrix_x4(bl, ql_s + boff + 8 * kk);
+          mma_3xtf32(s[0], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(s[1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+          ldmatrix_x4(a, vw + 8 * kk);
+          split_tf32(a, ah, al);
+          ldmatrix_x4(bh, dos + boff + 8 * kk);
+          ldmatrix_x4(bl, dol_s + boff + 8 * kk);
+          mma_3xtf32(dp[0], ah, al, bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(dp[1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+        }
+        // P^T and dS^T on the accumulators, in place: element e of tile t
+        // is key row g + 8 (e / 2), query column 16 c + 8 t + 2 quad + e % 2
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          const int col = 16 * c + 8 * t + 2 * quad;
+          const float2 mt = *reinterpret_cast<const float2*>(st + col);
+          const float2 ilt = *reinterpret_cast<const float2*>(st + C::kBlockN + col);
+          const float2 dit = *reinterpret_cast<const float2*>(st + 2 * C::kBlockN + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool att = attend[e / 2];
+            const float sc = att ? s[t][e] * sm_scale : kMasked;
+            const float p = __expf(sc - (e & 1 ? mt.y : mt.x)) * (e & 1 ? ilt.y : ilt.x);
+            dp[t][e] = att ? p * (dp[t][e] - (e & 1 ? dit.y : dit.x)) * sm_scale : 0.f;
+            s[t][e] = p;
+          }
+        }
+        // dV += P^T dO and dK += dS^T Q in 3xTF32 over the chunk's two 8-query
+        // halves: P^T and dS^T split into A fragments in place, dO's and Q's
+        // hi and lo rows read in the same permuted query order
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          unsigned ph[4], pl[4], dh[4], dl[4];
+          acc_to_a_split(s[t], ph, pl);
+          acc_to_a_split(dp[t], dh, dl);
+          const int r = (16 * c + 8 * t + 2 * quad) * C::kStride + g;
+#pragma unroll
+          for (int d = 0; d < HD / 8; ++d) {
+            unsigned bh[2], bl[2];
+            b_perm(dos + r + 8 * d, C::kStride, bh);
+            b_perm(dol_s + r + 8 * d, C::kStride, bl);
+            mma_3xtf32(dv_acc[d], ph, pl, bh[0], bh[1], bl[0], bl[1]);
+            b_perm(qs + r + 8 * d, C::kStride, bh);
+            b_perm(ql_s + r + 8 * d, C::kStride, bl);
+            mma_3xtf32(dk_acc[d], dh, dl, bh[0], bh[1], bl[0], bl[1]);
+          }
+        }
       }
     }
+
+    if (tid < C::kBlockN && n + 1 < n_tiles) {
+      float* stn = st_s + (buf ^ 1) * 3 * C::kBlockN;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) stn[i * C::kBlockN + tid] = next[i];
+    }
+    __syncthreads();  // tile n consumed before iteration n+1 refills its buffer
   }
 
-  if (valid) {
-#pragma unroll
-    for (int i = 0; i < C::kChunks; ++i) {
-      const int c = lane_in_row + C::kLanesPerRow * i;
-      store4(dk + head0 + j * row_stride + 4 * c, dk_acc[i]);
-      store4(dv + head0 + j * row_stride + 4 * c, dv_acc[i]);
-    }
-  }
+  if (!active) return;
+  // each warp rewrites only its own rows of K and V, which only it reads
+  const float one[2] = {1.f, 1.f};
+  store_warp_tile<HD>(k_s + 16 * warp * C::kStride, dk_acc, one, dk + head0, row_stride, wrow0,
+                      T_len, lane);
+  store_warp_tile<HD>(v_s + 16 * warp * C::kStride, dv_acc, one, dv + head0, row_stride, wrow0,
+                      T_len, lane);
 }
 
 template <int HD>
@@ -621,7 +758,7 @@ cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// bf16 and fp16 on the tensor cores, fp32 on the CUDA cores
+// bf16 and fp16 on the tensor-core body, fp32 on the 3xTF32 body
 template <typename T, int HD>
 cudaError_t launch_dkv_hd(const Args& a, void* dk, void* dv) {
   if constexpr (!std::is_same<T, float>::value) {
@@ -637,9 +774,12 @@ cudaError_t launch_dkv_hd(const Args& a, void* dk, void* dv) {
         static_cast<const float*>(a.di), static_cast<T*>(dk), static_cast<T*>(dv), a.T_len,
         a.H, a.sm_scale);
   } else {
-    const dim3 grid((unsigned)((a.T_len + kRows - 1) / kRows), (unsigned)a.H,
+    using C = F32BwdCfg<HD>;
+    const cudaError_t err = allow_smem(flash_attn_bwd_dkv_kernel<HD>, C::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((unsigned)((a.T_len + C::kBlockM - 1) / C::kBlockM), (unsigned)a.H,
                     (unsigned)a.batch);
-    flash_attn_bwd_dkv_kernel<HD><<<grid, Cfg<HD>::kThreads, 0, a.stream>>>(
+    flash_attn_bwd_dkv_kernel<HD><<<grid, C::kThreads, C::kSmemBytes, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.m), static_cast<const float*>(a.l),
@@ -649,6 +789,7 @@ cudaError_t launch_dkv_hd(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+// bf16 and fp16 on the tensor-core body, fp32 on the CUDA cores
 template <typename T, int HD>
 cudaError_t launch_dq_hd(const Args& a, void* dq) {
   if constexpr (!std::is_same<T, float>::value) {
@@ -771,6 +912,17 @@ extern "C" int flash_attn_bwd_tc_smem_bytes(int kind, int HD) {
     case 32: return kind == 0 ? BwdCfg<32>::kSmemDkv : BwdCfg<32>::kSmemDq;
     case 64: return kind == 0 ? BwdCfg<64>::kSmemDkv : BwdCfg<64>::kSmemDq;
     case 128: return kind == 0 ? BwdCfg<128>::kSmemDkv : BwdCfg<128>::kSmemDq;
+    default: return -1;
+  }
+}
+
+// Dynamic shared memory a block of the fp32 (3xTF32) dk/dv body takes at
+// head dim HD, or -1. The fp32 dq body's is static.
+extern "C" int flash_attn_bwd_dkv_f32_smem_bytes(int HD) {
+  switch (HD) {
+    case 32: return F32BwdCfg<32>::kSmemBytes;
+    case 64: return F32BwdCfg<64>::kSmemBytes;
+    case 128: return F32BwdCfg<128>::kSmemBytes;
     default: return -1;
   }
 }

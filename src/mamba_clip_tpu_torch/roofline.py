@@ -16,6 +16,7 @@ from .ops.selective_scan import CHUNK, selective_scan_flops
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TC_FLOPS = 989.4e12  # dense bf16 tensor-core peak
+TF32_TC_FLOPS = 494.7e12  # dense TF32 tensor-core peak; 3xTF32 takes three products a product
 SFU_OPS_PER_CLK_SM = 16   # exp2 throughput per SM per clock, compute capability 9.0
 FP32_LANES_PER_SM = 128   # fp32 FMA lanes per SM
 
@@ -80,8 +81,10 @@ def attn_bound(Bsz, T, h, hd, itemsize, masked, sfu_rate, tensors=4, stats=0, pr
     """Least time for one attention kernel: ``tensors`` arrays of
     B*T*h*hd elements and ``stats`` fp32 arrays of B*h*T moved once (and the
     mask byte per key) over the HBM rate; ``products`` T x T x hd matrix
-    products per (batch, head), 2*B*h*T^2*hd FLOPs each, over the bf16
-    tensor-core peak; B*h*T^2 exps over the exp rate. The bound is the
+    products per (batch, head), 2*B*h*T^2*hd FLOPs each, over ``tc_rate``
+    (the bf16 tensor-core peak; ``TF32_TC_FLOPS / 3`` for the fp32 bodies
+    that take each product as three TF32 products, ``FP32_FLOPS`` for one on
+    the CUDA cores); B*h*T^2 exps over the exp rate. The bound is the
     largest of the three. The forward (the defaults) reads q, k, v, writes o
     and takes q.k^T and p.v; dk/dv reads q, k, v, do, m, l, di, writes dk, dv
     and takes 4 products; dq reads the same, writes dq and takes 3."""

@@ -122,8 +122,8 @@ def test_wrapper_checks_its_input():
 
 
 def test_bounds_against_numbers_worked_by_hand():
-    assert (roofline.HBM_BYTES_PER_S, roofline.FP32_FLOPS, roofline.BF16_TC_FLOPS) == (
-        3.35e12, 67e12, 989.4e12)
+    assert (roofline.HBM_BYTES_PER_S, roofline.FP32_FLOPS, roofline.BF16_TC_FLOPS,
+            roofline.TF32_TC_FLOPS) == (3.35e12, 67e12, 989.4e12, 494.7e12)
     assert roofline.sfu_peak(132, 1980.0) == 132 * 16 * 1980e6 == 4.18176e12
     assert roofline.fma_peak(132, 1980.0) == 132 * 128 * 1980e6
     # forward: B 2, G 4, L 32, DG 8, N 16, bf16. E = 2048 channel-steps.
@@ -156,6 +156,30 @@ def test_bounds_against_numbers_worked_by_hand():
     m = roofline.attn_bound(64, 256, 12, 64, 2, True, 4.18176e12, tensors=6, stats=3,
                             products=4)
     assert m["bytes"] == 6 * 64 * 256 * 768 * 2 + 3 * 64 * 12 * 256 * 4 + 64 * 256 == 153370624
+
+
+@pytest.mark.parametrize("kind, kw, tf32_ms, fma_ms", [
+    ("forward", dict(stats=2), 1.497, 3.674),
+    ("dk/dv", dict(tensors=6, stats=3, products=4), 2.986, 7.349),
+])
+def test_fp32_attention_bounds_in_3xtf32(kind, kw, tf32_ms, fma_ms):
+    """The fp32 flash bodies' bounds per 12 + 12 launches at batch 64 (the
+    ViT's T 197 unmasked, the BERT's T 256 masked; h 12, hd 64, fp32): in
+    3xTF32 each product is three TF32 products, so the tensor cores' rate
+    is a third of the TF32 peak; beside it the fp32 FMA bound of the same
+    work. At T 197 the forward's bytes and operations nearly tie (the
+    bytes bound it by 0.3 us); everything else is bound by operations."""
+    rows = [(197, False), (256, True)]
+    tf32 = [roofline.attn_bound(64, T, 12, 64, 4, masked, 4.18176e12, **kw,
+                                tc_rate=roofline.TF32_TC_FLOPS / 3) for T, masked in rows]
+    fma = [roofline.attn_bound(64, T, 12, 64, 4, masked, 4.18176e12, **kw,
+                               tc_rate=roofline.FP32_FLOPS) for T, masked in rows]
+    assert sum(12 * b["bound_ms"] for b in tf32) == pytest.approx(tf32_ms, abs=5e-4)
+    assert sum(12 * b["bound_ms"] for b in fma) == pytest.approx(fma_ms, abs=5e-4)
+    assert [b["bound_by"] for b in tf32] == (
+        ["bytes", "operations"] if kind == "forward" else ["operations", "operations"])
+    assert all(b["bound_by"] == "operations" for b in fma)
+    assert tf32[1]["flops_ms"] * 494.7 / 3 == pytest.approx(fma[1]["flops_ms"] * 67)
 
 
 @pytest.mark.parametrize("L, DG, nbytes, bwd_ms, fwd_ms", [
