@@ -78,13 +78,12 @@ on failure:
    then image/s and texts/s at batch 64, flash and einsum;
 9. flash backward kernels against plain: first each instance of the two
    backward kernels, as phase 7 lists the forward's (a bf16 or fp16
-   instance, or an fp32 dk/dv instance, without ``HMMA`` fails; the fp32 dq
-   body runs on the CUDA cores and reports its count). Then
+   instance, or an fp32 dk/dv or dq instance, without ``HMMA`` fails). Then
    ``flash_attn_bwd_dq`` and
    ``flash_attn_bwd_dkv`` against ``attention_plain_bwd`` at the shapes of
    phase 7 (the one-key and the all-masked row beside a non-prefix row,
-   since their own dq and dk vanish), fp32 on the 3xTF32 dk/dv body and the
-   CUDA-core dq body, and bf16
+   since their own dq and dk vanish), fp32 on the 3xTF32 dk/dv and dq
+   bodies, and bf16
    and fp16 on the tensor-core bodies, each gradient at
    max|g_k - g_p| / max|g_p| <= 5e-4 (fp32) and 2e-2 (bf16 and fp16: the
    plain backward rounds p, dp and ds to the type, the kernels round p once
@@ -99,10 +98,10 @@ on failure:
    scale whose fp16 rounding overflows in two rows; dq, dk and dv of the
    kernels must be non-finite exactly where the plain backward's are (some
    of each), nothing clamped. Then, at batch 64 at the ViT and BERT shapes,
-   in bf16 and fp16 (tensor cores) and fp32 (3xTF32 forward and dk/dv,
-   CUDA-core dq), the forward with residuals and both backward kernels are
-   timed beside their bounds (fp32's forward and dk/dv beside the 3xTF32
-   bound and the fp32 FMA one), the
+   in bf16 and fp16 (tensor cores) and fp32 (3xTF32 forward, dk/dv and
+   dq), the forward with residuals and both backward kernels are timed
+   beside their bounds (fp32's beside the 3xTF32 bound and the fp32 FMA
+   one), the
    plain forward and backward, and the forward (with its residuals, as
    training calls it) and backward of ``F.scaled_dot_product_attention`` in
    the same type;
@@ -448,7 +447,7 @@ on failure:
    ``flash_attn_bwd_dq`` on the tensor cores, bf16, whose launches come
    from the main path, ``..._fp16`` on the tensor cores, whose launches come
    from phase 18's fp16 steps, and ``..._cuda_cores``, fp32 (3xTF32 on the
-   tensor cores for the forward and dk/dv, the CUDA cores for dq), whose
+   tensor cores in all three), whose
    launches come from phase 10's fp32 step; the main path's launches include phases
    14, 15, 16, 17 and 18's; a body launched no time fails. Each flash
    entry is timed at the towers' shapes in its type beside the plain
@@ -4888,10 +4887,9 @@ def main(argv=None) -> None:
 
     # the two bodies of each flash kernel: the tensor-core body runs bf16 and
     # fp16 (with and without the forward's residuals), the fp32 body fp32
-    # (3xTF32 on the tensor cores in the forward and dk/dv, the CUDA cores in
-    # dq); each body counts its launches, "cuda_cores" naming the fp32 body,
-    # and each type of it keeps its own worst errors ("tensor_cores" bf16,
-    # "tensor_cores_fp16", "cuda_cores")
+    # (3xTF32 on the tensor cores); each body counts its launches,
+    # "cuda_cores" naming the fp32 body, and each type of it keeps its own
+    # worst errors ("tensor_cores" bf16, "tensor_cores_fp16", "cuda_cores")
     flash_wrappers = {"fwd": flash_attn_fwd, "dkv": flash_attn_bwd_dkv, "dq": flash_attn_bwd_dq}
     flash_types = ((torch.float32, "fp32"), (torch.bfloat16, "bf16"), (torch.float16, "fp16"))
     VARIANTS = ("tensor_cores", "tensor_cores_fp16", "cuda_cores")
@@ -5165,12 +5163,13 @@ def main(argv=None) -> None:
         lambda kernel, elem, hd: (
             bwd_lib.flash_attn_bwd_tc_smem_bytes(int(kernel.endswith("dq")), hd)
             if elem != "fp32" else
-            bwd_lib.flash_attn_bwd_dkv_f32_smem_bytes(hd) if kernel.endswith("dkv") else None),
-        {"flash_attn_bwd_dkv"})
+            bwd_lib.flash_attn_bwd_dkv_f32_smem_bytes(hd) if kernel.endswith("dkv") else
+            bwd_lib.flash_attn_bwd_dq_f32_smem_bytes(hd)),
+        {"flash_attn_bwd_dkv", "flash_attn_bwd_dq"})
     if len(bwd_instances) != 18:
         fail(f"flash_attn_bwd: expected 18 instances (dk/dv and dq at hd 32, 64, 128 of the "
-             f"tensor-core body in bf16 and fp16 and of the fp32 body: 3xTF32 dk/dv, "
-             f"CUDA-core dq), got {sorted(bwd_instances)}")
+             f"tensor-core body in bf16 and fp16 and of the 3xTF32 fp32 body), got "
+             f"{sorted(bwd_instances)}")
 
     def plain_residuals(q, k, mask, sm):
         sc = torch.matmul(q.transpose(1, 2).float(), k.permute(0, 2, 3, 1).float()) * sm
@@ -5285,12 +5284,11 @@ def main(argv=None) -> None:
 
     # at the training batch (64), the ViT and BERT shapes: bf16 and fp16 on
     # the tensor cores (training under amp, pure_bf16; fp16, pure_fp16), fp32
-    # in 3xTF32 on the tensor cores (forward, dk/dv) and on the CUDA cores
-    # (dq); each beside the plain forward and backward and the library's, in
-    # the same type. The operations of the fp32 forward and dk/dv are bound
-    # by the tensor cores at a third of the TF32 rate (three products a
-    # product), printed beside the fp32 FMA bound of the same work; dq's by
-    # the fp32 rate outside the tensor cores.
+    # in 3xTF32 on the tensor cores; each beside the plain forward and
+    # backward and the library's, in the same type. The operations of the
+    # fp32 bodies are bound by the tensor cores at a third of the TF32 rate
+    # (three products a product), printed beside the fp32 FMA bound of the
+    # same work.
     tf32_rate, fma_rate = {"tc_rate": TF32_TC_FLOPS / 3}, {"tc_rate": FP32_FLOPS}
     bwd_shapes_attn = {v: {} for v in VARIANTS}
     for dtype, name in flash_types:
@@ -5326,13 +5324,14 @@ def main(argv=None) -> None:
             kw_kv = dict(tensors=6, stats=3, products=4)
             b_kv = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, **kw_kv,
                               **(tf32_rate if fp32 else {}))
-            b_q = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, tensors=5, stats=3,
-                             products=3, **(fma_rate if fp32 else {}))
+            kw_q = dict(tensors=5, stats=3, products=3)
+            b_q = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, **kw_q,
+                             **(tf32_rate if fp32 else {}))
             b_f = attn_bound(64, T, 12, 64, itemsize, masked, sfu_rate, **kw_f,
                              **(tf32_rate if fp32 else {}))
             fma = {}
             if fp32:  # the same work at the fp32 FMA rate
-                for key, kw in (("fwd", kw_f), ("dkv", kw_kv)):
+                for key, kw in (("fwd", kw_f), ("dkv", kw_kv), ("dq", kw_q)):
                     fma[key] = {"fma_bound_ms": attn_bound(64, T, 12, 64, itemsize, masked,
                                                            sfu_rate, **kw, **fma_rate)["bound_ms"]}
             bwd_shapes_attn[body][tower] = {
@@ -5340,7 +5339,8 @@ def main(argv=None) -> None:
                 "launches_per_step": 12,
                 "fwd": {"ms": ms_f, "plain_ms": ms_pf, "library_ms": ms_lf, **b_f,
                         **fma.get("fwd", {})},
-                "dkv": {"ms": ms_kv, **b_kv, **fma.get("dkv", {})}, "dq": {"ms": ms_q, **b_q},
+                "dkv": {"ms": ms_kv, **b_kv, **fma.get("dkv", {})},
+                "dq": {"ms": ms_q, **b_q, **fma.get("dq", {})},
                 "plain_bwd_ms": ms_p, "library_bwd_ms": ms_l,
                 "max_rel_err": max(r for r, _ in errs)}
             say(f"flash bwd B=64 T={T} {name} ({tower}, {body}): dk/dv {ms_kv:.4f} ms (bound "
@@ -5349,9 +5349,9 @@ def main(argv=None) -> None:
                 f"{ms_f:.4f} ms (bound {b_f['bound_ms']:.4f}, plain {ms_pf:.4f}, "
                 f"scaled_dot_product_attention {ms_lf:.4f}), plain backward {ms_p:.4f} ms, "
                 f"scaled_dot_product_attention backward {ms_l:.4f} ms"
-                + (f"; the forward's and dk/dv's bounds are 3xTF32's, at the fp32 FMA rate "
-                   f"{fma['fwd']['fma_bound_ms']:.4f} and {fma['dkv']['fma_bound_ms']:.4f} ms"
-                   if fp32 else ""))
+                + (f"; the bounds are 3xTF32's, at the fp32 FMA rate the forward's "
+                   f"{fma['fwd']['fma_bound_ms']:.4f}, dk/dv's {fma['dkv']['fma_bound_ms']:.4f} "
+                   f"and dq's {fma['dq']['fma_bound_ms']:.4f} ms" if fp32 else ""))
             del q, k, v, do, g_k, res, qt, kt, vt, o_l, do_l
     say(json.dumps({"flash_attn_bwd_shapes": bwd_shapes_attn, "card": card}))
     flash_ms_per_step = {key: sum(12 * sh[key]["ms"]
@@ -5501,7 +5501,7 @@ def main(argv=None) -> None:
     if not all(r["ok"] for r in clip_check):
         fail(f"the clip train step with the kernels differs from the plain interiors beyond "
              f"{CLIP_TRAIN_REL:g}: (a) loss or (b) grad norm, {clip_check}")
-    # one fp32 step: the fp32 bodies (3xTF32 forward and dk/dv, CUDA-core dq)
+    # one fp32 step: the fp32 bodies (3xTF32 forward, dk/dv and dq)
     # through the normal entry point, under the same gates; their main path,
     # so its launches are counted
     fp32_check = clip_step_check(1, precision="fp32", steps=1,
@@ -6096,9 +6096,9 @@ def main(argv=None) -> None:
     # training under amp and pure_bf16 run, its launches from the main path),
     # the tensor cores in fp16 (training under fp16 and pure_fp16, its
     # launches from phase 18's fp16 steps) and the fp32 body (3xTF32 on the
-    # tensor cores in the forward and dk/dv, the CUDA cores in dq; its
-    # launches from phase 10's fp32 step), each timed at the towers' shapes in
-    # its own type (phase 7 serving's forward, phase 9 the rest)
+    # tensor cores; its launches from phase 10's fp32 step), each timed at
+    # the towers' shapes in its own type (phase 7 serving's forward, phase 9
+    # the rest)
     def by_bound(shapes):
         by = {"bytes": 0.0, "operations": 0.0}
         for sh in shapes:
@@ -6138,8 +6138,8 @@ def main(argv=None) -> None:
         fail(f"a flash body was launched no time: {flash_launches} (the tensor cores on the "
              "main path in bf16 and in phase 18's fp16 steps, the fp32 body in the fp32 step)")
     # the attention kernels' bounds again from the ceilings phase 11 measured
-    # (HBM, exp and the fp32 FMA rate; the tensor cores' rate, TF32's for the
-    # fp32 forward and dk/dv too, stays the data sheet's)
+    # (HBM and exp; the tensor cores' rate, TF32's for the fp32 bodies too,
+    # stays the data sheet's)
     attn_m = {"sfu_rate": measured["sfu_rate"], "hbm_rate": measured["hbm_rate"]}
     bound_kw = {"fwd": dict(stats=2), "dkv": dict(tensors=6, stats=3, products=4),
                 "dq": dict(tensors=5, stats=3, products=3)}
@@ -6153,19 +6153,18 @@ def main(argv=None) -> None:
         return [{**sh[key], "plain_ms": sh["plain_bwd_ms"], "library_ms": sh["library_bwd_ms"],
                  "T": sh["T"], "masked": sh["masked"]} for sh in bwd_shapes_attn[body].values()]
 
-    def attn_times(rows, tc, kw, tf32=False):
+    def attn_times(rows, tc, kw):
         """ms, plain, bound and library ms per 12 + 12 launches at batch 64
         (a train step's, or an image_embed and a text_embed), and the shares
-        of the data-sheet and the measured bounds. ``tf32``: an fp32 body in
-        3xTF32, bound by the tensor cores at a third of the TF32 rate, its
+        of the data-sheet and the measured bounds. Not ``tc``: the fp32 body
+        in 3xTF32, bound by the tensor cores at a third of the TF32 rate, its
         fp32 FMA bound beside."""
         out = {k: sum(12 * r[k] for r in rows)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         out["bound_by"] = by_bound(rows)
-        if tf32:
+        if not tc:
             out["fp32_fma_bound_ms"] = sum(12 * r["fma_bound_ms"] for r in rows)
-        rate = ({} if tc else {"tc_rate": TF32_TC_FLOPS / 3} if tf32
-                else {"tc_rate": measured["fp32_rate"]})
+        rate = {} if tc else {"tc_rate": TF32_TC_FLOPS / 3}
         meas = sum(12 * attn_bound(64, r["T"], 12, 64, 2 if tc else 4, r["masked"], **attn_m,
                                    **kw, **rate)["bound_ms"] for r in rows)
         out.update(bound_ms_measured=meas, share_of_bound_datasheet=out["bound_ms"] / out["ms"],
@@ -6193,10 +6192,7 @@ def main(argv=None) -> None:
         for body in ("tensor_cores", "tensor_cores_fp16", "cuda_cores"):
             tc = body != "cuda_cores"
             suffix, what, elem = bodies_of_entry[body]
-            if body == "cuda_cores" and key == "dq":
-                what = "fp32 (training under fp32), on the CUDA cores"
-            times = attn_times(attn_rows(key, body), tc, bound_kw[key],
-                               tf32=not tc and key != "dq")
+            times = attn_times(attn_rows(key, body), tc, bound_kw[key])
             by_path = ({p: c[key]["tensor_cores" if tc else body] for p, c in flash_paths.items()}
                        if body != "tensor_cores_fp16" else {"precision": fp16_launches[key]})
             entry = {

@@ -78,12 +78,12 @@
 // 5 rows. The epilogues round dQ, dK and dV once and write each warp's rows
 // through shared memory with 16-byte stores.
 //
-// fp32 runs two other bodies:
-// - dk/dv (flash_attn_bwd_dkv_kernel) in 3xTF32 on the tensor cores
-//   (flash_attn_common.cuh: mma.sync m16n8k8 .tf32, each operand split into
-//   hi and lo, lo.hi + hi.lo + hi.hi into fp32 accumulators), in the
-//   tensor-core body's shape on fp32 tiles (F32BwdCfg): a warp owns 16 key
-//   rows, takes the four products transposed (S^T = K Q^T, dV += P^T dO,
+// fp32 runs two other bodies, both in 3xTF32 on the tensor cores
+// (flash_attn_common.cuh: mma.sync m16n8k8 .tf32, each operand split into hi
+// and lo, lo.hi + hi.lo + hi.hi into fp32 accumulators), in the tensor-core
+// bodies' shapes on fp32 tiles:
+// - dk/dv (flash_attn_bwd_dkv_kernel, F32BwdCfg): a warp owns 16 key rows,
+//   takes the four products transposed (S^T = K Q^T, dV += P^T dO,
 //   dP^T = V dO^T, dK += dS^T Q) and holds dK and dV in fp32 accumulators
 //   (64 registers at HD 64). Its K and V rows stay raw in shared memory and
 //   are read by ldmatrix and split every 16-query chunk: split A fragments
@@ -95,19 +95,29 @@
 //   ldmatrix, P^T and dS^T are split from the accumulators into A fragments
 //   in place, their K index in the permuted order 2t, 2t + 1 that each lane
 //   holds, and dO's and Q's hi and lo rows are read in that order by 32-bit
-//   loads (ldmatrix.trans moves 16-bit elements only). The rest is the
-//   tensor-core body's: exact zeros for masked keys, do/T into every dv from
-//   a row with no valid key, rows and keys past T zero-filled and excluded,
-//   no atomics. S^T takes K Q^T with the operands swapped against the
-//   forward's Q K^T, so a score differs from the forward's by fp32 ulps,
-//   put against its m and l.
-// - dq (flash_attn_bwd_dq_kernel) on the CUDA cores: a query row belongs to
-//   HD/32 neighbouring lanes, each holding 32 of its dims of q_t, do_t and
-//   dq_t in registers; the key tiles (64 rows, 32 at HD 128) are staged in
-//   shared memory as fp32, and per key of a tile a lane takes its part of
-//   q.k and do.v, joins them with its row's other lanes by shuffles and
-//   adds ds*k_j to its accumulator, all in fp32: two FMAs per shared-memory
-//   word read, far above its bound.
+//   loads (ldmatrix.trans moves 16-bit elements only). S^T takes K Q^T with
+//   the operands swapped against the forward's Q K^T, so a score differs
+//   from the forward's by fp32 ulps, put against its m and l.
+// - dq (flash_attn_bwd_dq_kernel, F32DqCfg), the fp32 forward's shape: a
+//   warp owns 16 query rows, reads its rows of q once from global memory as
+//   fp32 A fragments and keeps them raw in registers, split once a tile, as
+//   the forward does, with m, 1/l and di of its rows and dQ's accumulators
+//   (32 + 32 registers at HD 64). The block's dO rows are staged once and
+//   split into hi and lo planes read by ldmatrix: kept raw in registers too
+//   they would take 32 registers more, and an SM would hold fewer blocks;
+//   staging q as well would cost the SM a block in shared memory (both were
+//   timed: PERF.md, Findings). K and V are staged by cp.async two buffers
+//   deep in tiles of 16 keys, with one code a key, and split once a block
+//   when a tile lands. Per tile: S = Q K^T from the same splits, k-step by
+//   k-step in the same order as the forward, so its scores are the
+//   forward's bit for bit; dP = dO V^T; dS = P (dP - di) * scale on the
+//   accumulators; dQ += dS K with each 8-key dS accumulator split into an A
+//   fragment in place and K's hi and lo rows read in the permuted key order
+//   by 32-bit loads, so nothing is shuffled or transposed through shared
+//   memory. dQ leaves through the warp's own rows of dO with 16-byte stores.
+// The rest is the tensor-core bodies': exact zeros for masked keys, do/T
+// into every dv from a row with no valid key, rows and keys past T
+// zero-filled and excluded, no atomics.
 //
 // What bounds them on an H100. dk/dv does 8*B*H*T^2*HD FLOPs and dq
 // 6*B*H*T^2*HD (10 and 8 with the two-term dS) against about 6 and 5
@@ -118,12 +128,15 @@
 // products, exp, two or three products) that the 4 warps of a block and
 // the blocks an SM holds must hide; wgmma with TMA staging is the next step.
 // In fp32 the operations bound both: 3xTF32 takes three products a product
-// at the TF32 rate, a third of which is 2.46x the fp32 FMA peak (dk/dv:
-// 2.986 ms for 12 + 12 launches at batch 64, against 7.349 at the FMA rate).
-// The 3xTF32 dk/dv body runs at about a quarter of that: per 16-query chunk
-// a warp issues 192 HMMA among the splits of its K and V fragments, of P^T
-// and dS^T and its share of the tiles', and 3 blocks an SM (shared memory)
-// hide only part of each chain.
+// at the TF32 rate, a third of which is 2.46x the fp32 FMA peak (12 + 12
+// launches at batch 64: dk/dv 2.986 ms, dq 2.239, against 7.349 and 5.512
+// at the FMA rate). The 3xTF32 dk/dv body runs at about a quarter of that:
+// per 16-query chunk a warp issues 192 HMMA among the splits of its K and V
+// fragments, of P^T and dS^T and its share of the tiles', and 3 blocks an
+// SM (shared memory) hide only part of each chain. The dq body issues 144
+// HMMA a warp and 16-key tile among the splits of q and dS and its share of
+// the tiles', and 3 blocks an SM (registers) hide only part of each chain
+// (PERF.md, Findings).
 
 #include <type_traits>
 
@@ -331,81 +344,203 @@ flash_attn_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__
                       T_len, lane);
 }
 
+// The 3xTF32 dq body's geometry: 4 warps of 16 query rows and key tiles of
+// 16, chosen in one-off builds timed at the towers' shapes (PERF.md,
+// Findings). The block's dO rows are staged once and split into hi and lo
+// planes; K and V tiles are staged twice over (cp.async double buffer) with
+// the lo planes of the current tile beside them: 60,960 B of shared memory
+// at HD 64. q stays raw in registers (32 registers a thread at HD 64, dQ's
+// accumulators 32 more), so an SM holds 3 blocks at 160 registers.
 template <int HD>
-__global__ void __launch_bounds__(Cfg<HD>::kThreads)
+struct F32DqCfg {
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kBlockM = 16 * kWarps;      // the block's query rows
+  static constexpr int kBlockN = 16;               // keys a staged tile
+  static constexpr int kStride = TcTile<HD, float>::kStride;
+  static constexpr int kOwn = kBlockM * kStride;   // dO of the block's rows
+  static constexpr int kTile = kBlockN * kStride;  // one staged tile
+  // dO (raw, then hi; later dQ) and its lo plane, two K and two V tiles
+  // (raw, then hi), the current tile's K and V lo planes, two tiles' key
+  // codes
+  static constexpr int kSmemBytes = (2 * kOwn + 6 * kTile) * 4 + 2 * kBlockN;
+  static_assert(kBlockN % 16 == 0 && kBlockN <= kThreads, "a key tile is 16-key chunks");
+};
+
+template <int HD>
+__global__ void __launch_bounds__(F32DqCfg<HD>::kThreads)
 flash_attn_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const uint8_t* __restrict__ mask,
                          const float* __restrict__ dout, const float* __restrict__ m,
                          const float* __restrict__ l, const float* __restrict__ di,
                          float* __restrict__ dq, int T_len, int H, float sm_scale) {
-  using C = Cfg<HD>;
-  __shared__ float4 k_tile[C::kKeys][C::kRowChunks];
-  __shared__ float4 v_tile[C::kKeys][C::kRowChunks];
-  __shared__ uint8_t mask_tile[C::kKeys];
+  using C = F32DqCfg<HD>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* do_s = reinterpret_cast<float*>(smem);  // [kBlockM][kStride], raw then hi, later dQ
+  float* dol_s = do_s + C::kOwn;                 // [kBlockM][kStride]: dO's lo plane
+  float* k_s = dol_s + C::kOwn;                  // [2][kBlockN][kStride], raw then hi
+  float* v_s = k_s + 2 * C::kTile;               // [2][kBlockN][kStride], raw then hi
+  float* kl_s = v_s + 2 * C::kTile;              // [kBlockN][kStride]: K's lo plane
+  float* vl_s = kl_s + C::kTile;                 // [kBlockN][kStride]: V's lo plane
+  uint8_t* code_s = reinterpret_cast<uint8_t*>(vl_s + C::kTile);  // [2][kBlockN]
 
-  const int tid = threadIdx.x;
-  const int lane_in_row = tid % C::kLanesPerRow;
-  const int t = blockIdx.x * kRows + tid / C::kLanesPerRow;  // this thread's query row
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const bool valid = t < T_len;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, quad = lane % 4;  // the fragment's row and column
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int row0 = blockIdx.x * C::kBlockM;  // the block's first query row
+  const int wrow0 = row0 + 16 * warp;        // this warp's first query row
+  const bool active = wrow0 < T_len;         // the same in every lane of the warp
   const int64_t row_stride = (int64_t)H * HD;
   const int64_t head0 = (int64_t)b * T_len * row_stride + (int64_t)h * HD;
-  const int64_t stat = ((int64_t)b * H + h) * T_len + t;
+  const int64_t stat0 = ((int64_t)b * H + h) * T_len;
+  const int n_tiles = (T_len + C::kBlockN - 1) / C::kBlockN;
 
-  // A query row past T computes on zeros (p = 0) and writes nothing.
-  float4 qv[C::kChunks], dov[C::kChunks], acc[C::kChunks];
+  auto stage = [&](float* dst, const float* src, int r0, int rows) {
+    stage_rows<HD, C::kThreads>(dst, src + head0, row_stride, r0, rows, T_len, tid);
+  };
+
+  stage(do_s, dout, row0, C::kBlockM);
+  stage(k_s, k, 0, C::kBlockN);
+  stage(v_s, v, 0, C::kBlockN);
+  cp_async_commit();
+  if (tid < C::kBlockN) code_s[tid] = key_code(mask, b, tid, T_len);
+
+  // m, 1/l and di of this lane's query rows g and g + 8; a row past T gets
+  // p = 0 exactly and writes nothing
+  float m_t[2], il_t[2], di_t[2];
 #pragma unroll
-  for (int i = 0; i < C::kChunks; ++i) {
-    const int c = lane_in_row + C::kLanesPerRow * i;
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    qv[i] = valid ? load4(q + head0 + t * row_stride + 4 * c) : zero;
-    dov[i] = valid ? load4(dout + head0 + t * row_stride + 4 * c) : zero;
-    acc[i] = zero;
+  for (int r = 0; r < 2; ++r) {
+    const int t = wrow0 + g + 8 * r;
+    const bool in = t < T_len;
+    m_t[r] = in ? m[stat0 + t] : INFINITY;
+    il_t[r] = in ? 1.f / l[stat0 + t] : 0.f;  // l >= 1
+    di_t[r] = in ? di[stat0 + t] : 0.f;
   }
-  const float m_t = valid ? m[stat] : 0.f;
-  const float il_t = valid ? 1.f / l[stat] : 0.f;  // l >= 1
-  const float di_t = valid ? di[stat] : 0.f;
 
-  for (int n0 = 0; n0 < T_len; n0 += C::kKeys) {
-    const int nk = min(C::kKeys, T_len - n0);  // the same in every thread
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < nk * C::kRowChunks; idx += C::kThreads) {
-      const int j = idx / C::kRowChunks, c = idx % C::kRowChunks;
-      const int64_t off = head0 + (int64_t)(n0 + j) * row_stride + 4 * c;
-      k_tile[j][c] = load4(k + off);
-      v_tile[j][c] = load4(v + off);
+  // this warp's 16 rows of q as fp32 A fragments, read once from global
+  // memory (a quad reads 16 bytes of a row) and kept raw, as the forward
+  // keeps them; rows past T are zeros. Its rows of dO are read by ldmatrix
+  // from the hi and lo planes.
+  unsigned qf[HD / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = wrow0 + g + 8 * (i & 1);
+      qf[kk][i] = t < T_len
+          ? __float_as_uint(q[head0 + t * row_stride + 8 * kk + quad + 4 * (i >> 1)]) : 0u;
     }
-    for (int j = tid; j < nk; j += C::kThreads)
-      mask_tile[j] = mask == nullptr ? 1 : mask[(int64_t)b * T_len + n0 + j];
+  const float* dow = a_addr(do_s + 16 * warp * C::kStride, C::kStride, lane);
+  float acc[HD / 8][4];  // dQ, 16 x HD a warp, fp32
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int buf = n & 1;
+    float* ks = k_s + buf * C::kTile;
+    float* vs = v_s + buf * C::kTile;
+    uint8_t next_code = kKeyPast;
+    if (n + 1 < n_tiles) {  // tile n+1 into the other buffer, consumed at n-1
+      const int n1 = (n + 1) * C::kBlockN;
+      stage(k_s + (buf ^ 1) * C::kTile, k, n1, C::kBlockN);
+      stage(v_s + (buf ^ 1) * C::kTile, v, n1, C::kBlockN);
+      cp_async_commit();
+      if (tid < C::kBlockN) next_code = key_code(mask, b, n1 + tid, T_len);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile n (and at n = 0 the dO rows) is there for every thread
+    // split once a block: hi over the raw tiles, lo into the planes
+    if (n == 0) split_tile<HD, C::kThreads>(do_s, dol_s, C::kBlockM, tid);
+    split_tile<HD, C::kThreads>(ks, kl_s, C::kBlockN, tid);
+    split_tile<HD, C::kThreads>(vs, vl_s, C::kBlockN, tid);
     __syncthreads();
 
-#pragma unroll 2
-    for (int j = 0; j < nk; ++j) {
-      float s = 0.f, dp = 0.f;
+    if (active) {
+      const int nk = min(C::kBlockN, T_len - n * C::kBlockN);
+      const int chunks = (nk + 15) / 16;  // 16-key chunks that hold a key before T
+      const uint8_t* code = code_s + buf * C::kBlockN;
+
+      // S = Q K^T in the forward's order (so its scores are the forward's
+      // bit for bit) and dP = dO V^T, in 3xTF32: chunk c is the accumulators
+      // [2c] and [2c + 1]; q split once a tile and 8 dims, dO's, K's and V's
+      // hi and lo fragments read by ldmatrix
+      float s[C::kBlockN / 8][4], dp[C::kBlockN / 8][4];
 #pragma unroll
-      for (int i = 0; i < C::kChunks; ++i) {
-        const int c = lane_in_row + C::kLanesPerRow * i;
-        s = dot4(qv[i], k_tile[j][c], s);
-        dp = dot4(dov[i], v_tile[j][c], dp);
+      for (int t8 = 0; t8 < C::kBlockN / 8; ++t8)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t8][e] = dp[t8][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk) {
+        unsigned ah[4], al[4];
+        split_tf32(qf[kk], ah, al);
+#pragma unroll
+        for (int c = 0; c < C::kBlockN / 16; ++c) {
+          if (c < chunks) {
+            const int off = b_addr(ks + 16 * c * C::kStride, C::kStride, lane) - ks + 8 * kk;
+            unsigned bh[4], bl[4];
+            ldmatrix_x4(bh, ks + off);
+            ldmatrix_x4(bl, kl_s + off);
+            mma_3xtf32(s[2 * c], ah, al, bh[0], bh[1], bl[0], bl[1]);
+            mma_3xtf32(s[2 * c + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+          }
+        }
+        ldmatrix_x4(ah, dow + 8 * kk);
+        ldmatrix_x4(al, dow + C::kOwn + 8 * kk);
+#pragma unroll
+        for (int c = 0; c < C::kBlockN / 16; ++c) {
+          if (c < chunks) {
+            const int off = b_addr(vs + 16 * c * C::kStride, C::kStride, lane) - vs + 8 * kk;
+            unsigned bh[4], bl[4];
+            ldmatrix_x4(bh, vs + off);
+            ldmatrix_x4(bl, vl_s + off);
+            mma_3xtf32(dp[2 * c], ah, al, bh[0], bh[1], bl[0], bl[1]);
+            mma_3xtf32(dp[2 * c + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+          }
+        }
       }
-      s = reduce_row<C::kLanesPerRow>(s);
-      dp = reduce_row<C::kLanesPerRow>(dp);
-      const bool attend = mask_tile[j] != 0;
-      s = attend ? s * sm_scale : kMasked;
-      const float p = __expf(s - m_t) * il_t;
-      const float ds = attend ? p * (dp - di_t) * sm_scale : 0.f;
+
+      // dS = P (dP - di) * scale on the accumulators (element e of tile t8
+      // is query row g + 8 (e / 2), key column 8 t8 + 2 quad + e % 2), 0 for
+      // a masked key or a key past T; then dQ += dS K in 3xTF32: each 8-key
+      // dS accumulator split into an A fragment in place, K's hi and lo rows
+      // read in the same permuted key order
 #pragma unroll
-      for (int i = 0; i < C::kChunks; ++i)
-        acc[i] = axpy4(ds, k_tile[j][lane_in_row + C::kLanesPerRow * i], acc[i]);
+      for (int t8 = 0; t8 < C::kBlockN / 8; ++t8) {
+        if (t8 / 2 < chunks) {
+          const int j = 8 * t8 + 2 * quad;
+          const unsigned two = *reinterpret_cast<const uint16_t*>(code + j);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const unsigned cd = (two >> (8 * (e & 1))) & 0xffu;
+            const int r = e / 2;
+            const float p = __expf(s[t8][e] * sm_scale - m_t[r]) * il_t[r];
+            s[t8][e] = cd == kKeyAttend ? p * (dp[t8][e] - di_t[r]) * sm_scale : 0.f;
+          }
+          unsigned dh[4], dl[4];
+          acc_to_a_split(s[t8], dh, dl);
+          const int rk = j * C::kStride + g;
+#pragma unroll
+          for (int d = 0; d < HD / 8; ++d) {
+            unsigned kh[2], kl[2];
+            b_perm(ks + rk + 8 * d, C::kStride, kh);
+            b_perm(kl_s + rk + 8 * d, C::kStride, kl);
+            mma_3xtf32(acc[d], dh, dl, kh[0], kh[1], kl[0], kl[1]);
+          }
+        }
+      }
     }
+
+    if (tid < C::kBlockN && n + 1 < n_tiles) code_s[(buf ^ 1) * C::kBlockN + tid] = next_code;
+    __syncthreads();  // tile n consumed before iteration n+1 refills its buffer
   }
 
-  if (valid) {
-#pragma unroll
-    for (int i = 0; i < C::kChunks; ++i)
-      store4(dq + head0 + t * row_stride + 4 * (lane_in_row + C::kLanesPerRow * i), acc[i]);
-  }
+  if (!active) return;
+  // each warp rewrites only its own rows of dO, which only it reads
+  const float one[2] = {1.f, 1.f};
+  store_warp_tile<HD>(do_s + 16 * warp * C::kStride, acc, one, dq + head0, row_stride, wrow0,
+                      T_len, lane);
 }
 
 // The tensor-core bodies' geometry: 4 warps of 16 rows own a block's 64
@@ -789,7 +924,7 @@ cudaError_t launch_dkv_hd(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
-// bf16 and fp16 on the tensor-core body, fp32 on the CUDA cores
+// bf16 and fp16 on the tensor-core body, fp32 on the 3xTF32 body
 template <typename T, int HD>
 cudaError_t launch_dq_hd(const Args& a, void* dq) {
   if constexpr (!std::is_same<T, float>::value) {
@@ -804,9 +939,12 @@ cudaError_t launch_dq_hd(const Args& a, void* dq) {
         static_cast<const float*>(a.m), static_cast<const float*>(a.l),
         static_cast<const float*>(a.di), static_cast<T*>(dq), a.T_len, a.H, a.sm_scale);
   } else {
-    const dim3 grid((unsigned)((a.T_len + kRows - 1) / kRows), (unsigned)a.H,
+    using C = F32DqCfg<HD>;
+    const cudaError_t err = allow_smem(flash_attn_bwd_dq_kernel<HD>, C::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((unsigned)((a.T_len + C::kBlockM - 1) / C::kBlockM), (unsigned)a.H,
                     (unsigned)a.batch);
-    flash_attn_bwd_dq_kernel<HD><<<grid, Cfg<HD>::kThreads, 0, a.stream>>>(
+    flash_attn_bwd_dq_kernel<HD><<<grid, C::kThreads, C::kSmemBytes, a.stream>>>(
         static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
         static_cast<const uint8_t*>(a.mask), static_cast<const T*>(a.dout),
         static_cast<const float*>(a.m), static_cast<const float*>(a.l),
@@ -917,12 +1055,23 @@ extern "C" int flash_attn_bwd_tc_smem_bytes(int kind, int HD) {
 }
 
 // Dynamic shared memory a block of the fp32 (3xTF32) dk/dv body takes at
-// head dim HD, or -1. The fp32 dq body's is static.
+// head dim HD, or -1.
 extern "C" int flash_attn_bwd_dkv_f32_smem_bytes(int HD) {
   switch (HD) {
     case 32: return F32BwdCfg<32>::kSmemBytes;
     case 64: return F32BwdCfg<64>::kSmemBytes;
     case 128: return F32BwdCfg<128>::kSmemBytes;
+    default: return -1;
+  }
+}
+
+// Dynamic shared memory a block of the fp32 (3xTF32) dq body takes at head
+// dim HD, or -1.
+extern "C" int flash_attn_bwd_dq_f32_smem_bytes(int HD) {
+  switch (HD) {
+    case 32: return F32DqCfg<32>::kSmemBytes;
+    case 64: return F32DqCfg<64>::kSmemBytes;
+    case 128: return F32DqCfg<128>::kSmemBytes;
     default: return -1;
   }
 }

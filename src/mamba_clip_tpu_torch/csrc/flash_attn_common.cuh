@@ -1,31 +1,24 @@
 // Shared by flash_attn_fwd.cu and flash_attn_bwd.cu: the tile geometry,
-// the helpers of the fp32 dq body (CUDA cores), the 3xTF32 helpers of the
-// fp32 forward and dk/dv bodies and the tensor-core helpers of the bf16 and
-// fp16 bodies.
+// the 3xTF32 helpers of the three fp32 bodies and the tensor-core helpers of
+// the bf16 and fp16 bodies.
 //
-// The fp32 dq body: a query row belongs to HD/32 neighbouring lanes, each
-// holding 32 of its dims in registers as 8 float4 chunks; lane g of a row
-// owns the chunks g, g + HD/32, ... of the head dim, so the lanes of a warp
-// read neighbouring shared-memory banks and every row of the warp the same
-// words (broadcast). A dot product over the head dim is each lane's partial
-// sum joined by shuffles (reduce_row).
-//
-// The fp32 forward and dk/dv bodies take their products on the tensor cores
-// as 3xTF32 (mma.sync m16n8k8 .tf32, fp32 accumulators): each fp32 operand x
-// is split into hi = tf32(x) and lo = tf32(x - hi), rounded to nearest with
-// ties away from zero (cvt.rna's rounding, tf32_rna), and a product is
-// lo.hi + hi.lo + hi.hi, the small terms first, into one accumulator. hi +
-// lo carries x to about 2^-22 of its size, so the products are fp32's to a
-// few ulps; the lo.lo term (2^-22 of the product) is dropped. The other
-// side's tiles (K and V in the forward, Q and dO in dk/dv) are staged as
-// fp32 with a 16-byte pad a row and split once a block, hi over the raw
-// values and lo into a plane beside them (split_tile), so no warp splits
-// what another has; the fragments a body owns (q, or K and V) and P, dS are
-// split in registers. The three fp32 bodies take their scores in different
-// orders: the forward S = Q K^T, dk/dv S^T = K Q^T with the operands
-// swapped, dq on the FMA pipes; so a recomputed score differs from the
-// forward's by fp32 ulps and is put against the forward's m and l (far
-// inside the 5e-4 gate).
+// The fp32 bodies (the forward, dk/dv and dq) take their products on the
+// tensor cores as 3xTF32 (mma.sync m16n8k8 .tf32, fp32 accumulators): each
+// fp32 operand x is split into hi = tf32(x) and lo = tf32(x - hi), rounded
+// to nearest with ties away from zero (cvt.rna's rounding, tf32_rna), and a
+// product is lo.hi + hi.lo + hi.hi, the small terms first, into one
+// accumulator. hi + lo carries x to about 2^-22 of its size, so the products
+// are fp32's to a few ulps; the lo.lo term (2^-22 of the product) is
+// dropped. The other side's tiles (K and V in the forward and dq, Q and dO
+// in dk/dv), and dq's own dO rows, are staged as fp32 with a 16-byte pad a
+// row and split once a block, hi over the raw values and lo into a plane
+// beside them (split_tile), so no warp splits what another has; the other
+// fragments a body owns (q, or K and V) and P, dS are split in registers. The
+// forward and dq take S = Q K^T in one order (the same products into each
+// accumulator, k-step by k-step), so dq's scores are the forward's bit for
+// bit; dk/dv takes S^T = K Q^T with the operands swapped, so its scores
+// differ from the forward's by fp32 ulps. Every recomputed score is put
+// against the forward's m and l.
 //
 // The tensor-core bodies run every product on the tensor cores (mma.sync
 // m16n8k16, bf16 or fp16 in, fp32 accumulators) over tiles staged in shared
@@ -54,46 +47,7 @@
 namespace fa {
 
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kRows = 64;  // rows a block owns
-constexpr int kDimsPerLane = 32;
 constexpr float kMasked = -1e9f;  // the plain interior's score of a masked key
-
-template <int HD>
-struct Cfg {
-  static constexpr int kLanesPerRow = HD / kDimsPerLane;  // 1, 2 or 4
-  static constexpr int kThreads = kRows * kLanesPerRow;
-  static constexpr int kKeys = HD <= 64 ? 64 : 32;        // rows a staged tile
-  static constexpr int kChunks = kDimsPerLane / 4;        // float4 chunks a lane
-  static constexpr int kRowChunks = HD / 4;               // float4 chunks a row
-};
-
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float4 axpy4(float p, float4 v, float4 acc) {
-  return make_float4(fmaf(p, v.x, acc.x), fmaf(p, v.y, acc.y), fmaf(p, v.z, acc.z),
-                     fmaf(p, v.w, acc.w));
-}
-
-// The sum of `part` over the LANES neighbouring lanes of a row.
-template <int LANES>
-__device__ __forceinline__ float reduce_row(float part) {
-#pragma unroll
-  for (int w = LANES / 2; w > 0; w /= 2) part += __shfl_xor_sync(kFull, part, w);
-  return part;
-}
 
 // ---- tensor-core helpers (the bf16 and fp16 bodies) ----------------------
 
@@ -308,7 +262,7 @@ __device__ __forceinline__ void store_warp_tile(E* ws, const float (&acc)[HD / 8
   }
 }
 
-// ---- 3xTF32 helpers (the fp32 forward and dk/dv bodies) ------------------
+// ---- 3xTF32 helpers (the three fp32 bodies) -------------------------------
 
 // x rounded to tf32 (10 explicit mantissa bits, the low 13 bits zero),
 // nearest with ties away from zero, as cvt.rna.tf32.f32 rounds: the bits
@@ -350,7 +304,7 @@ __device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const unsigned (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a . b in 3xTF32, in the one order every product of both bodies
+// d += a . b in 3xTF32, in the one order every product of the three bodies
 // takes: a_lo b_hi, a_hi b_lo, then a_hi b_hi.
 __device__ __forceinline__ void mma_3xtf32(float (&d)[4], const unsigned (&ah)[4],
                                            const unsigned (&al)[4], unsigned bh0, unsigned bh1,
@@ -379,7 +333,7 @@ __device__ __forceinline__ void split_tile(float* tile, float* lo_tile, int rows
   }
 }
 
-// An m16n8 accumulator (P or P^T, dS^T) as the split A fragment of the next
+// An m16n8 accumulator (P or P^T, dS or dS^T) as the split A fragment of the next
 // product, whose K index is the accumulator's 8 columns taken in the
 // permuted order: A's column t is the accumulator's column 2t, t + 4 is
 // 2t + 1. Each lane already holds exactly those, so no shuffle is needed;

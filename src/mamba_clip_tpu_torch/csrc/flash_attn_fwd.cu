@@ -49,9 +49,9 @@
 // and lo rows are read in the same order by 32-bit loads (ldmatrix.trans
 // moves 16-bit elements only), so P . V needs no shuffle. O / l is written
 // from the accumulators, a quad 32 bytes of a row. Keys are walked in
-// 16-key chunks, so T 197 computes 208 x 208. The scores are not the dq
-// body's bit for bit: dq sums them on the FMA pipes; the two differ by fp32
-// ulps of s, put against this body's m and l.
+// 16-key chunks, so T 197 computes 208 x 208. The fp32 dq body
+// (flash_attn_bwd.cu) takes S = Q . K^T from the same splits in the same
+// order, so its scores are this body's bit for bit.
 //
 // The tensor-core body (flash_attn_fwd_tc_kernel) runs bf16 and fp16, one
 // instance each, with or without the residuals: training, image_embed,

@@ -23,14 +23,14 @@ Two implementations:
   (``csrc/flash_attn_bwd.cu``, ``_flash_attention_dkv_kernel`` and
   ``_flash_attention_dq_kernel``). Each has two bodies: bf16 and fp16 run
   every product on the tensor cores (mma.sync with fp32 accumulators over
-  tiles staged by cp.async, one instance of the body a type); fp32 runs the
-  forward and dk/dv on the tensor cores too, as 3xTF32 (each fp32 operand
-  split into two TF32 terms, three products a product), and dq on the CUDA
-  cores. The fp32 bodies' scores agree to fp32 ulps, not bit for bit:
-  dq sums them on the FMA pipes and dk/dv with its operands swapped, each
-  put against the forward's m and l. Each wrapper launches its kernel or
-  raises, and counts its launches, in all and by body. No type is cast to
-  another to reach a kernel.
+  tiles staged by cp.async, one instance of the body a type); fp32 runs
+  all three on the tensor cores too, as 3xTF32 (each fp32 operand split
+  into two TF32 terms, three products a product). dq takes its scores
+  S = Q K^T as the fp32 forward does, so they are the forward's bit for
+  bit; dk/dv takes them with its operands swapped, so they agree with the
+  forward's to fp32 ulps; each is put against the forward's m and l. Each
+  wrapper launches its kernel or raises, and counts its launches, in all
+  and by body. No type is cast to another to reach a kernel.
 
 :func:`flash_attention_interior` is what ``--attn-impl flash`` runs: the
 kernels for CUDA tensors, the plain versions for CPU tensors. Where a
@@ -200,8 +200,8 @@ _launches_lock = threading.Lock()  # the two towers may be served from two threa
 def _count(wrapper, dtype) -> None:
     """One launch of ``wrapper``, under the body that ran it:
     ``"tensor_cores"`` for bf16 and fp16, ``"cuda_cores"`` for fp32. The
-    key names the fp32 body, which runs 3xTF32 on the tensor cores in the
-    forward and dk/dv and on the CUDA cores in dq."""
+    key names the fp32 body, which runs 3xTF32 on the tensor cores in all
+    three kernels."""
     body = "cuda_cores" if dtype == torch.float32 else "tensor_cores"
     with _launches_lock:
         wrapper.launches += 1

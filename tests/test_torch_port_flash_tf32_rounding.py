@@ -1,6 +1,6 @@
 """The fp32 flash bodies' 3xTF32 arithmetic, against the JAX package.
 
-The fp32 forward and dk/dv kernels (``csrc/flash_attn_fwd.cu``,
+The fp32 forward, dk/dv and dq kernels (``csrc/flash_attn_fwd.cu``,
 ``csrc/flash_attn_bwd.cu``) take every product on the tensor cores as
 3xTF32: each fp32 operand x is split into hi = tf32(x) and lo = tf32(x - hi),
 rounded to nearest with ties away from zero as ``cvt.rna.tf32.f32`` rounds
@@ -8,30 +8,31 @@ rounded to nearest with ties away from zero as ``cvt.rna.tf32.f32`` rounds
 inf and NaN kept), and a product is lo.hi + hi.lo + hi.hi in fp32. The
 forward takes S = Q K^T and O = P V with P = exp(S * scale - m) (O divided
 by l at the end); dk/dv takes S^T = K Q^T, dV = P^T dO, dP^T = V dO^T and
-dK = dS^T Q, with m and l from the forward.
+dK = dS^T Q; dq takes S = Q K^T in the forward's order, dP = dO V^T and
+dQ = dS K; both backward bodies take m and l from the forward.
 
-``_forward`` and ``_dkv`` below model exactly those rounding points in plain
-PyTorch (every product as the three-term split, the rest in fp32). They live
-here, not in the package: the package's plain versions are the plain
-interior's, and the kernels are held against those on the card
+``_forward``, ``_dkv`` and ``_dq`` below model exactly those rounding points
+in plain PyTorch (every product as the three-term split, the rest in fp32).
+They live here, not in the package: the package's plain versions are the
+plain interior's, and the kernels are held against those on the card
 (``chip_smoke.py``). Here the model is held against JAX's
 ``flash_attention_interior`` run with the ``mha_reference`` oracle, and
-against ``jax.grad`` of it for dk and dv, as
+against ``jax.vjp`` of it for dq, dk and dv, as
 ``tests/test_torch_port_flash_grad.py`` runs it (B 2, h 2, hd 64; T 197
 unmasked and T 77 with a prefix and a holed key mask; fp32 numpy inputs
-from a seed).
+from a seed). One jitted ``vjp`` a case serves both model tests.
 
 Tolerance: 1e-5 relative to each output's largest entry. hi + lo carries an
 operand to about 2^-22 of its size and the dropped lo.lo term is 2^-22 of
 a product, so each product is fp32's within a few ulps; the sums over 64
 dims or up to 197 keys, taken in another order than JAX's, add a few fp32
-ulps of the largest terms, and dk is a remainder of terms that cancel (the
-ds of a row sum to 0), which can amplify that by the ratio of the terms to
-the remainder. Measured at most a few 1e-6.
+ulps of the largest terms, and dq and dk are remainders of terms that
+cancel (the ds of a row sum to 0), which can amplify that by the ratio of
+the terms to the remainder. Measured at most a few 1e-6.
 
 With one term (plain TF32: tf32(a) . tf32(b)) each product is off by up to
-2^-11 of its size; the test prints that error beside the three-term one as
-the margin the card's fp32 gate (5e-4) would have left, and checks that the
+2^-11 of its size; the tests print that error beside the three-term one as
+the margin the card's fp32 gate (5e-4) would have left, and check that the
 split buys accuracy.
 """
 
@@ -108,6 +109,25 @@ def _dkv(q, k, v, mask, do, sm, o, m, l, terms=3):
     return dk.transpose(1, 2), dv.transpose(1, 2)
 
 
+def _dq(q, k, v, mask, do, sm, o, m, l, terms=3):
+    """dq ``[B, T, h, hd]`` with the dq kernel's products: S = Q K^T in the
+    forward's order, dP = dO V^T and dQ = dS K; di from the forward's
+    result."""
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    doh = do.reshape(do.shape[0], do.shape[1], H, HD).transpose(1, 2)
+    oh = o.reshape(o.shape[0], o.shape[1], H, HD).transpose(1, 2)
+    di = (oh * doh).sum(-1, keepdim=True)
+    s = _mm(qh, kh.transpose(2, 3), terms) * sm
+    if mask is not None:
+        s = s.masked_fill(~mask, -1e9)
+    p = torch.exp(s - m) / l
+    dp = _mm(doh, vh.transpose(2, 3), terms)
+    ds = p * (dp - di) * sm
+    if mask is not None:
+        ds = ds.masked_fill(~mask, 0.0)
+    return _mm(ds, kh, terms).transpose(1, 2)
+
+
 def _inputs(T, seed):
     rs = np.random.RandomState(seed)
     q, k, v = (rs.randn(B, T, H, HD).astype(np.float32) for _ in range(3))
@@ -145,32 +165,63 @@ def _rel(got: torch.Tensor, want: np.ndarray) -> float:
     return float(np.abs(got.numpy() - want).max() / np.abs(want).max())
 
 
-@pytest.mark.parametrize("T, kind", [(197, None), (77, "prefix"), (77, "holes")])
-def test_3xtf32_model_matches_jax(T, kind):
-    q, k, v, do = _inputs(T, seed=T)
-    mask = _mask(T, kind, seed=T + 1)
-    sm = HD ** -0.5
-    jm = None if mask is None else jnp.asarray(mask)
+_CASES = [(197, None), (77, "prefix"), (77, "holes")]
 
-    def out(q, k, v):
-        return jfa.flash_attention_interior(q, k, v, jm, sm_scale=sm, kernel_fn=_mha_oracle())
 
-    o_j, vjp = jax.jit(lambda q, k, v: jax.vjp(out, q, k, v))(*map(jnp.asarray, (q, k, v)))
-    _, dk_j, dv_j = (np.asarray(g) for g in vjp(jnp.asarray(do)))
-    want = [np.asarray(o_j), dk_j, dv_j]
+@pytest.fixture(scope="module")
+def jax_case():
+    """The inputs of a case (torch tensors, the mask or None, the scale) and
+    JAX's o, dq, dk and dv on them, from one jitted ``jax.vjp`` a case."""
+    cache = {}
 
-    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
-    tm = None if mask is None else torch.from_numpy(mask)
+    def get(T, kind):
+        if (T, kind) not in cache:
+            q, k, v, do = _inputs(T, seed=T)
+            mask = _mask(T, kind, seed=T + 1)
+            sm = HD ** -0.5
+            jm = None if mask is None else jnp.asarray(mask)
+
+            def out(q, k, v):
+                return jfa.flash_attention_interior(q, k, v, jm, sm_scale=sm,
+                                                    kernel_fn=_mha_oracle())
+
+            o_j, vjp = jax.jit(lambda q, k, v: jax.vjp(out, q, k, v))(
+                *map(jnp.asarray, (q, k, v)))
+            want = [np.asarray(o_j), *(np.asarray(g) for g in vjp(jnp.asarray(do)))]
+            tm = None if mask is None else torch.from_numpy(mask)
+            cache[T, kind] = ((*map(torch.from_numpy, (q, k, v)), tm,
+                               torch.from_numpy(do), sm), want)
+        return cache[T, kind]
+
+    return get
+
+
+@pytest.mark.parametrize("T, kind", _CASES)
+def test_3xtf32_model_matches_jax(T, kind, jax_case):
+    (tq, tk, tv, tm, tdo, sm), (o_j, _, dk_j, dv_j) = jax_case(T, kind)
     errs = {}
     for terms in (3, 1):
         o, m, l = _forward(tq, tk, tv, tm, sm, terms)
         dk, dv = _dkv(tq, tk, tv, tm, tdo, sm, o, m, l, terms)
-        errs[terms] = [_rel(g, w) for g, w in zip((o, dk, dv), want)]
+        errs[terms] = [_rel(g, w) for g, w in zip((o, dk, dv), (o_j, dk_j, dv_j))]
     three, one = errs[3], errs[1]
     print(f"T={T} {kind}: 3xTF32 o {three[0]:.2e} dk {three[1]:.2e} dv {three[2]:.2e}; "
           f"plain TF32 o {one[0]:.2e} dk {one[1]:.2e} dv {one[2]:.2e} (card gate 5e-4)")
     assert max(three) <= TOL, three
     assert all(a < b for a, b in zip(three, one)), (three, one)
+
+
+@pytest.mark.parametrize("T, kind", _CASES)
+def test_3xtf32_dq_model_matches_jax(T, kind, jax_case):
+    (tq, tk, tv, tm, tdo, sm), (_, dq_j, _, _) = jax_case(T, kind)
+    errs = {}
+    for terms in (3, 1):
+        o, m, l = _forward(tq, tk, tv, tm, sm, terms)
+        errs[terms] = _rel(_dq(tq, tk, tv, tm, tdo, sm, o, m, l, terms), dq_j)
+    print(f"T={T} {kind}: dq 3xTF32 {errs[3]:.2e}; plain TF32 {errs[1]:.2e} "
+          f"(card gate 5e-4)")
+    assert errs[3] <= TOL, errs
+    assert errs[3] < errs[1], errs
 
 
 def _bits(x: float) -> int:

@@ -161,6 +161,7 @@ def test_bounds_against_numbers_worked_by_hand():
 @pytest.mark.parametrize("kind, kw, tf32_ms, fma_ms", [
     ("forward", dict(stats=2), 1.497, 3.674),
     ("dk/dv", dict(tensors=6, stats=3, products=4), 2.986, 7.349),
+    ("dq", dict(tensors=5, stats=3, products=3), 2.239, 5.512),
 ])
 def test_fp32_attention_bounds_in_3xtf32(kind, kw, tf32_ms, fma_ms):
     """The fp32 flash bodies' bounds per 12 + 12 launches at batch 64 (the
