@@ -370,7 +370,8 @@ on failure:
    phase says which branch ran; (b) ``--report-to wandb`` runs to its end
    with one warning where wandb is not installed (an installed one runs
    with ``WANDB_MODE=disabled``); (c) ``profile_step`` traces 3 steps of the
-   full-width flash contrastive step (after 3 warm-up steps): its
+   bench's full-width flash contrastive step at context 256 (after 3
+   warm-up steps): its
    attribution table printed, the hand-written class 72 kernels a step,
    the flash counters 24 + 24 + 24 a traced step and no scan, the classes
    summing to the profiler's device total within 1e-3. Prints a
@@ -439,8 +440,13 @@ on failure:
    ``measure_report_tokens`` at 2,000 rows and 3 draws, its largest length
    at most ``report_token_upper_bound``'s; ``benchmark_e2e --layout jpeg``
    over a few hundred 256-px JPEGs at batch 64, the CLI's exit 0 and both
-   epochs' img/s finite and positive. Each part's seconds; a ``tools``
-   JSON line;
+   epochs' img/s finite and positive; ``bench.main`` at 1 warm-up and 2
+   timed steps and no secondary, at JAX's defaults (``int8_delayed``,
+   einsum, context 224) and at ``BENCH_QUANT= BENCH_ATTN=flash``: one JSON
+   line each with JAX's keys and a finite, positive value, its kernel check
+   passed (1 + 1 scan launches, and 2 + 2 + 2 flash under flash), 24 + 24
+   + 24 flash launches a step under flash and none under einsum. Each
+   part's seconds; a ``tools`` JSON line;
 28. prints the kernels line (twelve entries: the two scan kernels, the
    roofline's chain kernel, and each flash kernel as three entries, one a
    body and type: ``flash_attn_fwd``, ``flash_attn_bwd_dkv`` and
@@ -3837,20 +3843,25 @@ class LaunchTally:
             for body, c in by.items():
                 self.total_bodies[k][body] += c
 
-    def __call__(self, what, fn, want):
-        """``fn()``; fails unless its launches are ``want`` (0 for a counter
-        not named), every flash launch on the tensor cores."""
+    def __call__(self, what, fn, want, check=None):
+        """``fn()``; fails unless its launches are ``want`` plus ``check`` (0
+        for a counter not named), every flash launch on the tensor cores.
+        ``check``: the launches ``fn`` makes to compare a kernel with its
+        plain version, left out of the totals."""
         import torch
 
+        check = check or {}
         self.reset()
         out = fn()
         torch.cuda.synchronize()
         counts, bodies = self.read(), self.bodies()
-        full = {k: want.get(k, 0) for k in counts}
+        full = {k: want.get(k, 0) + check.get(k, 0) for k in counts}
         if counts != full or any(by["cuda_cores"] for by in bodies.values()):
             fail(f"{self.phase} {what}: launches {counts}, by body {bodies}; expected {full} "
                  "on the tensor cores")
-        self.add(counts, bodies)
+        self.add({k: n - check.get(k, 0) for k, n in counts.items()},
+                 {k: dict(by, tensor_cores=by["tensor_cores"] - check.get(k, 0))
+                  for k, by in bodies.items()})
         return out
 
 
@@ -4089,7 +4100,7 @@ def utilities_phase(card, reset_counts, read_counts, flash_bodies):
         steps = 3
         # 3 warm-up steps and the traced ones
         r = tally("profile_step", lambda: profile_step("biomedclip", 64, "amp", "flash",
-                                                       steps=steps, top=12),
+                                                       steps=steps, top=12, text_ctx=256),
                   {"fwd": 24 * (3 + steps), "dkv": 24 * (3 + steps), "dq": 24 * (3 + steps)})
         say(r["table"])
         want = {"selective_scan_fwd": 0, "selective_scan_bwd": 0, "flash_attn_fwd": 24 * steps,
@@ -4219,6 +4230,38 @@ TOOLS_QS1_STEPS = 30
 TOOLS_QP_STEPS = 3
 TOOLS_FULL_WIDTH_STEPS = 3
 TOOLS_E2E = {"n": 384, "src_px": 256, "batch": 64, "workers": 4}
+# the bench at reduced depth, its one recipe a run; JAX's keys of each line
+TOOLS_BENCH = {"BENCH_WARMUP": "1", "BENCH_STEPS": "2", "BENCH_SECONDARY": ""}
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "baseline_img_s",
+              "vs_baseline_conservative", "baseline_conservative_img_s"]
+BENCH_RUNS = (("defaults", {}, BENCH_KEYS + ["quant", "text_context"]),
+              ("flash", {"BENCH_QUANT": "", "BENCH_ATTN": "flash"},
+               BENCH_KEYS + ["attn_impl", "text_context"]))
+
+
+def run_bench(env: dict) -> tuple:
+    """``bench.main()`` on the card under the ``BENCH_*`` variables of
+    ``env`` (the others unset), the process environment restored after;
+    returns (its JSON line, every line it printed on stdout, and on
+    stderr)."""
+    import contextlib
+    import io
+
+    from mamba_clip_tpu_torch import bench
+
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update(env)
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            line = bench.main([])
+    finally:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+    return line, out.getvalue().splitlines(), err.getvalue().splitlines()
 
 
 def tools_phase(card, reset_counts, read_counts, flash_bodies):
@@ -4322,10 +4365,34 @@ def tools_phase(card, reset_counts, read_counts, flash_bodies):
     say(f"tools benchmark_e2e --layout jpeg: {json.dumps(e2e)}")
     line["benchmark_e2e"] = dict(e2e, layout="jpeg")
     line["benchmark_e2e_s"] = time.perf_counter() - t5
+
+    # the bench through bench.main: its kernel check (the scans, and the
+    # flash kernels at T 197 and 224 under flash), then the step; the flash
+    # run's 24 + 24 + 24 launches a step count on the main path, the check's
+    # do not
+    line["bench"] = {}
+    steps = int(TOOLS_BENCH["BENCH_WARMUP"]) + int(TOOLS_BENCH["BENCH_STEPS"])
+    for name, env, keys in BENCH_RUNS:
+        t6 = time.perf_counter()
+        flash = env.get("BENCH_ATTN") == "flash"
+        want = {k: 24 * steps for k in ("fwd", "dkv", "dq")} if flash else {}
+        check = dict({"scan_fwd": 1, "scan_bwd": 1},
+                     **({k: 2 for k in ("fwd", "dkv", "dq")} if flash else {}))
+        out, printed, notes = tally(f"bench {name}",
+                                    lambda env=env: run_bench({**TOOLS_BENCH, **env}),
+                                    want, check=check)
+        say(f"tools bench {name}: {printed}; stderr {notes}")
+        if (len(printed) != 1 or json.loads(printed[0]) != out or list(out) != keys
+                or out["metric"] != "stage1_contrastive_images_per_sec_per_chip"
+                or not (np.isfinite(out["value"]) and out["value"] > 0)):
+            fail(f"tools bench {name}: printed {printed}; expected one JSON line with the keys "
+                 f"{keys} and a finite, positive value")
+        line["bench"][name] = dict(out, env=env, stderr=notes,
+                                   seconds=time.perf_counter() - t6)
     line["reduced"] = {"quant_stage1_steps": TOOLS_QS1_STEPS,
                        "quant_parity_steps": TOOLS_QP_STEPS,
                        "full_width_steps": TOOLS_FULL_WIDTH_STEPS,
-                       "benchmark_e2e": TOOLS_E2E}
+                       "benchmark_e2e": TOOLS_E2E, "bench": TOOLS_BENCH}
     return line, tally.total, tally.total_bodies
 
 
@@ -6083,7 +6150,8 @@ def main(argv=None) -> None:
     say(json.dumps({"quant_mesh_axes": qm_line}))
 
     # 27. the tools: flash_sweep (its flash call counted), parity_harness,
-    # quant_parity, measure_report_tokens and benchmark_e2e through the CLI
+    # quant_parity, measure_report_tokens, benchmark_e2e through the CLI and
+    # the bench
     gc.collect()
     torch.cuda.empty_cache()
     t27 = time.perf_counter()

@@ -205,17 +205,19 @@ def _tb_writer(args: Args, run: RunState):
 
 
 def init_quant_state(model, image_size: int, policy, stage: int, takes_text: bool,
-                     device) -> None:
+                     device, context: Optional[int] = None) -> None:
     """The delayed int8 scales of ``--quant int8_delayed*`` from the JAX
     package's init batch: two zero images at the train size in the compute
-    type and two all-pad token rows of the text tower's context. A model
-    without delayed scales is left as it is."""
+    type and two all-pad token rows of ``context`` tokens (the text tower's
+    context unless given). A model without delayed scales is left as it is."""
     if not delayed_holders(model):
         return
     img = torch.zeros((2, image_size, image_size, 3), dtype=policy.compute_dtype, device=device)
-    text_mod = getattr(model, "text", None) or getattr(getattr(model, "clip", None), "text", None)
-    tok = torch.zeros((2, getattr(text_mod, "context_length", 256)), dtype=torch.int64,
-                      device=device)
+    if context is None:
+        text_mod = (getattr(model, "text", None)
+                    or getattr(getattr(model, "clip", None), "text", None))
+        context = getattr(text_mod, "context_length", 256)
+    tok = torch.zeros((2, context), dtype=torch.int64, device=device)
     if stage == 1 and takes_text:
         init_delayed_scales(model, image=img, text=tok)
     else:
